@@ -1,0 +1,87 @@
+"""The port's fused attention against the JAX Pallas kernel (interpret mode)
+and the JAX XLA attention, on the CPU (the port's plain version).
+
+hd=32, H=4 makes the JAX wrapper take its packed (B, T, H*hd) layout and
+hd=16, H=2 its head-major one. Tolerance rtol/atol 2e-5 in fp32: the same
+function summed in other orders (the JAX repo's own kernel tests use it).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from unispeech_tpu.ops.attention import multihead_attention as jax_mha
+from unispeech_tpu.ops.pallas.flash_attention import fused_attention as jax_fused
+from unispeech_tpu_torch.ops.attention import multihead_attention
+from unispeech_tpu_torch.ops.kernels.flash_attention import fused_attention
+
+TOL = 2e-5
+
+
+def _make(B=2, T=100, H=4, hd=32, bias=True, gate=True, mask=True, amask=False, seed=0):
+    rng = np.random.RandomState(seed)
+    q, k, v = (rng.randn(B, T, H, hd).astype(np.float32) for _ in range(3))
+    args = dict(
+        bias=rng.randn(H, T, T).astype(np.float32) if bias else None,
+        gate=(1.0 / (1.0 + np.exp(-rng.randn(B, H, T))) + 1.0).astype(np.float32)
+        if gate else None,
+        key_padding_mask=(np.arange(T)[None, :] >= np.asarray([T, T - 37])[:B, None])
+        if mask else None,
+        attn_mask=np.where(np.abs(np.arange(T)[:, None] - np.arange(T)[None, :]) > 40,
+                           -1e4, 0.0).astype(np.float32) if amask else None,
+    )
+    return q, k, v, args
+
+
+def _both(q, k, v, args):
+    jargs = {n: None if a is None else jnp.asarray(a) for n, a in args.items()}
+    targs = {n: None if a is None else torch.from_numpy(np.asarray(a)) for n, a in args.items()}
+    got = fused_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), **targs)
+    want = jax_fused(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True, **jargs)
+    return got.numpy(), np.asarray(want)
+
+
+CASES = {
+    "bias_gate_pad": dict(),
+    "bias_pad": dict(gate=False),
+    "pad_only": dict(bias=False, gate=False),
+    "bias_gate": dict(mask=False),
+    "attn_mask": dict(amask=True),
+    "ragged_t": dict(T=97),
+}
+
+
+@pytest.mark.parametrize("layout", [(4, 32), (2, 16)], ids=["packed", "head_major"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_fused_matches_pallas(case, layout):
+    H, hd = layout
+    got, want = _both(*_make(H=H, hd=hd, **CASES[case]))
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+def test_fused_matches_xla_and_lse():
+    q, k, v, args = _make(T=97)
+    bias = args["gate"][..., None] * args["bias"][None]
+    want = jax_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), bias=jnp.asarray(bias),
+                   key_padding_mask=jnp.asarray(args["key_padding_mask"]))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    targs = {n: None if a is None else torch.from_numpy(np.asarray(a)) for n, a in args.items()}
+    got, lse = fused_attention(tq, tk, tv, **targs, return_lse=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    mine = multihead_attention(tq, tk, tv, bias=torch.from_numpy(bias),
+                               key_padding_mask=targs["key_padding_mask"])
+    np.testing.assert_allclose(mine.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    # lse of the same logits, in float64 numpy
+    logits = np.einsum("bthd,bshd->bhts", q / np.sqrt(32.0), k).astype(np.float64) + bias
+    logits += np.where(args["key_padding_mask"], -1e30, 0.0)[:, None, None, :]
+    m = logits.max(-1)
+    ref_lse = m + np.log(np.exp(logits - m[..., None]).sum(-1))
+    np.testing.assert_allclose(lse.numpy(), ref_lse, rtol=1e-5, atol=1e-4)
+
+
+def test_dropout_not_in_slice():
+    q, k, v, _ = _make(B=1, T=8, bias=False, gate=False, mask=False)
+    with pytest.raises(NotImplementedError):
+        fused_attention(*map(torch.from_numpy, (q, k, v)), dropout_rate=0.1)

@@ -1,0 +1,171 @@
+"""The PyTorch port's WavLM feature extraction against the JAX WavLM (CPU).
+
+The JAX model is initialised from a seed in fp32, its params are carried
+into the port with ``wavlm_state_dict_from_jax`` and loaded with
+``strict=True``, and the same numpy waveforms go through both. On the CPU the
+JAX package runs the unfused frontend (its fusion is TPU-only) while the port
+always takes the fused structure (L1 + stats, GroupNorm folded into the next
+block as an affine, fused conv blocks) with the ops' plain versions, so this
+also holds the fusion algebra to the unfused math. Tolerance rtol 2e-4 /
+atol 2e-5, the fp32 feature tolerance the repo's converter tests use.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from unispeech_tpu.configs import WavLMModelConfig as JaxWavLMConfig
+from unispeech_tpu.models.wavlm import WavLM as JaxWavLM
+from unispeech_tpu_torch.configs import WavLMModelConfig
+from unispeech_tpu_torch.convert.from_jax import (
+    jax_params_from_state_dict,
+    wavlm_state_dict_from_jax,
+)
+from unispeech_tpu_torch.models.wavlm import WavLM
+
+RTOL, ATOL = 2e-4, 2e-5
+
+
+def small_cfg_dict(**over):
+    d = dict(
+        encoder_layers=3,
+        encoder_embed_dim=96,
+        encoder_ffn_embed_dim=192,
+        encoder_attention_heads=4,
+        conv_feature_layers="[(64,10,5)] + [(64,3,2)] * 2 + [(64,2,2)]",
+        conv_pos=16,
+        conv_pos_groups=4,
+        dropout=0.0,
+        attention_dropout=0.0,
+        activation_dropout=0.0,
+        encoder_layerdrop=0.0,
+        relative_position_embedding=True,
+        num_buckets=32,
+        max_distance=64,
+        gru_rel_pos=True,
+    )
+    d.update(over)
+    return d
+
+
+def to_numpy_tree(tree):
+    if isinstance(tree, dict) or hasattr(tree, "items"):
+        return {k: to_numpy_tree(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def build_pair(cfg_dict, scanned=True, seed=0):
+    jcfg = JaxWavLMConfig.from_reference_dict(cfg_dict)
+    jcfg = dataclasses.replace(
+        jcfg, encoder=dataclasses.replace(jcfg.encoder, scan_layers=scanned))
+    jmodel = JaxWavLM(jcfg)
+    params = jmodel.init({"params": jax.random.PRNGKey(seed)},
+                         jnp.zeros((1, 4000), jnp.float32))["params"]
+    params = to_numpy_tree(params)
+    cfg = WavLMModelConfig.from_reference_dict(cfg_dict)
+    model = WavLM(cfg)
+    model.load_state_dict(wavlm_state_dict_from_jax(params, cfg.encoder), strict=True)
+    model.eval()
+    return jmodel, params, model
+
+
+def jax_extract(jmodel, params, wav, lengths, **kw):
+    fn = jax.jit(lambda p, w, n: jmodel.apply(
+        {"params": p}, w, lengths=n, method=JaxWavLM.extract_features, **kw))
+    return fn(params, jnp.asarray(wav), jnp.asarray(lengths))
+
+
+def close(got, want):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+CONFIGS = {
+    "base_style": {},
+    "no_relpos": {"relative_position_embedding": False, "gru_rel_pos": False},
+}
+
+
+@pytest.mark.parametrize("scanned", [True, False], ids=["scanned", "unrolled"])
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_extract_features_match_jax(name, scanned):
+    jmodel, params, model = build_pair(small_cfg_dict(**CONFIGS[name]), scanned)
+    rng = np.random.RandomState(0)
+    wav = rng.randn(3, 4000).astype(np.float32)
+    lengths = np.asarray([4000, 2900, 1650], np.int32)
+
+    jout = jax_extract(jmodel, params, wav, lengths, collect_layer_outputs=True)
+    out = model.extract_features(torch.from_numpy(wav), lengths=torch.from_numpy(lengths),
+                                 collect_layer_outputs=True)
+    assert out.x.shape == jout.x.shape
+    close(out.conv_features, jout.conv_features)
+    close(out.x, jout.x)
+    close(out.layer_outputs, jout.layer_outputs)
+    np.testing.assert_array_equal(out.padding_mask.numpy(), np.asarray(jout.padding_mask))
+
+    jmid = jax_extract(jmodel, params, wav, lengths, output_layer=2)
+    mid = model.extract_features(torch.from_numpy(wav), lengths=torch.from_numpy(lengths),
+                                 output_layer=2)
+    close(mid.x, jmid.x)
+
+
+VARIANTS = {
+    # unfused frontend: plain convs, GroupNorm, GELU; conv bias carried
+    "unfused_conv_bias": {"use_fused_conv": False, "conv_bias": True},
+    # plain first conv, its GroupNorm folded into the fused blocks from x
+    "plain_l1": {"use_fused_l1": False},
+    # attention through the materialized reference path
+    "materialized_attention": {"use_flash_attention": False},
+    "pre_ln_normalize": {"layer_norm_first": True, "normalize": True},
+}
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_variants_match_jax(name):
+    jmodel, params, model = build_pair(small_cfg_dict(**VARIANTS[name]))
+    wav = np.random.RandomState(1).randn(2, 4000).astype(np.float32)
+    lengths = np.asarray([4000, 3100], np.int32)
+    jout = jax_extract(jmodel, params, wav, lengths)
+    out = model.extract_features(torch.from_numpy(wav), lengths=torch.from_numpy(lengths))
+    close(out.x, jout.x)
+
+
+def test_attn_mask_matches_jax():
+    """A (T, S) additive streaming mask reaches every layer's attention."""
+    jmodel, params, model = build_pair(small_cfg_dict())
+    wav = np.random.RandomState(2).randn(2, 4000).astype(np.float32)
+    T = 99  # frames of 4000 samples under the small conv spec
+    idx = np.arange(T)
+    amask = np.where(idx[None, :] > idx[:, None] + 8, -1e4, 0.0).astype(np.float32)
+    jout = jax.jit(lambda p, w, m: jmodel.apply({"params": p}, w, attn_mask=m))(
+        params, jnp.asarray(wav), jnp.asarray(amask))
+    out = model(torch.from_numpy(wav), attn_mask=torch.from_numpy(amask))
+    close(out.x.detach(), jout.x)
+
+
+def test_params_round_trip():
+    """The inverse carry gives back the (scanned) JAX tree it came from."""
+    cfg_dict = small_cfg_dict()
+    _, params, model = build_pair(cfg_dict)
+    enc = WavLMModelConfig.from_reference_dict(cfg_dict).encoder
+    back = jax_params_from_state_dict(model.state_dict(), enc)
+    flat_a = jax.tree_util.tree_leaves_with_path(params)
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_a) == len(flat_b)
+    for path, leaf in flat_a:
+        np.testing.assert_array_equal(flat_b[path], leaf)
+
+
+def test_not_in_slice_raises():
+    cfg = WavLMModelConfig.from_reference_dict(small_cfg_dict(extractor_mode="layer_norm"))
+    with pytest.raises(NotImplementedError):
+        WavLM(cfg)
+    model = WavLM(WavLMModelConfig.from_reference_dict(small_cfg_dict()))
+    wav = torch.zeros(1, 4000)
+    with pytest.raises(NotImplementedError):
+        model(wav, mask=True)
+    with pytest.raises(NotImplementedError):
+        model(wav, deterministic=False)

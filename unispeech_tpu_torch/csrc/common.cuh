@@ -1,0 +1,21 @@
+// Shared helpers for the port's Hopper kernels (sm_90a, bound by ctypes).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace usk {
+
+__device__ __forceinline__ float bf2f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ __nv_bfloat16 f2bf(float x) { return __float2bfloat16_rn(x); }
+// round an fp32 value through bf16 (the storage dtype) and back
+__device__ __forceinline__ float round_bf16(float x) { return bf2f(f2bf(x)); }
+
+// exact (erf) GELU in fp32; the TPU kernels use a polynomial only because
+// Mosaic has no erf
+__device__ __forceinline__ float gelu_erf(float x) {
+    return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
+}
+
+}  // namespace usk

@@ -1,0 +1,438 @@
+"""Conv frontend + transformer encoder (WavLM / HuBERT skeleton), inference.
+
+Counterpart of the JAX package's ``models/encoder.py``. Parameters are fp32
+and named in the fairseq/standalone-WavLM key layout, so a state dict carried
+from the JAX params (convert/from_jax.py) loads with ``strict=True``;
+computation runs in the model's ``dtype`` with the same explicit casts as the
+JAX code (fp32 islands for the norms, GELU and the rel-pos gate). (B, T, C)
+layout throughout.
+
+The frontend keeps the fused structure of the JAX TPU path wherever the
+config allows it: the first conv and its GroupNorm statistics in one op, the
+GroupNorm folded into the next block as a (B, C) affine, and each
+(k in {2,3}, s=2) layer as one conv+GELU block. Those three ops launch their
+CUDA kernels for CUDA tensors and take their plain versions for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from unispeech_tpu_torch.configs import EncoderConfig
+from unispeech_tpu_torch.ops.attention import multihead_attention, rel_pos_gate
+from unispeech_tpu_torch.ops.kernels.conv_stack import conv_gelu_block
+from unispeech_tpu_torch.ops.kernels.flash_attention import fused_attention
+from unispeech_tpu_torch.ops.kernels.l1_frontend import l1_conv_with_stats
+from unispeech_tpu_torch.ops.rel_pos import compute_rel_pos_bias
+
+
+def not_in_slice(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to PyTorch yet")
+
+
+def gelu_fp32(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU computed in fp32, returned in x's dtype."""
+    return F.gelu(x.float()).to(x.dtype)
+
+
+def gelu_accurate(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximated GELU in fp32."""
+    return F.gelu(x.float(), approximate="tanh").to(x.dtype)
+
+
+def get_activation(name: str):
+    acts = {
+        "gelu": gelu_fp32,
+        "gelu_accurate": gelu_accurate,
+        "gelu_fast": gelu_accurate,
+        "relu": F.relu,
+        "swish": F.silu,
+        "tanh": torch.tanh,
+        "linear": lambda x: x,
+    }
+    if name == "glu":
+        raise not_in_slice("the GLU feed-forward (activation_fn='glu')")
+    if name not in acts:
+        raise ValueError(f"unknown activation {name}")
+    return acts[name]
+
+
+def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """Dense layer computed in ``dtype`` from fp32 parameters."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+class Fp32LayerNorm(nn.Module):
+    """LayerNorm over the last dim computed in fp32, output in x's dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), x.shape[-1:], self.weight, self.bias, self.eps)
+        return y.to(x.dtype)
+
+
+class Fp32GroupNorm(nn.Module):
+    """GroupNorm in fp32 on (B, T, C) tensors; with num_groups == C each
+    channel is normalized over time alone (the frontend's first layer)."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, T, C = x.shape
+        G = self.num_groups
+        xg = x.float().reshape(B, T, G, C // G)
+        mean = xg.mean(dim=(1, 3), keepdim=True)
+        var = xg.var(dim=(1, 3), keepdim=True, unbiased=False)
+        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(B, T, C)
+        return (y * self.weight + self.bias).to(x.dtype)
+
+
+class Fp32GroupNormAffine(Fp32GroupNorm):
+    """The per-channel GroupNorm as (a, b) of shape (B, C) with
+    GroupNorm(x) == x*a + b: same parameters as Fp32GroupNorm, the
+    normalize itself left to the fused conv block that follows. The stats
+    come from x or, precomputed, as (mean, var)."""
+
+    def forward(self, x: Optional[torch.Tensor] = None, stats=None):
+        if stats is None:
+            xf = x.float()
+            mean = xf.mean(dim=1)
+            var = xf.var(dim=1, unbiased=False)
+        else:
+            mean, var = stats
+        if mean.shape[-1] != self.num_groups:
+            raise ValueError("the affine form needs one group per channel")
+        a = torch.rsqrt(var + self.eps) * self.weight
+        b = self.bias - mean * a
+        return a, b
+
+
+class Conv1dMM(nn.Module):
+    """Valid-padding strided conv1d; ``weight`` in the torch (out, in, k)
+    layout. ``forward`` is the plain conv in ``dtype``; ``kernel()`` hands
+    the (k, in, out) layout to the fused ops."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int, stride: int,
+                 use_bias: bool, dtype: torch.dtype):
+        super().__init__()
+        self.stride = stride
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(cout, cin, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
+
+    def kernel(self) -> torch.Tensor:
+        return self.weight.permute(2, 1, 0)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:  # (B, T, Cin)
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        y = F.conv1d(h.to(self.dtype).transpose(1, 2), self.weight.to(self.dtype),
+                     bias, stride=self.stride)
+        return y.transpose(1, 2)
+
+
+class ConvBlock(nn.Module):
+    """One frontend layer; children named as the reference's
+    Sequential(conv, dropout, norm, gelu) so the keys read
+    ``conv_layers.{i}.0.weight`` and ``conv_layers.0.2.weight``."""
+
+    def __init__(self, conv: Conv1dMM, norm: Optional[nn.Module] = None):
+        super().__init__()
+        self.add_module("0", conv)
+        if norm is not None:
+            self.add_module("2", norm)
+
+    @property
+    def conv(self) -> Conv1dMM:
+        return self._modules["0"]
+
+    @property
+    def norm(self) -> Optional[nn.Module]:
+        return self._modules.get("2")
+
+
+class ConvFeatureExtractor(nn.Module):
+    """Strided conv1d stack turning a waveform (B, NS) into frames (B, T, C)
+    ("default" mode: GroupNorm after the first conv, GELU after each)."""
+
+    def __init__(self, cfg: EncoderConfig, dtype: torch.dtype):
+        super().__init__()
+        if cfg.extractor_mode != "default":
+            raise not_in_slice(f"extractor_mode={cfg.extractor_mode!r}")
+        self.dtype = dtype
+        layers = cfg.conv_layers
+        # the fusion conditions of the JAX TPU path; the L1 guard is
+        # tightened to stride <= k <= 2*stride (the JAX guard admits k <
+        # stride and then fails while tracing)
+        can_fuse = cfg.use_fused_conv and not cfg.conv_bias
+        self.fuse = [
+            bool(can_fuse and i > 0 and k in (2, 3) and s == 2
+                 and layers[i - 1][0] == dim)
+            for i, (dim, k, s) in enumerate(layers)
+        ]
+        _, k0, s0 = layers[0]
+        self.fuse_l1 = bool(
+            can_fuse and cfg.use_fused_l1 and len(layers) > 1 and self.fuse[1]
+            and s0 <= k0 <= 2 * s0 and s0 <= 8)
+        self.conv_layers = nn.ModuleList()
+        cin = 1
+        for i, (dim, k, s) in enumerate(layers):
+            conv = Conv1dMM(cin, dim, k, s, cfg.conv_bias, dtype)
+            norm = None
+            if i == 0:
+                folded = len(layers) > 1 and self.fuse[1]
+                norm = (Fp32GroupNormAffine if folded else Fp32GroupNorm)(dim, dim)
+            self.conv_layers.append(ConvBlock(conv, norm))
+            cin = dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() != 2:
+            raise ValueError("expect a raw waveform (B, T_samples)")
+        n = len(self.conv_layers)
+        h = x[:, :, None].to(self.dtype)
+        pending_gelu = False  # the previous layer's GELU, applied in-block
+        pending_affine = None  # the first layer's GroupNorm, applied in-block
+        for i, block in enumerate(self.conv_layers):
+            conv = block.conv
+            if i == 0 and self.fuse_l1:
+                h, s1, s2, t = l1_conv_with_stats(
+                    x.float().contiguous(), conv.kernel(), conv.stride, dtype=self.dtype)
+                mean = s1 / t
+                var = torch.clamp(s2 / t - mean * mean, min=0.0)
+                pending_affine = block.norm(stats=(mean, var))
+                pending_gelu = True
+                continue
+            if self.fuse[i]:
+                h, _ = conv_gelu_block(  # a plain conv's output is a transposed view
+                    h.contiguous(), conv.kernel().to(self.dtype), valid_len=h.shape[1],
+                    gelu_in=pending_gelu, gelu_out=True, affine=pending_affine)
+                pending_gelu = False
+                pending_affine = None
+                continue
+            h = conv(h)
+            nxt_fused = i + 1 < n and self.fuse[i + 1]
+            if i == 0:
+                if nxt_fused:
+                    pending_affine = block.norm(h)
+                else:
+                    h = block.norm(h)
+            if nxt_fused:
+                pending_gelu = True
+            else:
+                h = gelu_fp32(h)
+        return h
+
+
+class _WeightNormConv(nn.Module):
+    """Parameters of the weight-normed positional conv (norm over dims 0, 1
+    per kernel position, torch ``weight_norm(dim=2)``)."""
+
+    def __init__(self, C: int, groups: int, K: int):
+        super().__init__()
+        self.weight_g = nn.Parameter(torch.ones(1, 1, K))
+        self.weight_v = nn.Parameter(torch.empty(C, C // groups, K))
+        self.bias = nn.Parameter(torch.zeros(C))
+
+
+class PosConv(nn.Sequential):
+    """Grouped conv positional embedding with weight normalization, SamePad
+    trim (an even kernel drops the last frame) and exact GELU."""
+
+    def __init__(self, cfg: EncoderConfig, dtype: torch.dtype):
+        super().__init__(_WeightNormConv(cfg.encoder_embed_dim, cfg.conv_pos_groups,
+                                         cfg.conv_pos))
+        self.groups = cfg.conv_pos_groups
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, T, C)
+        p = self[0]
+        K = p.weight_v.shape[-1]
+        v = p.weight_v.float()
+        norm = torch.sqrt((v * v).sum(dim=(0, 1), keepdim=True))
+        w = (p.weight_g / torch.clamp(norm, min=1e-12)) * v
+        y = F.conv1d(x.to(self.dtype).transpose(1, 2), w.to(self.dtype),
+                     p.bias.to(self.dtype), padding=K // 2, groups=self.groups)
+        y = y.transpose(1, 2)
+        if K % 2 == 0:
+            y = y[:, :-1]
+        return gelu_fp32(y)
+
+
+class SelfAttention(nn.Module):
+    """Multi-head self-attention with the optional gated rel-pos bias. Layer
+    0 owns the bucket table (``relative_attention_bias``) as in the
+    reference layout; the encoder computes the bias from it once."""
+
+    def __init__(self, cfg: EncoderConfig, dtype: torch.dtype, has_rel_table: bool):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        D = cfg.encoder_embed_dim
+        H = cfg.encoder_attention_heads
+        self.num_heads = H
+        self.head_dim = D // H
+        self.qk_head_dim = (cfg.expand_attention_head_size
+                            if cfg.expand_attention_head_size > 0 else self.head_dim)
+        self.q_proj = nn.Linear(D, H * self.qk_head_dim)
+        self.k_proj = nn.Linear(D, H * self.qk_head_dim)
+        self.v_proj = nn.Linear(D, D)
+        self.out_proj = nn.Linear(D, D)
+        if cfg.relative_position_embedding and cfg.gru_rel_pos:
+            self.grep_linear = nn.Linear(self.head_dim, 8)
+            self.grep_a = nn.Parameter(torch.ones(1, H, 1, 1))
+        if has_rel_table:
+            self.relative_attention_bias = nn.Embedding(cfg.num_buckets, H)
+
+    def forward(self, x, position_bias, key_padding_mask, attn_mask=None):
+        B, T, D = x.shape
+        H, hd, hq = self.num_heads, self.head_dim, self.qk_head_dim
+        q = linear(x, self.q_proj, self.dtype).view(B, T, H, hq)
+        k = linear(x, self.k_proj, self.dtype).view(B, T, H, hq)
+        v = linear(x, self.v_proj, self.dtype).view(B, T, H, hd)
+        gate = None
+        if position_bias is not None and self.cfg.gru_rel_pos:
+            gate = rel_pos_gate(x, self.grep_linear.weight.t(), self.grep_linear.bias,
+                                self.grep_a, H)
+        if self.cfg.use_flash_attention and hq == hd:
+            out = fused_attention(q, k, v, position_bias, gate, key_padding_mask,
+                                  attn_mask=attn_mask)
+        else:
+            bias = None
+            if position_bias is not None:
+                bias = position_bias.float()[None]
+                if gate is not None:
+                    bias = gate[..., None] * bias
+            if attn_mask is not None:
+                am = attn_mask.float()[None, None]
+                bias = am if bias is None else bias + am
+            out = multihead_attention(q, k, v, bias=bias,
+                                      key_padding_mask=key_padding_mask)
+        return linear(out.reshape(B, T, D), self.out_proj, self.dtype)
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Pre- or post-LN transformer layer (no dropout: inference)."""
+
+    def __init__(self, cfg: EncoderConfig, dtype: torch.dtype, has_rel_table: bool):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        D, F_ = cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim
+        self.act = get_activation(cfg.activation_fn)
+        self.self_attn = SelfAttention(cfg, dtype, has_rel_table)
+        self.self_attn_layer_norm = Fp32LayerNorm(D, cfg.layer_norm_eps)
+        self.fc1 = nn.Linear(D, F_)
+        self.fc2 = nn.Linear(F_, D)
+        self.final_layer_norm = Fp32LayerNorm(D, cfg.layer_norm_eps)
+
+    def _ffn(self, h):
+        return linear(self.act(linear(h, self.fc1, self.dtype)), self.fc2, self.dtype)
+
+    def forward(self, x, position_bias, key_padding_mask, attn_mask=None):
+        attn = lambda h: self.self_attn(h, position_bias, key_padding_mask, attn_mask)
+        if self.cfg.layer_norm_first:
+            x = x + attn(self.self_attn_layer_norm(x))
+            x = x + self._ffn(self.final_layer_norm(x))
+        else:
+            x = self.self_attn_layer_norm(x + attn(x))
+            x = self.final_layer_norm(x + self._ffn(x))
+        return x
+
+
+@dataclasses.dataclass
+class EncoderOutput:
+    x: torch.Tensor  # (B, T, D) final output
+    layer_outputs: Optional[torch.Tensor]  # (n+1, B, T, D): inputs to each layer + final
+
+
+class TransformerEncoder(nn.Module):
+    """Transformer over frame features with conv positional embedding.
+    ``layer_outputs[i]`` is the hidden state entering layer i and the last
+    entry the output of the last layer run."""
+
+    def __init__(self, cfg: EncoderConfig, dtype: torch.dtype):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        self.pos_conv = PosConv(cfg, dtype)
+        self.layer_norm = Fp32LayerNorm(cfg.encoder_embed_dim, cfg.layer_norm_eps)
+        self.layers = nn.ModuleList(
+            TransformerEncoderLayer(cfg, dtype, cfg.relative_position_embedding and i == 0)
+            for i in range(cfg.encoder_layers))
+
+    def forward(self, x, padding_mask=None, collect_layer_outputs: bool = False,
+                output_layer: Optional[int] = None, attn_mask=None) -> EncoderOutput:
+        cfg = self.cfg
+        if padding_mask is not None:
+            x = x.masked_fill(padding_mask[..., None], 0.0)
+        x = x + self.pos_conv(x)
+        if not cfg.layer_norm_first:
+            x = self.layer_norm(x)
+
+        position_bias = None
+        if cfg.relative_position_embedding:
+            table = self.layers[0].self_attn.relative_attention_bias.weight
+            T = x.shape[1]
+            position_bias = compute_rel_pos_bias(
+                table, T, T, cfg.num_buckets, cfg.max_distance, dtype=self.dtype)
+
+        # output_layer (1-based) stops after that layer: the rest never run
+        n_layers = len(self.layers) if output_layer is None else min(
+            output_layer, len(self.layers))
+        outputs = []
+        for layer in self.layers[:n_layers]:
+            if collect_layer_outputs:
+                outputs.append(x)
+            x = layer(x, position_bias, padding_mask, attn_mask)
+        layer_outputs = None
+        if collect_layer_outputs:
+            outputs.append(x)
+            layer_outputs = torch.stack(outputs)
+
+        if cfg.layer_norm_first and output_layer is None:
+            x = self.layer_norm(x)
+        return EncoderOutput(x=x, layer_outputs=layer_outputs)
+
+
+def reset_parameters(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """Random init with the JAX package's distributions, drawn from
+    ``generator``: he-normal convs, N(0, 0.02) dense layers and tables,
+    unit norms, positional-conv v ~ N(0, 4/(K*C)) with g = |v|."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, Conv1dMM):
+                fan_in = m.weight.shape[1] * m.weight.shape[2]
+                m.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.Linear):
+                m.weight.normal_(0.0, 0.02, generator=generator)
+                m.bias.zero_()
+            elif isinstance(m, nn.Embedding):
+                m.weight.normal_(0.0, 0.02, generator=generator)
+            elif isinstance(m, (Fp32LayerNorm, Fp32GroupNorm)):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, _WeightNormConv):
+                C, _, K = m.weight_v.shape
+                m.weight_v.normal_(0.0, math.sqrt(4.0 / (K * C)), generator=generator)
+                m.weight_g.copy_(m.weight_v.norm(dim=(0, 1), keepdim=True))
+                m.bias.zero_()
+            elif isinstance(m, SelfAttention) and hasattr(m, "grep_a"):
+                m.grep_a.fill_(1.0)
