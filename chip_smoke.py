@@ -6,16 +6,26 @@
 Phases, one line each (any failure raises and exits non-zero):
   1 device   the card's name and power limit; TF32 off for the plain versions
   2 build    nvcc builds the port's kernels from unispeech_tpu_torch/csrc
-  3 parity   each kernel against its plain PyTorch version, on the card, at
-             the shapes the main path gives it, in bf16
+  3 parity   each forward kernel against its plain PyTorch version, on the
+             card, at the shapes the serving path gives it, in bf16
   4 main     WavLM-Base+ (random weights from a seed, bf16) extract_features
              on a padded batch of 4 utterances (16/12/7/3 s), full depth and
              output_layer=6; launch counts per forward; the kernel path held
              against the same model with the three ops' plain versions
   5 cli      python -m unispeech_tpu_torch.tools dump-features --feature model
              on a manifest of wav files and a params .npz in the JAX layout
-  6 times    each kernel, its plain version, its bound and one PyTorch
-             library call; end-to-end audio-seconds per second
+  6 bwd      each backward kernel, and the attention forward with dropout,
+             against its plain version at the pretraining shapes (6 crops of
+             245,840 samples, 768 frames, two rows padded for attention)
+  7 train    WavLM-Base masked-prediction pretraining (the bench's config,
+             full width and depth, random weights from a seed) on 6 crops of
+             245,840 samples: 3 steps of make_train_step with launch counts
+             per step; one step's gradients, kernel path against plain path;
+             20 steps on one batch, the loss must fall
+  8 times    each kernel (forward at the serving shapes, backward at the
+             pretraining shapes), its plain version, its bound and one
+             PyTorch library call; audio-seconds per second of the forward
+             and of the train step
 
 The line before the last is the kernels JSON, the last the device JSON.
 """
@@ -39,6 +49,8 @@ REPO = pathlib.Path(__file__).resolve().parent
 SAMPLE_RATE = 16_000
 UTTERANCE_SECONDS = (16, 12, 7, 3)
 SEED = 0
+# pretraining batch: the bench's crop (768 frames) x the reference's per-GPU batch
+TRAIN_B, TRAIN_NS, N_CLASSES = 6, 245_840, 504
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over
@@ -50,6 +62,13 @@ FP32_FLOPS = 67e12
 # one bf16 ulp at a tensor's scale: two fp32 accumulation orders may round
 # a value to neighbouring bf16 numbers (8 significant bits)
 BF16_ULP = 2.0 ** -7
+# a train step's gradients, kernel path against plain path, per parameter
+# tensor: |g - g_plain| <= GRAD_TOL |g_plain| + GRAD_FLOOR |global gradient|.
+# The two paths round to bf16 at other places (the online softmax's P, dS,
+# the conv pre-activations) through 12 layers forward and back; the floor
+# covers gradients that are zero analytically (the k_proj bias: softmax
+# ignores a per-query constant), noise on both paths.
+GRAD_TOL, GRAD_FLOOR = 5e-2, 1e-4
 
 
 def phase(tag: str, /, **fields) -> None:
@@ -58,6 +77,18 @@ def phase(tag: str, /, **fields) -> None:
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
+
+
+class PhaseClock:
+    """Prints the seconds each phase took."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def done(self, name: str) -> None:
+        now = time.perf_counter()
+        phase("seconds", phase=name, seconds=f"{now - self.t:.1f}")
+        self.t = now
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -76,6 +107,19 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def rel_check(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """Relative L2 of an fp32 sum against its plain version; returns the max
+    abs error."""
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)} or non-finite")
+    diff = float((got.float() - want.float()).norm())
+    ref = float(want.float().norm())
+    phase("parity", kernel=name, rel_l2=f"{diff / max(ref, 1e-30):.3g}", tol=tol)
+    if not diff <= tol * ref:
+        fail(f"{name}: relative L2 {diff / max(ref, 1e-30)} > {tol}")
+    return float((got.float() - want.float()).abs().max())
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol_ulps: float = 1.0) -> float:
@@ -103,6 +147,12 @@ def smoke_batch(device):
     return wav.to(device), lengths.to(device)
 
 
+def grad_ms(outputs, inputs, grads, iters: int = 10) -> float:
+    """Time of torch.autograd.grad of a retained graph: a library backward."""
+    return cuda_ms(lambda: torch.autograd.grad(outputs, inputs, grads, retain_graph=True),
+                   iters=iters, warmup=2)
+
+
 @contextlib.contextmanager
 def plain_ops():
     """The model with the three ops replaced by their plain versions: the
@@ -118,6 +168,337 @@ def plain_ops():
         yield
     finally:
         encoder.l1_conv_with_stats, encoder.conv_gelu_block, encoder.fused_attention = saved
+
+
+def backward_parity(dev, cfg):
+    """Phase 6: each backward kernel (and the attention forward with dropout)
+    against its plain version at the pretraining shapes. Returns the inputs
+    the times phase reuses and the max abs errors."""
+    from unispeech_tpu_torch.ops.kernels import conv_stack, flash_attention, l1_frontend
+    from unispeech_tpu_torch.ops.rel_pos import compute_rel_pos_bias
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    B, NS = TRAIN_B, TRAIN_NS
+    C = cfg.conv_layers[0][0]
+    k0, s0 = cfg.conv_layers[0][1:]
+    t1 = (NS - k0) // s0 + 1
+    wav = (torch.randn(B, NS, generator=gen) * 0.1).to(dev)
+    w1 = (torch.randn(k0, 1, C, generator=gen) * (2.0 / k0) ** 0.5).to(dev)
+    dy1 = (torch.randn(B, t1, C, generator=gen) * 1e-3).to(dev, torch.bfloat16)
+    ds1 = (torch.randn(B, C, generator=gen) * 1e-4).to(dev)
+    ds2 = (torch.randn(B, C, generator=gen) * 1e-4).to(dev)
+    l1_args = (wav, w1, s0, dy1, ds1, ds2)
+    # fp32 sums over B * t1 = 295,002 rows in two orders (per-thread rows and
+    # cross-tile atomics vs one einsum): relative L2 1e-3
+    err_l1 = rel_check("l1_conv_backward.dw", l1_frontend.l1_conv_backward(*l1_args),
+                       l1_frontend.l1_conv_backward_plain(*l1_args), 1e-3)
+
+    conv_args = []  # (x, w, valid, gelu_in, gelu_out, affine, dy, pre) per block
+    x = torch.randn(B, t1, C, generator=gen).to(dev, torch.bfloat16)
+    affine = ((torch.rand(B, C, generator=gen) + 0.5).to(dev),
+              (torch.randn(B, C, generator=gen) * 0.1).to(dev))
+    err_conv = 0.0
+    for i, (dim, k, _) in enumerate(cfg.conv_layers[1:], start=2):
+        w = (torch.randn(k, C, dim, generator=gen) * (2.0 / (k * C)) ** 0.5).to(
+            dev, torch.bfloat16)
+        first = i == 2
+        ab = affine if first else None
+        y, t_out, pre = conv_stack._forward(x, w, x.shape[1], first, True, ab, want_pre=True)
+        _, _, ppre = conv_stack.conv_gelu_block_plain(x, w, x.shape[1], first, True, ab,
+                                                      return_pre=True)
+        compare(f"conv_gelu_block.L{i}.pre", pre, ppre)
+        dy = (torch.randn(B, t_out, C, generator=gen) * 1e-2).to(dev, torch.bfloat16)
+        args = (x, w, x.shape[1], first, True, ab, dy, pre)
+        conv_args.append(args)
+        got = conv_stack.conv_gelu_block_backward(*args)
+        want = conv_stack.conv_gelu_block_backward_plain(*args)
+        torch.cuda.synchronize()
+        err_conv = max(err_conv, compare(f"conv_gelu_block_backward.L{i}.dx", got[0], want[0],
+                                         tol_ulps=2.0))
+        rel_check(f"conv_gelu_block_backward.L{i}.dw", got[1], want[1], 1e-3)
+        if first:
+            rel_check("conv_gelu_block_backward.L2.da", got[2], want[2], 1e-3)
+            rel_check("conv_gelu_block_backward.L2.db", got[3], want[3], 1e-3)
+        x = y
+
+    T = x.shape[1]
+    H, D = cfg.encoder_attention_heads, cfg.encoder_embed_dim
+    q, kk, v = (torch.randn(B, T, H, D // H, generator=gen).to(dev, torch.bfloat16)
+                for _ in range(3))
+    table = (torch.randn(cfg.num_buckets, H, generator=gen) * 0.5).to(dev)
+    bias = compute_rel_pos_bias(table, T, T, cfg.num_buckets, cfg.max_distance,
+                                dtype=torch.bfloat16)
+    gate = (torch.rand(B, H, T, generator=gen) * 2 + 1).to(dev)
+    frames = torch.tensor([T] * (B - 2) + [T - 68, T - 168], device=dev)  # two rows padded
+    kpm = torch.arange(T, device=dev)[None, :] >= frames[:, None]
+    seed = torch.randint(0, 2**62, (1,), generator=gen, dtype=torch.int64).to(dev)
+    rate = cfg.attention_dropout
+    fwd = dict(bias=bias, gate=gate, key_padding_mask=kpm, dropout_rate=rate,
+               dropout_seed=seed)
+    out, lse = flash_attention.fused_attention(q, kk, v, **fwd, return_lse=True)
+    pout, plse = flash_attention.fused_attention_plain(q, kk, v, **fwd, return_lse=True)
+    torch.cuda.synchronize()
+    # the keep masks are bit-identical; the online softmax rounds P against
+    # a running max: 2 bf16 ulps
+    err_drop = compare("fused_attention.dropout", out, pout, tol_ulps=2.0)
+    e_lse = float((lse - plse).abs().max())
+    phase("parity", kernel="fused_attention.dropout.lse", max_abs_err=f"{e_lse:.3g}", tol="1e-3")
+    if not e_lse <= 1e-3:
+        fail(f"lse with dropout: {e_lse}")
+    dout = (torch.randn(B, T, H, D // H, generator=gen) * 1e-2).to(dev, torch.bfloat16)
+    attn_args = (q, kk, v, bias, gate, kpm, None, rate, seed, pout, plse, dout)
+    got = flash_attention.fused_attention_backward(*attn_args)
+    want = flash_attention.fused_attention_backward_plain(*attn_args)
+    torch.cuda.synchronize()
+    err_attn = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+        err_attn = max(err_attn, compare(f"fused_attention_backward.{name}", a, b,
+                                         tol_ulps=2.0))
+    # fp32 sums whose order varies (atomics over key tiles and the batch)
+    rel_check("fused_attention_backward.dbias", got[3], want[3], 2e-3)
+    rel_check("fused_attention_backward.dgate", got[4], want[4], 2e-3)
+    return dict(l1=l1_args, conv=conv_args, attn=attn_args, fwd_drop=(q, kk, v, fwd),
+                err=(err_l1, err_conv, max(err_attn, err_drop)))
+
+
+def train_phase(dev, counters, train_counts):
+    """Phase 7: WavLM-Base pretraining steps on the card. Fills
+    ``train_counts`` with the launch counts of the first step; returns the
+    end-to-end numbers."""
+    import dataclasses
+
+    from unispeech_tpu_torch.configs import HubertPretrainConfig, MaskConfig, base_encoder_config
+    from unispeech_tpu_torch.models.hubert import HubertPretrainModel
+    from unispeech_tpu_torch.train.losses import HubertCriterionConfig
+    from unispeech_tpu_torch.train.optim import OptimConfig
+    from unispeech_tpu_torch.train.state import create_train_state, make_train_step
+    from unispeech_tpu_torch.train.tasks import make_hubert_loss_fn
+
+    # the bench's configuration (bench.py build_step, arch "base")
+    enc = base_encoder_config(relative_position_embedding=True, gru_rel_pos=True,
+                              encoder_layerdrop=0.05, dropout=0.1, attention_dropout=0.1,
+                              remat_ffn=True, remat_layers=False, scan_layers=False)
+    pcfg = HubertPretrainConfig(encoder=enc, time_mask=MaskConfig(mask_prob=0.8, mask_length=10),
+                                num_classes=(N_CLASSES,), final_dim=256)
+    crit = HubertCriterionConfig()
+    B, NS = TRAIN_B, TRAIN_NS
+    T = enc.num_frames(NS)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    batch = {"source": torch.randn(B, NS, generator=gen).to(dev),
+             "targets": torch.randint(0, N_CLASSES, (B, T, 1), generator=gen).to(dev)}
+    model = HubertPretrainModel(pcfg, dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(SEED))
+    state = create_train_state(model, OptimConfig(lr=5e-4, warmup_steps=100, total_steps=1000),
+                               device=dev)
+    step = make_train_step(make_hubert_loss_fn(model, crit))
+    L = enc.encoder_layers
+    before = [p.detach().clone() for p in model.parameters()]
+
+    def reset():
+        for m, attr in counters:
+            setattr(m, attr, 0)
+
+    for i in range(3):
+        reset()
+        met = step(state, batch, gen)
+        torch.cuda.synchronize()
+        counts = tuple(getattr(m, attr) for m, attr in counters)
+        kept = L - met["layers_dropped"]
+        want = (1, 1, 6, 6, kept, kept)
+        loss, gnorm = float(met["loss_per_sample"]), float(met["grad_norm"])
+        phase("train", step=i, loss_per_sample=f"{loss:.4f}", grad_norm=f"{gnorm:.4f}",
+              sample_size=int(met["sample_size"]), layers_dropped=met["layers_dropped"],
+              launches_l1_conv_attn_fwd_bwd=counts)
+        if counts != want:
+            fail(f"train step {i}: launches {counts} != {want}")
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            fail(f"train step {i}: loss {loss}, grad_norm {gnorm}")
+        if i == 0 and i not in train_counts:
+            train_counts.update(zip(("l1", "l1_bwd", "conv", "conv_bwd", "attn", "attn_bwd"),
+                                    counts))
+        if i == 0 and any(not torch.equal(a, p) for a, p in zip(before, model.parameters())):
+            fail("step 0 has learning rate 0 but changed the parameters")
+    if all(torch.equal(a, p) for a, p in zip(before, model.parameters())):
+        fail("the parameters did not change by step 2")
+    del before
+
+    # one step's gradients, kernel path against plain path: dropout and
+    # layerdrop off, one fixed mask, the same weights
+    enc0 = dataclasses.replace(enc, dropout=0.0, attention_dropout=0.0, encoder_layerdrop=0.0)
+    model0 = HubertPretrainModel(dataclasses.replace(pcfg, encoder=enc0), dtype=torch.bfloat16)
+    model0.load_state_dict(model.state_dict())
+    model0 = model0.to(dev)
+    batch0 = dict(batch, boundary_mask=(torch.rand(B, T, generator=gen) < 0.5).to(dev))
+    loss_fn0 = make_hubert_loss_fn(model0, crit)
+
+    def grads():
+        model0.zero_grad(set_to_none=True)
+        loss, ss, _ = loss_fn0(batch0, torch.Generator(), 0)
+        (loss / torch.clamp(ss, min=1.0)).backward()
+        return [p.grad.float().clone() for p in model0.parameters()]
+
+    gk = grads()
+    with plain_ops():
+        gp = grads()
+    total = float(torch.sqrt(sum((g * g).sum() for g in gp)))
+    worst = []
+    for (name, _), a, b in zip(model0.named_parameters(), gk, gp):
+        diff, ref = float((a - b).norm()), float(b.norm())
+        worst.append((diff / (GRAD_TOL * ref + GRAD_FLOOR * total), name, diff / max(ref, 1e-30)))
+    worst.sort(reverse=True)
+    for ratio, name, rel in worst[:5]:
+        phase("train", grad_vs_plain=name, rel_l2=f"{rel:.3g}", of_tolerance=f"{ratio:.3g}")
+    phase("train", grad_tol=f"{GRAD_TOL} * |g| + {GRAD_FLOOR} * |global|",
+          global_grad_norm=f"{total:.4g}", tensors=len(worst))
+    if worst[0][0] > 1.0:
+        fail(f"gradient of {worst[0][1]}: kernel path disagrees with the plain path")
+    del model0, gk, gp
+
+    # ms per step, host enqueue, audio-sec/s, peak memory; a profiled step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_time = 5
+    t0 = time.perf_counter()
+    for _ in range(n_time):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_time
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    step(state, batch, gen)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    busy_ms, wall_ms, n_launch = profile_once(lambda: step(state, batch, gen), "train_profile")
+
+    # learning: 20 steps on one batch at a fixed learning rate
+    state = create_train_state(model, OptimConfig(lr=5e-4, schedule="fixed"), device=dev)
+    losses = []
+    for _ in range(20):
+        losses.append(step(state, batch, gen)["loss_per_sample"])
+    losses = [float(x) for x in losses]
+    phase("train", learning_first=f"{losses[0]:.4f}", learning_last=f"{losses[-1]:.4f}",
+          steps=len(losses))
+    if not losses[-1] < losses[0]:
+        fail(f"20 steps on one batch: loss {losses[0]} -> {losses[-1]} did not fall")
+    audio_s = B * NS / SAMPLE_RATE
+    return dict(step_ms=step_ms, host_ms=host_ms, peak_gb=peak_gb, audio_s=audio_s,
+                busy_ms=busy_ms, wall_ms=wall_ms, launches=n_launch)
+
+
+def profile_once(fn, tag):
+    """Device busy time, wall time and kernel launches of one call, and the
+    top kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+    # device kernels only: the aten ops that launch them carry the same time
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and device_us(e) > 0),
+                    key=device_us, reverse=True)
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    n_launch = sum(e.count for e in events)
+    phase(tag, wall_ms=f"{wall_ms:.3f}", kernel_busy_ms=f"{busy_ms:.3f}",
+          idle_share=f"{1 - busy_ms / wall_ms:.3f}", kernel_launches=n_launch)
+    for e in events[:15]:
+        phase(tag, kernel=e.key[:60].replace(" ", "_"), calls=e.count,
+              device_ms=f"{device_us(e) / 1e3:.4f}")
+    host_ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                      key=lambda e: e.self_cpu_time_total, reverse=True)
+    for e in host_ops[:6]:
+        phase(tag, host_op=e.key[:40], calls=e.count,
+              self_cpu_ms=f"{e.self_cpu_time_total / 1e3:.3f}")
+    return busy_ms, wall_ms, n_launch
+
+
+def bound(nbytes: float, flops: float, peak: float):
+    """(bound ms, what bounds it) for the bytes moved and the operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def backward_times(bw, train_counts):
+    """The kernels rows of the three backward kernels at the pretraining
+    shapes, per train step (all launches of a kernel in one step)."""
+    from unispeech_tpu_torch.ops.kernels import conv_stack, flash_attention, l1_frontend
+
+    err_l1, err_conv, err_attn = bw["err"]
+    wav, w1, s0, dy1, ds1, ds2 = bw["l1"]
+    B, NS = wav.shape
+    k0, _, C = w1.shape
+    t1 = dy1.shape[1]
+    xb = wav.to(torch.bfloat16)[:, None, :]
+    wl = w1.permute(2, 1, 0).to(torch.bfloat16).contiguous().requires_grad_()
+    yl = F.conv1d(xb, wl, stride=s0)
+    l1_bound = bound(B * t1 * C * 2 + B * NS * 4 + 2 * B * C * 4 + k0 * C * 4,
+                     4 * B * t1 * C * k0, FP32_FLOPS)
+    rows = [dict(
+        name="l1_conv_backward", route="cuda", source="unispeech_tpu_torch/csrc/l1_frontend.cu",
+        replaces="unispeech_tpu/ops/pallas/l1_frontend.py:203",
+        launches=train_counts["l1_bwd"], max_abs_err=err_l1,
+        ms=cuda_ms(lambda: l1_frontend.l1_conv_backward(*bw["l1"])),
+        plain_ms=cuda_ms(lambda: l1_frontend.l1_conv_backward_plain(*bw["l1"]), iters=3,
+                         warmup=1),
+        bound_ms=l1_bound[0], bound_by=l1_bound[1],
+        library_ms=grad_ms(yl, wl, dy1.transpose(1, 2).contiguous()),
+    )]
+    c_ms = c_plain = c_lib = c_bound = 0.0
+    c_by = set()
+    for args in bw["conv"]:
+        x, w, valid, gelu_in, gelu_out, ab, dy, pre = args
+        k = w.shape[0]
+        t_out = dy.shape[1]
+        c_ms += cuda_ms(lambda: conv_stack.conv_gelu_block_backward(*args))
+        c_plain += cuda_ms(lambda: conv_stack.conv_gelu_block_backward_plain(*args), iters=2,
+                           warmup=1)
+        xt = x.transpose(1, 2).contiguous().requires_grad_()
+        wt = w.permute(2, 1, 0).contiguous().requires_grad_()
+        yt = F.conv1d(xt, wt, stride=2)
+        c_lib += grad_ms(yt, (xt, wt), dy.transpose(1, 2).contiguous())
+        b_ms, by = bound((2 * B * x.shape[1] * C + 2 * k * C * C + 2 * B * t_out * C) * 2
+                         + k * C * C * 4, 2 * 2 * B * t_out * C * k * C, BF16_TC_FLOPS)
+        c_bound += b_ms
+        c_by.add(by)
+    rows.append(dict(
+        name="conv_gelu_block_backward", route="cuda",
+        source="unispeech_tpu_torch/csrc/conv_stack.cu",
+        replaces="unispeech_tpu/ops/pallas/conv_stack.py:359",
+        launches=train_counts["conv_bwd"], max_abs_err=err_conv, ms=c_ms, plain_ms=c_plain,
+        bound_ms=c_bound, bound_by="operations" if "operations" in c_by else "bytes",
+        library_ms=c_lib))
+    q, kk, v, bias, gate, kpm, _, rate, seed, out, lse, dout = bw["attn"]
+    B, T, H, hd = q.shape
+    n = train_counts["attn_bwd"]
+    a_bound = bound(8 * B * T * H * hd * 2 + 2 * H * T * T * 2 + 3 * B * H * T * 4 + B * T,
+                    10 * B * H * T * T * hd, BF16_TC_FLOPS)
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, kk, v))
+    mask = (gate[..., None] * bias.float()[None]
+            + torch.where(kpm, -1e30, 0.0)[:, None, None, :]).to(torch.bfloat16).requires_grad_()
+    ya = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    rows.append(dict(
+        name="fused_attention_backward", route="cuda",
+        source="unispeech_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="unispeech_tpu/ops/pallas/flash_attention.py:1159",
+        launches=n, max_abs_err=err_attn,
+        ms=n * cuda_ms(lambda: flash_attention.fused_attention_backward(*bw["attn"])),
+        plain_ms=n * cuda_ms(lambda: flash_attention.fused_attention_backward_plain(*bw["attn"]),
+                             iters=2, warmup=1),
+        bound_ms=n * a_bound[0], bound_by=a_bound[1],
+        library_ms=n * grad_ms(ya, (qh, kh, vh, mask), dout.transpose(1, 2).contiguous()),
+    ))
+    q, kk, v, fwd = bw["fwd_drop"]
+    phase("times", kernel="fused_attention.dropout_forward_per_train_step",
+          ms=f"{train_counts['attn'] * cuda_ms(lambda: flash_attention.fused_attention(q, kk, v, **fwd)):.4f}")
+    return rows
 
 
 def write_wav(path: pathlib.Path, samples: np.ndarray) -> None:
@@ -143,6 +524,7 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    clock = PhaseClock()
 
     # 1 device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -159,6 +541,7 @@ def main() -> int:
     for line in _build.build_log_path().read_text().splitlines():
         if "registers" in line or "spill" in line:
             print("  " + line.strip())
+    clock.done("build")
 
     # 3 per-kernel parity at the main path's shapes
     cfg = base_encoder_config(relative_position_embedding=True, gru_rel_pos=True,
@@ -231,6 +614,7 @@ def main() -> int:
     phase("parity", kernel="fused_attention.lse", max_abs_err=f"{e_lse:.3g}", tol="1e-3")
     if not e_lse <= 1e-3:  # fp32 sums in two orders: far below 1e-3 in a log
         fail(f"lse: {e_lse}")
+    clock.done("parity")
 
     # 4 main path: WavLM-Base+ feature extraction through the kernels
     model = WavLM(WavLMModelConfig(encoder=cfg), dtype=torch.bfloat16,
@@ -266,6 +650,7 @@ def main() -> int:
           tol="5e-2")
     if not (e_full <= 5e-2 and e_mid <= 5e-2):
         fail("kernel path disagrees with the plain path")
+    clock.done("main")
 
     # 5 the dump-features CLI on the card
     tmp = _build.BUILD_DIR / "smoke_cli"
@@ -302,8 +687,24 @@ def main() -> int:
             fail("cli features disagree with the library call")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    clock.done("cli")
 
-    # 6 times at the main path's shapes (per forward: all launches of a kernel)
+    # 6 backward kernels at the pretraining shapes
+    bw = backward_parity(dev, base_encoder_config(relative_position_embedding=True,
+                                                  gru_rel_pos=True))
+    clock.done("bwd")
+
+    # 7 pretraining steps; the counts are read per step inside
+    train_counts = {}
+    counters = [(l1_frontend, "launches"), (l1_frontend, "backward_launches"),
+                (conv_stack, "launches"), (conv_stack, "backward_launches"),
+                (flash_attention, "launches"), (flash_attention, "backward_launches")]
+    train = train_phase(dev, counters, train_counts)
+    clock.done("train")
+
+    # 8 times: forward kernels at the serving shapes (per forward: all
+    # launches of a kernel), backward kernels at the pretraining shapes (per
+    # train step)
     wav_bf = wav.to(torch.bfloat16)[:, None, :]
     w1_lib = w1.permute(2, 1, 0).to(torch.bfloat16).contiguous()
     l1_bytes = B * NS * 4 + B * t1 * C * 2 + 2 * B * C * 4
@@ -363,6 +764,8 @@ def main() -> int:
         library_ms=n_attn * cuda_ms(
             lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)),
     ))
+    rows += backward_times(bw, train_counts)
+    del bw
     for r in rows:
         phase("times", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
                           for k, v in r.items() if k not in ("route", "source", "replaces")})
@@ -378,40 +781,20 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # where one forward's device time goes, by kernel name
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.extract_features(wav, lengths=lengths)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-
-    from torch.autograd import DeviceType
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-
-    # device kernels only: the aten ops that launch them carry the same time
-    events = sorted((e for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA and device_us(e) > 0),
-                    key=device_us, reverse=True)
-    busy_ms = sum(device_us(e) for e in events) / 1e3
-    phase("profile", wall_ms=f"{wall_ms:.3f}", kernel_busy_ms=f"{busy_ms:.3f}",
-          idle_share=f"{1 - busy_ms / wall_ms:.3f}",
-          kernel_launches=sum(e.count for e in events))
-    for e in events[:15]:
-        phase("profile", kernel=e.key[:60].replace(" ", "_"), calls=e.count,
-              device_ms=f"{device_us(e) / 1e3:.4f}")
-    host_ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
-                      key=lambda e: e.self_cpu_time_total, reverse=True)
-    for e in host_ops[:6]:
-        phase("profile", host_op=e.key[:40], calls=e.count,
-              self_cpu_ms=f"{e.self_cpu_time_total / 1e3:.3f}")
+    profile_once(lambda: model.extract_features(wav, lengths=lengths), "profile")
     phase("e2e", forward_ms=f"{fwd_ms:.3f}", host_enqueue_ms=f"{host_ms:.3f}",
           audio_seconds=audio_s,
           padded_seconds=B * NS / SAMPLE_RATE,
           audio_sec_per_s=f"{audio_s / (fwd_ms / 1e3):.1f}",
-          kernel_share=f"{sum(r['ms'] for r in rows) / fwd_ms:.3f}")
+          kernel_share=f"{sum(r['ms'] for r in rows[:3]) / fwd_ms:.3f}")
+    phase("e2e_train", step_ms=f"{train['step_ms']:.3f}",
+          host_enqueue_ms=f"{train['host_ms']:.3f}",
+          audio_seconds_per_step=train["audio_s"],
+          audio_sec_per_s=f"{train['audio_s'] / (train['step_ms'] / 1e3):.1f}",
+          peak_memory_gb=f"{train['peak_gb']:.2f}",
+          profiled_busy_ms=f"{train['busy_ms']:.3f}", profiled_wall_ms=f"{train['wall_ms']:.3f}",
+          kernel_launches_per_step=train["launches"])
+    clock.done("times")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,15 @@ repo's conftest imports JAX, which the port's machines need not have.
 
 chip_smoke.py checks the kernels at the main path's shapes; these cases
 cover what it does not reach: ragged and very short sequences, tiles cut by
-t_out or T, strided q/k/v views, a bias without a gate, and the inputs each
-wrapper must reject. Tolerance: one bf16 ulp at the tensor's scale (two fp32
-accumulation orders may round to neighbouring bf16 values); attention 2 ulps
-(its online softmax rounds P against a running max).
+t_out or T, strided q/k/v views, a bias without a gate, dropout, and the
+inputs each wrapper must reject. Tolerance: one bf16 ulp at the tensor's
+scale (two fp32 accumulation orders may round to neighbouring bf16 values);
+attention 2 ulps (its online softmax rounds P against a running max).
+Backward: bf16 outputs within 2 ulps at the tensor's scale (an operand
+rounded to bf16 on either side of a boundary, then summed in another order);
+fp32 sums (dW, da/db, dbias, dgate) within relative L2 1e-3 (the same
+terms, fp32 atomics in a varying order, rare one-ulp flips of a bf16
+operand).
 """
 
 import pytest
@@ -34,6 +39,12 @@ def _close(got, want, ulps=1.0):
     assert got.shape == want.shape and torch.isfinite(got).all()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= ulps * ULP * want.float().abs().max().item(), err
+
+
+def _rel(got, want, tol=1e-3):
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    diff = (got.float() - want.float()).norm().item()
+    assert diff <= tol * want.float().norm().item(), diff
 
 
 @pytest.mark.parametrize("B,ns,C", [(1, 400, 512), (3, 5003, 64), (2, 16000 * 3 + 7, 512)])
@@ -112,7 +123,7 @@ def test_wrappers_reject(dev):
     with pytest.raises(ValueError):  # head dim 32
         flash_attention.fused_attention(q, q, q)
     q = torch.zeros(1, 8, 2, 64, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # dropout needs a 1-element int64 seed
         flash_attention.fused_attention(q, q, q, dropout_rate=0.1)
     with pytest.raises(ValueError):  # the L1 kernel takes an fp32 waveform
         l1_frontend.l1_conv_with_stats(torch.zeros(1, 400, device=dev, dtype=torch.bfloat16),
@@ -148,3 +159,153 @@ def test_small_model_kernel_path_matches_plain(dev, monkeypatch, over):
     want = model.extract_features(wav, lengths=lengths).x
     assert torch.isfinite(got).all()
     assert ((got.float() - want.float()).norm() / want.float().norm()).item() <= 2e-2
+
+
+@pytest.mark.parametrize("B,ns,C", [(1, 400, 512), (3, 5003, 64), (2, 16000 * 3 + 7, 512)])
+@pytest.mark.parametrize("stats", [True, False])
+def test_l1_backward_edges(dev, B, ns, C, stats):
+    g = torch.Generator().manual_seed(ns + 1)
+    wav = (torch.randn(B, ns, generator=g) * 0.1).to(dev)
+    w = (torch.randn(10, 1, C, generator=g) * 0.4).to(dev)
+    t1 = (ns - 10) // 5 + 1
+    dy = torch.randn(B, t1, C, generator=g).to(dev, torch.bfloat16)
+    ds1 = ds2 = None
+    if stats:
+        ds1 = (torch.randn(B, C, generator=g) * 1e-2).to(dev)
+        ds2 = (torch.randn(B, C, generator=g) * 1e-2).to(dev)
+    got = l1_frontend.l1_conv_backward(wav, w, 5, dy, ds1, ds2)
+    want = l1_frontend.l1_conv_backward_plain(wav, w, 5, dy, ds1, ds2)
+    _rel(got, want)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("T,valid,C", [(9, 9, 128), (300, 257, 128), (1000, 1000, 512)])
+@pytest.mark.parametrize("gelu_in,affine,gelu_out", [
+    (True, True, True), (False, False, True), (True, False, False), (False, True, True)])
+def test_conv_backward_edges(dev, k, T, valid, C, gelu_in, affine, gelu_out):
+    g = torch.Generator().manual_seed(T * 10 + k + 1)
+    x = torch.randn(2, T, C, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(k, C, C, generator=g) * (2.0 / (k * C)) ** 0.5).to(dev, torch.bfloat16)
+    ab = ((torch.rand(2, C, generator=g) + 0.5).to(dev),
+          (torch.randn(2, C, generator=g) * 0.1).to(dev)) if affine else None
+    t_out = (valid - k) // 2 + 1
+    _, _, pre = conv_stack.conv_gelu_block_plain(x, w, valid, gelu_in, gelu_out, ab,
+                                                 return_pre=True)
+    dy = torch.randn(2, t_out, C, generator=g).to(dev, torch.bfloat16)
+    got = conv_stack.conv_gelu_block_backward(x, w, valid, gelu_in, gelu_out, ab, dy, pre)
+    want = conv_stack.conv_gelu_block_backward_plain(x, w, valid, gelu_in, gelu_out, ab,
+                                                     dy, pre)
+    _close(got[0], want[0], ulps=2.0)
+    assert (got[0][:, valid:] == 0).all()
+    _rel(got[1], want[1])
+    if affine:
+        _rel(got[2], want[2])
+        _rel(got[3], want[3])
+    # the forward writes the same pre-activation as the plain version
+    y, _, kpre = conv_stack._forward(x, w, valid, gelu_in, gelu_out, ab, want_pre=True)
+    _close(kpre, pre)
+
+
+@pytest.mark.parametrize("B,T,H", [(1, 1, 1), (2, 63, 2), (3, 65, 4), (2, 200, 12)])
+@pytest.mark.parametrize("case", ["full", "bias_no_gate", "no_bias", "attn_mask", "strided",
+                                  "dropout"])
+def test_attention_backward_edges(dev, B, T, H, case):
+    q, k, v, bias, gate, kpm = _attn_inputs(dev, B, T, H, seed=T * 7 + H + 1,
+                                            fused_qkv=case == "strided")
+    kw = dict(bias=bias, gate=gate, key_padding_mask=kpm)
+    rate, seed = 0.0, None
+    if case == "bias_no_gate":
+        kw["gate"] = None
+    elif case == "no_bias":
+        kw = dict(key_padding_mask=kpm)
+    elif case == "attn_mask":
+        idx = torch.arange(T, device=dev)
+        kw["attn_mask"] = torch.where((idx[:, None] - idx[None, :]).abs() > 20, -1e4, 0.0)
+    elif case == "dropout":
+        rate, seed = 0.1, torch.tensor([T * 1000 + 17], dtype=torch.int64, device=dev)
+    out, lse = flash_attention.fused_attention_plain(q, k, v, **kw, dropout_rate=rate,
+                                                     dropout_seed=seed, return_lse=True)
+    if rate:  # the kernel's dropout forward against the plain version, same mask
+        kout = flash_attention.fused_attention(q, k, v, **kw, dropout_rate=rate,
+                                               dropout_seed=seed)
+        _close(kout, out, ulps=2.0)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(T)).to(
+        dev, torch.bfloat16)
+    args = (q, k, v, kw.get("bias"), kw.get("gate"), kpm, kw.get("attn_mask"), rate, seed,
+            out, lse, dout)
+    got = flash_attention.fused_attention_backward(*args)
+    want = flash_attention.fused_attention_backward_plain(*args)
+    for name, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+        _close(a, b, ulps=2.0)
+    for a, b in zip(got[3:], want[3:]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            _rel(a, b, tol=2e-3)
+
+
+def test_attention_dropout_mask_is_bit_identical(dev):
+    """q = k = 0 makes every probability 1/S; with v the identity over keys,
+    out[t, s] = keep(t, s) / (S (1 - rate)), so the kernel's nonzero pattern
+    is its keep mask, held equal to the plain version's Philox mask."""
+    from unispeech_tpu_torch.ops.kernels.philox import attention_keep
+
+    B, T, H = 2, 64, 3
+    q = torch.zeros(B, T, H, 64, device=dev, dtype=torch.bfloat16)
+    v = torch.eye(64, device=dev, dtype=torch.bfloat16)[None, :, None, :].expand(
+        B, T, H, 64).contiguous()
+    seed = torch.tensor([987654321987], dtype=torch.int64, device=dev)
+    out = flash_attention.fused_attention(q, q, v, dropout_rate=0.25, dropout_seed=seed)
+    keep = attention_keep(seed, B, H, T, T, 0.25)  # (B, H, T, S)
+    assert torch.equal(out.permute(0, 2, 1, 3) != 0, keep)
+
+
+def test_small_model_train_step_kernel_path_matches_plain(dev, monkeypatch):
+    """A small HubertPretrainModel (head dim 64) on the card: one masked
+    forward + backward through the kernels against the same model with the
+    three ops' plain forwards differentiated by autograd. Per parameter,
+    |g - g_plain| <= 5e-2 |g_plain| + 1e-4 |global| (bf16 roundings at other
+    places in 2 layers forward and back; the floor covers the k_proj bias,
+    analytically zero)."""
+    from unispeech_tpu_torch.configs import HubertPretrainConfig, MaskConfig, base_encoder_config
+    from unispeech_tpu_torch.models import encoder
+    from unispeech_tpu_torch.models.hubert import HubertPretrainModel
+    from unispeech_tpu_torch.train.losses import HubertCriterionConfig
+    from unispeech_tpu_torch.train.tasks import make_hubert_loss_fn
+
+    enc = base_encoder_config(
+        encoder_layers=2, encoder_embed_dim=128, encoder_ffn_embed_dim=256,
+        encoder_attention_heads=2, conv_layers=((128, 10, 5),) + ((128, 3, 2),) * 2,
+        conv_pos=16, conv_pos_groups=4, relative_position_embedding=True,
+        gru_rel_pos=True, num_buckets=32, max_distance=64, dropout=0.0,
+        attention_dropout=0.0, encoder_layerdrop=0.0, remat_layers=False)
+    cfg = HubertPretrainConfig(encoder=enc, time_mask=MaskConfig(mask_prob=0.65, mask_length=4),
+                               num_classes=(17,), final_dim=32)
+    model = HubertPretrainModel(cfg, dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(0)).to(dev)
+    g = torch.Generator().manual_seed(1)
+    T = enc.num_frames(6000)
+    batch = {"source": (torch.randn(3, 6000, generator=g) * 0.1).to(dev),
+             "targets": torch.randint(0, 17, (3, T, 1), generator=g).to(dev),
+             "lengths": torch.tensor([6000, 4100, 2500], device=dev),
+             "boundary_mask": (torch.rand(3, T, generator=g) < 0.5).to(dev)}
+    loss_fn = make_hubert_loss_fn(model, HubertCriterionConfig())
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, ss, _ = loss_fn(batch, torch.Generator(), 0)
+        (loss / ss).backward()
+        return [p.grad.float().clone() for p in model.parameters()]
+
+    counts = [(m.launches, m.backward_launches) for m in (l1_frontend, conv_stack, flash_attention)]
+    gk = grads()
+    launched = [(m.launches - a, m.backward_launches - b)
+                for m, (a, b) in zip((l1_frontend, conv_stack, flash_attention), counts)]
+    assert launched == [(1, 1), (2, 2), (2, 2)]
+    monkeypatch.setattr(encoder, "l1_conv_with_stats", l1_frontend.l1_conv_with_stats_plain)
+    monkeypatch.setattr(encoder, "conv_gelu_block", conv_stack.conv_gelu_block_plain)
+    monkeypatch.setattr(encoder, "fused_attention", flash_attention.fused_attention_plain)
+    gp = grads()
+    total = torch.sqrt(sum((x * x).sum() for x in gp)).item()
+    for (name, _), a, b in zip(model.named_parameters(), gk, gp):
+        assert torch.isfinite(a).all(), name
+        assert (a - b).norm().item() <= 5e-2 * b.norm().item() + 1e-4 * total, name

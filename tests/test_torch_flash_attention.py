@@ -15,7 +15,11 @@ import torch
 from unispeech_tpu.ops.attention import multihead_attention as jax_mha
 from unispeech_tpu.ops.pallas.flash_attention import fused_attention as jax_fused
 from unispeech_tpu_torch.ops.attention import multihead_attention
-from unispeech_tpu_torch.ops.kernels.flash_attention import fused_attention
+from unispeech_tpu_torch.ops.kernels.flash_attention import (
+    fused_attention,
+    fused_attention_backward_plain,
+    fused_attention_plain,
+)
 
 TOL = 2e-5
 
@@ -82,6 +86,82 @@ def test_fused_matches_xla_and_lse():
 
 
 def test_dropout_not_in_slice():
-    q, k, v, _ = _make(B=1, T=8, bias=False, gate=False, mask=False)
-    with pytest.raises(NotImplementedError):
-        fused_attention(*map(torch.from_numpy, (q, k, v)), dropout_rate=0.1)
+    """Dropout is ported: the output depends on the seed and only on it, its
+    keep rate matches, and the op's backward regenerates the forward's mask
+    (torch autograd of the plain forward agrees to fp32 rounding)."""
+    q, k, v, args = _make(B=2, T=40, H=4, hd=32)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    targs = {n: None if a is None else torch.from_numpy(np.asarray(a)) for n, a in args.items()}
+    seed = torch.tensor([1234567], dtype=torch.int64)
+    out = fused_attention(tq, tk, tv, **targs, dropout_rate=0.3, dropout_seed=seed)
+    again = fused_attention(tq, tk, tv, **targs, dropout_rate=0.3, dropout_seed=seed)
+    other = fused_attention(tq, tk, tv, **targs, dropout_rate=0.3,
+                            dropout_seed=torch.tensor([7], dtype=torch.int64))
+    plain = fused_attention(tq, tk, tv, **targs)
+    assert torch.equal(out, again) and not torch.equal(out, other)
+    assert not torch.allclose(out, plain)
+    with pytest.raises(ValueError):  # dropout needs a seed
+        fused_attention(tq, tk, tv, dropout_rate=0.1)
+
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    ref = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    dout = torch.from_numpy(np.random.RandomState(3).randn(*out.shape).astype(np.float32))
+    for fn, (a, b, c) in ((fused_attention, leaves), (fused_attention_plain, ref)):
+        (fn(a, b, c, **targs, dropout_rate=0.3, dropout_seed=seed) * dout).sum().backward()
+    for l, r in zip(leaves, ref):
+        np.testing.assert_allclose(l.grad.numpy(), r.grad.numpy(), rtol=1e-4, atol=1e-5)
+
+
+BWD_CASES = {
+    "bias_gate_pad": dict(),
+    "bias_pad": dict(gate=False),
+    "pad_only": dict(bias=False, gate=False),
+    "attn_mask": dict(amask=True),
+    "ragged_t": dict(T=97),
+}
+
+
+@pytest.mark.parametrize("layout", [(4, 32), (2, 16)], ids=["packed", "head_major"])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_backward_matches_pallas(case, layout):
+    """The plain merged backward (dq, dk, dv, dbias, dgate) against jax.grad
+    through the Pallas kernels (interpret mode) in both layouts, fp32:
+    rtol 1e-4 / atol 1e-5 of the gradient's scale (the same function summed
+    in other orders, through exp and the softmax Jacobian)."""
+    H, hd = layout
+    q, k, v, args = _make(H=H, hd=hd, **BWD_CASES[case])
+    dout = np.random.RandomState(9).randn(*q.shape).astype(np.float32)
+    bias, gate = args["bias"], args["gate"]
+    jkw = {n: None if a is None else jnp.asarray(a) for n, a in args.items()
+           if n in ("key_padding_mask", "attn_mask")}
+    diff = [jnp.asarray(a) for a in (q, k, v)] + [
+        jnp.asarray(a) for a in (bias, gate) if a is not None]
+
+    def jloss(*xs):
+        qq, kk, vv = xs[:3]
+        bb = xs[3] if bias is not None else None
+        gg = xs[4] if gate is not None else None
+        return jnp.sum(jax_fused(qq, kk, vv, bb, gg, interpret=True, **jkw) * dout)
+
+    want = jax.grad(jloss, argnums=tuple(range(len(diff))))(*diff)
+    targs = {n: None if a is None else torch.from_numpy(np.asarray(a)) for n, a in args.items()}
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    out, lse = fused_attention_plain(tq, tk, tv, **targs, return_lse=True)
+    got = fused_attention_backward_plain(
+        tq, tk, tv, targs["bias"], targs["gate"], targs["key_padding_mask"],
+        targs["attn_mask"], 0.0, None, out, lse, torch.from_numpy(dout))
+    got = [g for g in got[:3]] + [g for g in got[3:] if g is not None]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=1e-5 * np.abs(w).max())
+
+    # the op's autograd (the plain backward on the CPU) gives the same
+    leaves = [torch.from_numpy(np.array(a)).requires_grad_() for a in diff]
+    kw = dict(key_padding_mask=targs["key_padding_mask"], attn_mask=targs["attn_mask"])
+    lb = leaves[3] if bias is not None else None
+    lg = leaves[4] if gate is not None else None
+    (fused_attention(*leaves[:3], lb, lg, **kw) * torch.from_numpy(dout)).sum().backward()
+    for l, w in zip(leaves, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(l.grad.numpy(), w, rtol=1e-4, atol=1e-5 * np.abs(w).max())

@@ -1,7 +1,7 @@
 """The port imports neither JAX nor the JAX package, and importing it builds
-nothing: every module is imported and a tiny CPU forward run in a fresh
-interpreter, which must end with no ``jax`` and no ``unispeech_tpu.`` module
-loaded and no kernel library built."""
+nothing: every module is imported, and a tiny CPU forward and a tiny
+pretraining step run, in a fresh interpreter, which must end with no ``jax``
+and no ``unispeech_tpu.`` module loaded and no kernel library built."""
 
 import subprocess
 import sys
@@ -30,6 +30,24 @@ SCRIPT = textwrap.dedent("""
     model = WavLM(WavLMModelConfig(encoder=enc), generator=torch.Generator().manual_seed(0))
     out = model.extract_features(torch.randn(2, 2000), lengths=torch.tensor([2000, 1500]))
     assert out.x.shape == (2, 99, 32) and torch.isfinite(out.x).all()
+
+    from unispeech_tpu_torch.configs import HubertPretrainConfig
+    from unispeech_tpu_torch.models.hubert import HubertPretrainModel
+    from unispeech_tpu_torch.train.losses import HubertCriterionConfig
+    from unispeech_tpu_torch.train.optim import OptimConfig
+    from unispeech_tpu_torch.train.state import create_train_state, make_train_step
+    from unispeech_tpu_torch.train.tasks import make_hubert_loss_fn
+
+    import dataclasses
+    hub = HubertPretrainModel(HubertPretrainConfig(
+        encoder=dataclasses.replace(enc, encoder_layerdrop=0.1), num_classes=(5,), final_dim=8),
+        generator=torch.Generator().manual_seed(0))
+    state = create_train_state(hub, OptimConfig(schedule="fixed"), device="cpu")
+    step = make_train_step(make_hubert_loss_fn(hub, HubertCriterionConfig()))
+    met = step(state, {"source": torch.randn(2, 2000),
+                       "targets": torch.randint(0, 5, (2, 99, 1))},
+               torch.Generator().manual_seed(1))
+    assert torch.isfinite(met["loss_per_sample"]) and state.step == 1
 
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m.startswith("unispeech_tpu."))

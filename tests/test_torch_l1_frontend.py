@@ -16,7 +16,11 @@ import pytest
 import torch
 
 from unispeech_tpu.ops.pallas.l1_frontend import l1_conv_with_stats as jax_l1
-from unispeech_tpu_torch.ops.kernels.l1_frontend import l1_conv_with_stats
+from unispeech_tpu_torch.ops.kernels.l1_frontend import (
+    l1_conv_backward_plain,
+    l1_conv_with_stats,
+    l1_conv_with_stats_plain,
+)
 
 C, K, STRIDE = 64, 10, 5
 
@@ -54,3 +58,53 @@ def test_l1_guard_rejects_geometry(k, stride):
     wav = torch.zeros(1, 2000)
     with pytest.raises(ValueError):
         l1_conv_with_stats(wav, torch.zeros(k, 1, C), stride)
+
+
+def _cotangents(B, t1, seed=1):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, t1, C).astype(np.float32), rng.randn(B, C).astype(np.float32),
+            (rng.randn(B, C) * 0.1).astype(np.float32))
+
+
+@pytest.mark.parametrize("ns", [2565, 3001, 700], ids=["aligned", "ragged", "short"])
+@pytest.mark.parametrize("stats", [True, False], ids=["stats", "no_stats"])
+def test_l1_backward_matches_pallas(ns, stats):
+    """The plain backward against jax.grad through the Pallas op (interpret
+    mode) and against torch autograd of the plain forward, fp32: the same
+    products summed over t1 rows in other orders, rtol 1e-4 / atol 1e-4 of
+    the gradient's scale."""
+    wav, kern = _inputs(ns)
+    t1 = (ns - K) // STRIDE + 1
+    dy, d1, d2 = _cotangents(2, t1)
+    if not stats:
+        d1 = d2 = np.zeros_like(d1)
+
+    def jloss(kk):
+        y, s1, s2, _ = jax_l1(jnp.asarray(wav), kk, STRIDE, dtype=jnp.float32, tile=256,
+                              interpret=True, with_stats=stats)
+        out = jnp.sum(y[:, :t1] * dy)
+        if stats:
+            out = out + jnp.sum(s1 * d1) + jnp.sum(s2 * d2)
+        return out
+
+    want = np.asarray(jax.grad(jloss)(jnp.asarray(kern)))
+    tw = torch.from_numpy(wav)
+    sums = (torch.from_numpy(d1), torch.from_numpy(d2)) if stats else (None, None)
+    got = l1_conv_backward_plain(tw, torch.from_numpy(kern), STRIDE, torch.from_numpy(dy),
+                                 *sums, dtype=torch.float32)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4 * scale)
+
+    # the op's autograd (the plain backward on the CPU) and torch autograd of
+    # the plain forward
+    k_op = torch.from_numpy(kern).requires_grad_()
+    k_ref = torch.from_numpy(kern).requires_grad_()
+    for fn, kk in ((l1_conv_with_stats, k_op), (l1_conv_with_stats_plain, k_ref)):
+        y, s1, s2, _ = fn(tw, kk, STRIDE, dtype=torch.float32)
+        loss = (y * torch.from_numpy(dy)).sum()
+        if stats:
+            loss = loss + (s1 * sums[0]).sum() + (s2 * sums[1]).sum()
+        loss.backward()
+    np.testing.assert_allclose(k_op.grad.numpy(), k_ref.grad.numpy(), rtol=1e-4,
+                               atol=1e-4 * scale)
+    np.testing.assert_allclose(k_op.grad.numpy(), want, rtol=1e-4, atol=1e-4 * scale)

@@ -160,12 +160,56 @@ def test_params_round_trip():
 
 
 def test_not_in_slice_raises():
+    """The layer_norm extractor (WavLM-Large) is still not ported. Masking
+    and dropout are: they draw from an explicit generator and refuse to run
+    without one."""
     cfg = WavLMModelConfig.from_reference_dict(small_cfg_dict(extractor_mode="layer_norm"))
     with pytest.raises(NotImplementedError):
         WavLM(cfg)
     model = WavLM(WavLMModelConfig.from_reference_dict(small_cfg_dict()))
     wav = torch.zeros(1, 4000)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         model(wav, mask=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         model(wav, deterministic=False)
+    out = model(wav, mask=True, deterministic=False, generator=torch.Generator().manual_seed(0))
+    assert out.mask_indices.shape == (1, 99) and torch.isfinite(out.x).all()
+
+
+@pytest.mark.parametrize("boundary", [False, True], ids=["span_sampler", "boundary_mask"])
+def test_masked_forward_matches_jax(boundary):
+    """mask=True with the mask JAX drew (fed to the port as its precomputed
+    mask), or JAX's boundary_mask path: the masked forward, the mask indices
+    (never on padding) and the feature penalty over the valid frames agree."""
+    jmodel, params, model = build_pair(small_cfg_dict(dropout_input=0.0))
+    rng = np.random.RandomState(4)
+    wav = rng.randn(3, 4000).astype(np.float32)
+    lengths = np.asarray([4000, 2900, 1650], np.int32)
+    kw = dict(lengths=jnp.asarray(lengths), mask=True)
+    if boundary:
+        kw["boundary_mask"] = jnp.asarray(rng.rand(3, 99) < 0.5)
+    jout = jax.jit(lambda p, w: jmodel.apply({"params": p}, w, rngs={"mask": jax.random.PRNGKey(3)},
+                                             **kw))(params, jnp.asarray(wav))
+    mask = np.array(jout.mask_indices)
+    out = model(torch.from_numpy(wav), lengths=torch.from_numpy(lengths), mask=True,
+                boundary_mask=torch.from_numpy(np.array(kw["boundary_mask"]) if boundary
+                                               else mask))
+    np.testing.assert_array_equal(out.mask_indices.numpy(), mask)
+    assert not (mask & np.asarray(jout.padding_mask)).any()
+    close(out.x.detach(), jout.x)
+    np.testing.assert_allclose(float(out.features_pen.detach()), float(jout.features_pen), rtol=1e-5)
+
+
+def test_training_forward_draws_from_the_generator():
+    """deterministic=False: dropout and layerdrop run, the same generator
+    seed gives the same output, another seed another one."""
+    cfg = WavLMModelConfig.from_reference_dict(small_cfg_dict(
+        dropout=0.1, attention_dropout=0.1, activation_dropout=0.1, encoder_layerdrop=0.2,
+        dropout_input=0.1))
+    model = WavLM(cfg, generator=torch.Generator().manual_seed(0))
+    wav = torch.from_numpy(np.random.RandomState(5).randn(2, 4000).astype(np.float32))
+    run = lambda seed: model(wav, deterministic=False,
+                             generator=torch.Generator().manual_seed(seed)).x
+    a, b, c = run(0), run(0), run(1)
+    assert torch.equal(a, b) and not torch.equal(a, c) and torch.isfinite(a).all()
+    assert not torch.allclose(a, model(wav).x)

@@ -1,4 +1,5 @@
-"""Carry the JAX package's WavLM params into the port, and back.
+"""Carry the JAX package's WavLM and HuBERT-pretraining params into the
+port, and back.
 
 The JAX model keeps flax trees (kernels (in, out), convs (k, in/g, out));
 the port names its parameters in the fairseq/standalone-WavLM state-dict
@@ -7,6 +8,10 @@ the same keys and transposes as the JAX package's fairseq exporter, reading
 both the scanned (``layers``, leading L axis) and the unrolled
 (``layer_{i}``) layer trees. ``jax_params_from_state_dict`` is its inverse,
 for writing a params ``.npz`` the JAX tools read.
+``hubert_state_dict_from_jax`` adds the masked-prediction heads under the
+names of the JAX package's fairseq exporter (``final_proj*``,
+``label_embs_concat`` with the ILS tables stacked along the rows,
+``target_glu.0``); ``jax_params_from_hubert_state_dict`` is its inverse.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from unispeech_tpu_torch.configs import EncoderConfig
+from unispeech_tpu_torch.configs import EncoderConfig, HubertPretrainConfig
 
 _ATTN_PROJ = ("q_proj", "k_proj", "v_proj", "out_proj")
 
@@ -153,6 +158,55 @@ def jax_params_from_state_dict(sd: Mapping[str, torch.Tensor], enc: EncoderConfi
     if table in s:
         e["rel_attn_bias"] = s[table]
     params["encoder"] = e
+    return params
+
+
+def hubert_state_dict_from_jax(params: Mapping, cfg: HubertPretrainConfig
+                               ) -> Dict[str, torch.Tensor]:
+    """Port state dict of a HubertPretrainModel from the JAX params (the
+    backbone under "wavlm", the heads beside it)."""
+    sd = wavlm_state_dict_from_jax(params["wavlm"], cfg.encoder)
+    heads: Dict[str, np.ndarray] = {}
+    embs = _np(params["label_embs_concat"])
+    heads["label_embs_concat"] = embs.reshape(-1, embs.shape[-1])
+    if "final_proj" in params:
+        heads["final_proj.weight"] = _t(params["final_proj"]["kernel"])
+        heads["final_proj.bias"] = _np(params["final_proj"]["bias"])
+    li = 0
+    while f"final_proj_{li}" in params:
+        heads[f"final_proj.{li}.weight"] = _t(params[f"final_proj_{li}"]["kernel"])
+        heads[f"final_proj.{li}.bias"] = _np(params[f"final_proj_{li}"]["bias"])
+        li += 1
+    if "target_glu" in params:
+        dense = params["target_glu"]["Dense_0"]
+        heads["target_glu.0.weight"] = _t(dense["kernel"])
+        heads["target_glu.0.bias"] = _np(dense["bias"])
+    sd.update({k: torch.tensor(v) for k, v in heads.items()})
+    return sd
+
+
+def jax_params_from_hubert_state_dict(sd: Mapping[str, torch.Tensor],
+                                      cfg: HubertPretrainConfig) -> dict:
+    """Inverse of ``hubert_state_dict_from_jax``; the backbone's layers are
+    stacked under ``layers`` as ``nn.scan`` keeps them."""
+    s = {k: v.detach().cpu().float().numpy() for k, v in sd.items()}
+    params = {"wavlm": jax_params_from_state_dict(sd, cfg.encoder)}
+    n_pred = len(cfg.predict_layers) or 1
+    n_tables = n_pred if (cfg.separate_label_embeds or cfg.separate_layer_targets) else 1
+    embs = s["label_embs_concat"]
+    params["label_embs_concat"] = (embs.reshape(n_tables, -1, embs.shape[-1])
+                                   if n_tables > 1 else embs)
+    if "final_proj.weight" in s:
+        params["final_proj"] = {"kernel": _t(s["final_proj.weight"]),
+                                "bias": s["final_proj.bias"]}
+    li = 0
+    while f"final_proj.{li}.weight" in s:
+        params[f"final_proj_{li}"] = {"kernel": _t(s[f"final_proj.{li}.weight"]),
+                                      "bias": s[f"final_proj.{li}.bias"]}
+        li += 1
+    if "target_glu.0.weight" in s:
+        params["target_glu"] = {"Dense_0": {"kernel": _t(s["target_glu.0.weight"]),
+                                            "bias": s["target_glu.0.bias"]}}
     return params
 
 

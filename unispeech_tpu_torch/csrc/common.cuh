@@ -18,4 +18,10 @@ __device__ __forceinline__ float gelu_erf(float x) {
     return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
 }
 
+// its exact derivative Phi(x) + x * phi(x)
+__device__ __forceinline__ float dgelu_erf(float x) {
+    return 0.5f * (1.0f + erff(x * 0.70710678118654752f)) +
+           x * 0.39894228040143268f * expf(-0.5f * x * x);
+}
+
 }  // namespace usk

@@ -2,12 +2,11 @@
 //
 // Replaces unispeech_tpu/ops/pallas/flash_attention.py::_fwd_kernel
 // (head-major layout, launched by _run_forward) and ::_fwd_kernel_packed
-// (natural (B, T, H*hd) layout, launched by _run_forward_packed), forward
-// only, without dropout:
-//   out = softmax(q*scale . k^T + gate[b,h,t] * bias[h,t,s] + attn_mask[t,s]
-//                 - 1e30 * (key s padded or s >= S)) . v
-// and, when asked, lse = max + log(sum) per query row. Neither the logits
-// nor the probabilities ever reach device memory.
+// (natural (B, T, H*hd) layout, launched by _run_forward_packed):
+//   out = dropout(softmax(q*scale . k^T + gate[b,h,t] * bias[h,t,s]
+//                 + attn_mask[t,s] - 1e30 * (key s padded or s >= S))) . v
+// and, when asked, lse = max + log(sum) per query row (taken before
+// dropout). Neither the logits nor the probabilities reach device memory.
 //
 // Bound on the H100: bytes. At WavLM-Base+ width and 4 x 16 s one call does
 // 7.85 GFLOP (8 us at the bf16 tensor-core peak) but must read q, k, v and
@@ -27,10 +26,19 @@
 // fed back as the A operand of P.V without leaving registers (V fragments
 // by ldmatrix.trans). Ragged T and S are masked in the kernel: key rows past
 // S are zero-filled and -1e30'd, query rows past T are not stored.
+//
+// Dropout (training): the un-normalised P is multiplied by keep/(1 - rate)
+// after its row sum is taken, as the TPU kernel does. The keep bit of each
+// (b, h, t, s) comes from Philox-4x32-10 keyed by the 64-bit seed, which is
+// read from device memory (no host sync to draw it), counted by the
+// absolute coordinates (philox.cuh), so the backward kernel and the plain
+// version regenerate the identical mask. One Philox call serves a 2 x 2
+// (t, s) block; a thread uses two of its words.
 
 #include <math.h>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -63,6 +71,9 @@ struct Args {
     const uint8_t* kpm;         // (B, S) 1 = padded key, or null
     const float* amask;         // (T, S) or null
     float* lse;                 // (B, H, T) or null
+    const long long* seed;      // dropout seed (1 element) or null: no dropout
+    unsigned threshold;         // keep iff the Philox word >= threshold
+    float drop_scale;           // 1 / (1 - rate)
     int T, S, H;
     float scale;
 };
@@ -117,6 +128,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
     const int T = a.T, S = a.S, H = a.H;
     const bool has_add = a.bias != nullptr || a.amask != nullptr;
+    const bool dropout = a.seed != nullptr;
+    const uint64_t seed = dropout ? (uint64_t)*a.seed : 0;
 
     // q tile, scaled in its own dtype (bf16(q * scale), as the reference
     // pre-scales q before the kernel), and the tile's gates
@@ -273,6 +286,19 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
             rs[e] += __shfl_xor_sync(0xffffffffu, rs[e], 2);
             l[e] = l[e] * alpha[e] + rs[e];
         }
+        if (dropout) {  // after the row sums: l is the undropped normaliser
+#pragma unroll
+            for (int j = 0; j < kBKey / 8; ++j) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    bool k0, k1;
+                    usk::attention_keep_pair(seed, a.threshold, b, h, q0 + row0 + 8 * e,
+                                             s0 + j * 8 + c2, k0, k1);
+                    sacc[j][2 * e] *= k0 ? a.drop_scale : 0.f;
+                    sacc[j][2 * e + 1] *= k1 ? a.drop_scale : 0.f;
+                }
+            }
+        }
 #pragma unroll
         for (int j = 0; j < kHd / 8; ++j) {
             o[j][0] *= alpha[0];
@@ -325,7 +351,8 @@ extern "C" int usk_flash_attention_fwd(
     long long q_bs, long long q_rs, long long k_bs, long long k_rs,
     long long v_bs, long long v_rs, long long o_bs, long long o_rs,
     const void* bias, const void* gate, const void* kpm, const void* amask,
-    void* lse, int B, int T, int S, int H, float scale, void* stream) {
+    void* lse, int B, int T, int S, int H, float scale, const void* seed,
+    unsigned threshold, float drop_scale, void* stream) {
     // above 48 KB of dynamic shared memory only after opting in (per device)
     const cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
@@ -342,6 +369,9 @@ extern "C" int usk_flash_attention_fwd(
     a.kpm = (const uint8_t*)kpm;
     a.amask = (const float*)amask;
     a.lse = (float*)lse;
+    a.seed = (const long long*)seed;
+    a.threshold = threshold;
+    a.drop_scale = drop_scale;
     a.T = T; a.S = S; a.H = H;
     a.scale = scale;
     const dim3 grid((T + kBQ - 1) / kBQ, H, B);

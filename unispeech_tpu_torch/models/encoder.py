@@ -1,4 +1,4 @@
-"""Conv frontend + transformer encoder (WavLM / HuBERT skeleton), inference.
+"""Conv frontend + transformer encoder (WavLM / HuBERT skeleton).
 
 Counterpart of the JAX package's ``models/encoder.py``. Parameters are fp32
 and named in the fairseq/standalone-WavLM key layout, so a state dict carried
@@ -11,21 +11,34 @@ The frontend keeps the fused structure of the JAX TPU path wherever the
 config allows it: the first conv and its GroupNorm statistics in one op, the
 GroupNorm folded into the next block as a (B, C) affine, and each
 (k in {2,3}, s=2) layer as one conv+GELU block. Those three ops launch their
-CUDA kernels for CUDA tensors and take their plain versions for CPU tensors.
+CUDA kernels for CUDA tensors and take their plain versions for CPU tensors,
+in both directions.
+
+Training (an encoder called with a ``generator``): dropout at the encoder
+input, on both residual branches, after the FFN activation and on the
+attention probabilities (in the fused kernel); layerdrop skips a layer's
+compute (its parameters then get no gradient, which the train step turns
+into zeros); ``remat_ffn`` / ``remat_layers`` recompute the FFN / the whole
+layer in the backward via ``torch.utils.checkpoint``. Every random draw
+comes from the host-side generator before the layers run: the seeds are
+arguments of the checkpointed functions, so a recompute draws the masks it
+drew the first time.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from unispeech_tpu_torch.configs import EncoderConfig
 from unispeech_tpu_torch.ops.attention import multihead_attention, rel_pos_gate
+from unispeech_tpu_torch.ops.dropout import draw_seeds, seed_dropout
 from unispeech_tpu_torch.ops.kernels.conv_stack import conv_gelu_block
 from unispeech_tpu_torch.ops.kernels.flash_attention import fused_attention
 from unispeech_tpu_torch.ops.kernels.l1_frontend import l1_conv_with_stats
@@ -34,6 +47,22 @@ from unispeech_tpu_torch.ops.rel_pos import compute_rel_pos_bias
 
 def not_in_slice(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to PyTorch yet")
+
+
+class _GradMultiply(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def grad_multiply(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """Identity forward, gradient scaled by ``scale`` (feature_grad_mult)."""
+    return _GradMultiply.apply(x, scale)
 
 
 def gelu_fp32(x: torch.Tensor) -> torch.Tensor:
@@ -220,7 +249,7 @@ class ConvFeatureExtractor(nn.Module):
                 continue
             if self.fuse[i]:
                 h, _ = conv_gelu_block(  # a plain conv's output is a transposed view
-                    h.contiguous(), conv.kernel().to(self.dtype), valid_len=h.shape[1],
+                    h.contiguous(), conv.kernel(), valid_len=h.shape[1],
                     gelu_in=pending_gelu, gelu_out=True, affine=pending_affine)
                 pending_gelu = False
                 pending_affine = None
@@ -299,9 +328,12 @@ class SelfAttention(nn.Module):
         if has_rel_table:
             self.relative_attention_bias = nn.Embedding(cfg.num_buckets, H)
 
-    def forward(self, x, position_bias, key_padding_mask, attn_mask=None):
+    def forward(self, x, position_bias, key_padding_mask, attn_mask=None, dropout_seed=None):
+        """``dropout_seed`` (1-element int64 on x's device) turns on the
+        attention dropout of the config."""
         B, T, D = x.shape
         H, hd, hq = self.num_heads, self.head_dim, self.qk_head_dim
+        rate = self.cfg.attention_dropout if dropout_seed is not None else 0.0
         q = linear(x, self.q_proj, self.dtype).view(B, T, H, hq)
         k = linear(x, self.k_proj, self.dtype).view(B, T, H, hq)
         v = linear(x, self.v_proj, self.dtype).view(B, T, H, hd)
@@ -311,7 +343,8 @@ class SelfAttention(nn.Module):
                                 self.grep_a, H)
         if self.cfg.use_flash_attention and hq == hd:
             out = fused_attention(q, k, v, position_bias, gate, key_padding_mask,
-                                  attn_mask=attn_mask)
+                                  attn_mask=attn_mask, dropout_rate=rate,
+                                  dropout_seed=dropout_seed)
         else:
             bias = None
             if position_bias is not None:
@@ -322,12 +355,24 @@ class SelfAttention(nn.Module):
                 am = attn_mask.float()[None, None]
                 bias = am if bias is None else bias + am
             out = multihead_attention(q, k, v, bias=bias,
-                                      key_padding_mask=key_padding_mask)
+                                      key_padding_mask=key_padding_mask,
+                                      dropout_rate=rate, dropout_seed=dropout_seed)
         return linear(out.reshape(B, T, D), self.out_proj, self.dtype)
 
 
+@dataclasses.dataclass
+class LayerSeeds:
+    """A layer's random draws in training: the attention dropout seed
+    (1-element int64 on the device, or None), the seeds of the two residual
+    dropouts and of the activation dropout (ints, or None)."""
+
+    attention: Optional[torch.Tensor]
+    residual: Tuple[Optional[int], Optional[int]]
+    activation: Optional[int]
+
+
 class TransformerEncoderLayer(nn.Module):
-    """Pre- or post-LN transformer layer (no dropout: inference)."""
+    """Pre- or post-LN transformer layer; with ``seeds`` its dropouts run."""
 
     def __init__(self, cfg: EncoderConfig, dtype: torch.dtype, has_rel_table: bool):
         super().__init__()
@@ -341,17 +386,36 @@ class TransformerEncoderLayer(nn.Module):
         self.fc2 = nn.Linear(F_, D)
         self.final_layer_norm = Fp32LayerNorm(D, cfg.layer_norm_eps)
 
-    def _ffn(self, h):
-        return linear(self.act(linear(h, self.fc1, self.dtype)), self.fc2, self.dtype)
+    def _ffn(self, h, act_seed=None):
+        h = self.act(linear(h, self.fc1, self.dtype))
+        if act_seed is not None:
+            h = seed_dropout(h, act_seed, self.cfg.activation_dropout)
+        return linear(h, self.fc2, self.dtype)
 
-    def forward(self, x, position_bias, key_padding_mask, attn_mask=None):
-        attn = lambda h: self.self_attn(h, position_bias, key_padding_mask, attn_mask)
-        if self.cfg.layer_norm_first:
-            x = x + attn(self.self_attn_layer_norm(x))
-            x = x + self._ffn(self.final_layer_norm(x))
+    def forward(self, x, position_bias, key_padding_mask, attn_mask=None,
+                seeds: Optional[LayerSeeds] = None):
+        cfg = self.cfg
+        if seeds is None:
+            seeds = LayerSeeds(None, (None, None), None)
+
+        def drop(h, seed):
+            return h if seed is None else seed_dropout(h, seed, cfg.dropout)
+
+        attn = lambda h: self.self_attn(h, position_bias, key_padding_mask, attn_mask,
+                                        seeds.attention)
+        if cfg.remat_ffn and not cfg.remat_layers and torch.is_grad_enabled():
+            # recompute fc1 + activation in the backward instead of keeping the
+            # (B, T, F) activation; the seed makes the recompute draw the same mask
+            ffn = lambda h: checkpoint(self._ffn, h, seeds.activation, use_reentrant=False)
         else:
-            x = self.self_attn_layer_norm(x + attn(x))
-            x = self.final_layer_norm(x + self._ffn(x))
+            ffn = lambda h: self._ffn(h, seeds.activation)
+        r1, r2 = seeds.residual
+        if cfg.layer_norm_first:
+            x = x + drop(attn(self.self_attn_layer_norm(x)), r1)
+            x = x + drop(ffn(self.final_layer_norm(x)), r2)
+        else:
+            x = self.self_attn_layer_norm(x + drop(attn(x), r1))
+            x = self.final_layer_norm(x + drop(ffn(x), r2))
         return x
 
 
@@ -359,6 +423,7 @@ class TransformerEncoderLayer(nn.Module):
 class EncoderOutput:
     x: torch.Tensor  # (B, T, D) final output
     layer_outputs: Optional[torch.Tensor]  # (n+1, B, T, D): inputs to each layer + final
+    layers_dropped: int = 0  # layers layerdrop skipped in this call
 
 
 class TransformerEncoder(nn.Module):
@@ -377,13 +442,37 @@ class TransformerEncoder(nn.Module):
             for i in range(cfg.encoder_layers))
 
     def forward(self, x, padding_mask=None, collect_layer_outputs: bool = False,
-                output_layer: Optional[int] = None, attn_mask=None) -> EncoderOutput:
+                output_layer: Optional[int] = None, attn_mask=None,
+                generator: Optional[torch.Generator] = None) -> EncoderOutput:
+        """With ``generator`` (a CPU torch.Generator) the encoder trains:
+        dropout and layerdrop draw from it; without, it is deterministic."""
         cfg = self.cfg
         if padding_mask is not None:
             x = x.masked_fill(padding_mask[..., None], 0.0)
         x = x + self.pos_conv(x)
         if not cfg.layer_norm_first:
             x = self.layer_norm(x)
+
+        # output_layer (1-based) stops after that layer: the rest never run
+        n_layers = len(self.layers) if output_layer is None else min(
+            output_layer, len(self.layers))
+        layer_seeds: List[Optional[LayerSeeds]] = [None] * n_layers
+        keep = [True] * n_layers
+        if generator is not None:
+            seeds = draw_seeds(generator, 4 * n_layers + 1)
+            u_drop = torch.rand(n_layers, generator=generator).tolist()
+            attn_seeds = seeds[1:1 + n_layers].to(x.device, non_blocking=True)
+            host = seeds.tolist()
+            if cfg.dropout > 0.0:
+                x = seed_dropout(x, host[0], cfg.dropout)
+            opt = lambda rate, seed: seed if rate > 0.0 else None
+            for i in range(n_layers):
+                j = 1 + n_layers + 3 * i
+                layer_seeds[i] = LayerSeeds(
+                    attn_seeds[i:i + 1] if cfg.attention_dropout > 0.0 else None,
+                    (opt(cfg.dropout, host[j]), opt(cfg.dropout, host[j + 1])),
+                    opt(cfg.activation_dropout, host[j + 2]))
+                keep[i] = not (cfg.encoder_layerdrop > 0.0 and u_drop[i] <= cfg.encoder_layerdrop)
 
         position_bias = None
         if cfg.relative_position_embedding:
@@ -392,14 +481,18 @@ class TransformerEncoder(nn.Module):
             position_bias = compute_rel_pos_bias(
                 table, T, T, cfg.num_buckets, cfg.max_distance, dtype=self.dtype)
 
-        # output_layer (1-based) stops after that layer: the rest never run
-        n_layers = len(self.layers) if output_layer is None else min(
-            output_layer, len(self.layers))
         outputs = []
-        for layer in self.layers[:n_layers]:
+        remat = cfg.remat_layers and torch.is_grad_enabled()
+        for layer, seeds, kept in zip(self.layers[:n_layers], layer_seeds, keep):
             if collect_layer_outputs:
                 outputs.append(x)
-            x = layer(x, position_bias, padding_mask, attn_mask)
+            if not kept:
+                continue
+            if remat:
+                x = checkpoint(layer, x, position_bias, padding_mask, attn_mask, seeds,
+                               use_reentrant=False)
+            else:
+                x = layer(x, position_bias, padding_mask, attn_mask, seeds)
         layer_outputs = None
         if collect_layer_outputs:
             outputs.append(x)
@@ -407,7 +500,8 @@ class TransformerEncoder(nn.Module):
 
         if cfg.layer_norm_first and output_layer is None:
             x = self.layer_norm(x)
-        return EncoderOutput(x=x, layer_outputs=layer_outputs)
+        return EncoderOutput(x=x, layer_outputs=layer_outputs,
+                             layers_dropped=n_layers - sum(keep))
 
 
 def reset_parameters(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:

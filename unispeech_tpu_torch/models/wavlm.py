@@ -1,7 +1,8 @@
-"""WavLM model for feature extraction: conv frontend + transformer encoder.
+"""WavLM model: conv frontend + transformer encoder + masking.
 
-Counterpart of the JAX package's ``models/wavlm.py`` for ``mask=False,
-deterministic=True``. Masking and dropout come with the training slice.
+Counterpart of the JAX package's ``models/wavlm.py``. Training
+(``deterministic=False``) and masking (``mask=True``) draw their randomness
+from an explicit host-side ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -17,11 +18,17 @@ from unispeech_tpu_torch.models.encoder import (
     ConvFeatureExtractor,
     Fp32LayerNorm,
     TransformerEncoder,
+    grad_multiply,
     linear,
-    not_in_slice,
     reset_parameters,
 )
-from unispeech_tpu_torch.ops.masking import frame_padding_mask
+from unispeech_tpu_torch.ops.dropout import draw_seeds, seed_dropout
+from unispeech_tpu_torch.ops.masking import (
+    apply_channel_mask,
+    apply_time_mask,
+    frame_padding_mask,
+    sample_span_mask,
+)
 
 
 @dataclasses.dataclass
@@ -31,6 +38,9 @@ class WavLMOutput:
     conv_features: torch.Tensor  # (B, T, C) post-LN conv features
     padding_mask: Optional[torch.Tensor]  # (B, T) True = pad
     layer_outputs: Optional[torch.Tensor]  # (n+1, B, T, D)
+    mask_indices: Optional[torch.Tensor] = None  # (B, T) True = masked
+    features_pen: Optional[torch.Tensor] = None  # mean square of the raw conv features
+    layers_dropped: int = 0  # layers layerdrop skipped
 
 
 class WavLM(nn.Module):
@@ -64,12 +74,19 @@ class WavLM(nn.Module):
         collect_layer_outputs: bool = False,
         output_layer: Optional[int] = None,
         attn_mask: Optional[torch.Tensor] = None,  # (T, S) additive
+        boundary_mask: Optional[torch.Tensor] = None,  # (B, T_frames) precomputed mask
+        generator: Optional[torch.Generator] = None,  # host-side, for mask / dropout
     ) -> WavLMOutput:
-        if mask:
-            raise not_in_slice("span masking (mask=True)")
-        if not deterministic:
-            raise not_in_slice("dropout (deterministic=False)")
+        """``mask=True`` replaces span-sampled frames (or ``boundary_mask``,
+        which overrides the sampler) by the mask embedding;
+        ``deterministic=False`` runs dropout and layerdrop. Both draw from
+        ``generator`` (a CPU torch.Generator)."""
         enc = self.cfg.encoder
+        draws = (not deterministic) or (mask and (
+            (boundary_mask is None and self.cfg.time_mask.mask_prob > 0)
+            or self.cfg.channel_mask.mask_prob > 0))
+        if draws and generator is None:
+            raise ValueError("masking and dropout draw from an explicit generator")
         if enc.normalize:
             # per-utterance zero-mean unit-variance over the valid samples
             if lengths is None:
@@ -86,18 +103,55 @@ class WavLM(nn.Module):
                 source = source.masked_fill(~valid, 0.0)
 
         feats = self.feature_extractor(source)
+        if enc.feature_grad_mult != 1.0:
+            feats = (grad_multiply(feats, enc.feature_grad_mult)
+                     if enc.feature_grad_mult > 0 else feats.detach())
         padding_mask = None
         if lengths is not None:
             padding_mask = frame_padding_mask(lengths, source.shape[1], feats.shape[1])
+
+        # L2 penalty on the raw conv features, fp32, over the valid frames
+        sq = feats.float() ** 2
+        if padding_mask is None:
+            features_pen = sq.mean()
+        else:
+            valid_f = (~padding_mask).float()[..., None]
+            features_pen = (sq * valid_f).sum() / torch.clamp(
+                valid_f.sum() * feats.shape[-1], min=1.0)
+
         conv_features = self.layer_norm(feats)
         features = conv_features
         if self.post_extract_proj is not None:
             features = linear(conv_features, self.post_extract_proj, self.dtype)
-        out = self.encoder(features, padding_mask=padding_mask,
+        if enc.dropout_input > 0.0 and not deterministic:
+            features = seed_dropout(features, int(draw_seeds(generator, 1)), enc.dropout_input)
+
+        mask_indices = None
+        x = features
+        B, T, C = features.shape
+        if mask and boundary_mask is not None:
+            mask_indices = boundary_mask.to(device=features.device, dtype=torch.bool)
+            if padding_mask is not None:
+                mask_indices = mask_indices & ~padding_mask
+            x = apply_time_mask(features, mask_indices, self.mask_emb)
+        elif mask and self.cfg.time_mask.mask_prob > 0:
+            frame_lengths = None if padding_mask is None else (~padding_mask).sum(-1)
+            mask_indices = sample_span_mask(generator, B, T, self.cfg.time_mask,
+                                            frame_lengths, device=features.device)
+            x = apply_time_mask(features, mask_indices, self.mask_emb)
+        if mask and self.cfg.channel_mask.mask_prob > 0:
+            ch_mask = sample_span_mask(generator, B, C, self.cfg.channel_mask, None,
+                                       device=features.device)
+            x = apply_channel_mask(x, ch_mask)
+
+        out = self.encoder(x, padding_mask=padding_mask,
                            collect_layer_outputs=collect_layer_outputs,
-                           output_layer=output_layer, attn_mask=attn_mask)
+                           output_layer=output_layer, attn_mask=attn_mask,
+                           generator=None if deterministic else generator)
         return WavLMOutput(x=out.x, features=features, conv_features=conv_features,
-                           padding_mask=padding_mask, layer_outputs=out.layer_outputs)
+                           padding_mask=padding_mask, layer_outputs=out.layer_outputs,
+                           mask_indices=mask_indices, features_pen=features_pen,
+                           layers_dropped=out.layers_dropped)
 
     @torch.no_grad()
     def extract_features(self, source: torch.Tensor,

@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from unispeech_tpu_torch.ops.kernels.philox import attention_keep
+
 
 def scale_in_dtype(head_dim: int, dtype: torch.dtype) -> float:
     """``head_dim**-0.5`` rounded to ``dtype``: the JAX package multiplies q
@@ -49,10 +51,13 @@ def multihead_attention(
     v: torch.Tensor,  # (B, S, H, hd)
     bias: Optional[torch.Tensor] = None,  # (B, H, T, S) or (H, T, S) additive
     key_padding_mask: Optional[torch.Tensor] = None,  # (B, S) True = pad
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[torch.Tensor] = None,  # 1-element int64
 ) -> torch.Tensor:
     """Scaled dot-product attention, softmax in fp32, output (B, T, H, hd):
-    scale q, logits + bias, padded keys to the fp32 minimum, fp32 softmax.
-    Dropout comes with the training slice."""
+    scale q, logits + bias, padded keys to the fp32 minimum, fp32 softmax,
+    dropout on the probabilities (the fused kernel's Philox mask of
+    ``dropout_seed``)."""
     scale = scale_in_dtype(q.shape[-1], q.dtype)
     logits = torch.einsum("bthd,bshd->bhts", (q * scale).float(), k.float())
     if bias is not None:
@@ -62,5 +67,9 @@ def multihead_attention(
     if key_padding_mask is not None:
         neg = torch.finfo(torch.float32).min
         logits = logits.masked_fill(key_padding_mask[:, None, None, :], neg)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhts,bshd->bthd", probs, v)
+    probs = torch.softmax(logits, dim=-1)
+    if dropout_rate > 0.0:
+        B, H, T, S = probs.shape
+        keep = attention_keep(dropout_seed.to(probs.device), B, H, T, S, dropout_rate)
+        probs = probs * keep / (1.0 - dropout_rate)
+    return torch.einsum("bhts,bshd->bthd", probs.to(v.dtype), v)

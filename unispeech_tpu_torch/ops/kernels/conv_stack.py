@@ -1,11 +1,12 @@
 """Fused strided-conv1d + GELU blocks of the waveform frontend.
 
-Counterpart of the JAX package's ``ops/pallas/conv_stack.py`` (forward):
-one block computes y = gelu?(conv_{k in {2,3}, s=2}(gelu_in?(x*a + b))),
-where (a, b) is the frontend GroupNorm folded in as a per-(batch, channel)
-affine. GELU is exact erf (the TPU kernel's polynomial exists only because
-Mosaic has no erf). CUDA tensors go to the kernel in ``csrc/conv_stack.cu``;
-CPU tensors to the plain version below.
+Counterpart of the JAX package's ``ops/pallas/conv_stack.py``: one block
+computes y = gelu?(conv_{k in {2,3}, s=2}(gelu_in?(x*a + b))), where (a, b)
+is the frontend GroupNorm folded in as a per-(batch, channel) affine, and
+its backward (dx, dW, da, db from the saved bf16 pre-activation). GELU and
+its derivative are exact erf (the TPU kernel's polynomials exist only
+because Mosaic has no erf). CUDA tensors go to the kernels in
+``csrc/conv_stack.cu``; CPU tensors to the plain versions below.
 """
 
 from __future__ import annotations
@@ -18,10 +19,12 @@ import torch.nn.functional as F
 
 from unispeech_tpu_torch.ops.kernels import _build
 
-launches = 0  # kernel launches made by conv_gelu_block
+launches = 0  # forward kernel launches made by conv_gelu_block
+backward_launches = 0  # backward launches made by conv_gelu_block_backward
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+_SIGNATURE = [_P] * 6 + [_I] * 7 + [_P]
+_BWD_SIGNATURE = [_P] * 12 + [_I] * 7 + [_P]
 
 Affine = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -36,22 +39,174 @@ def _check(kernel: torch.Tensor, valid_len: int, ts: int) -> int:
     return (valid_len - k) // 2 + 1
 
 
-def conv_gelu_block_plain(x, kernel, valid_len: int, gelu_in: bool = False,
-                          gelu_out: bool = True, affine: Affine = None):
-    """Plain version: the same roundings as the kernel, the conv by
-    F.conv1d in fp32 on the dtype-rounded operands."""
-    t_out = _check(kernel, valid_len, x.shape[1])
+def _block_input(x, valid_len, gelu_in, affine):
+    """(x^, H): the dtype-rounded affine of the valid rows, and the conv's
+    input (x^ after the input GELU, rounded)."""
     h = x[:, :valid_len]
     if affine is not None:
         a, b = affine
         h = (h.float() * a.float()[:, None, :] + b.float()[:, None, :]).to(x.dtype)
+    xh = h
     if gelu_in:
         h = F.gelu(h.float()).to(x.dtype)
+    return xh, h
+
+
+def dgelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact derivative of the erf GELU, Phi(x) + x * phi(x), in fp32."""
+    x = x.float()
+    return 0.5 * (1.0 + torch.erf(x * 0.7071067811865476)) + (
+        x * 0.3989422804014327 * torch.exp(-0.5 * x * x))
+
+
+def conv_gelu_block_plain(x, kernel, valid_len: int, gelu_in: bool = False,
+                          gelu_out: bool = True, affine: Affine = None,
+                          return_pre: bool = False):
+    """Plain version: the same roundings as the kernel, the conv by
+    F.conv1d in fp32 on the dtype-rounded operands. With ``return_pre``
+    also the dtype-rounded pre-activation (the conv output before the
+    output GELU)."""
+    t_out = _check(kernel, valid_len, x.shape[1])
+    _, h = _block_input(x, valid_len, gelu_in, affine)
     w = kernel.to(x.dtype).float().permute(2, 1, 0)  # (C_out, C_in, k)
     y = F.conv1d(h.float().transpose(1, 2), w, stride=2).transpose(1, 2)
+    pre = y.to(x.dtype).contiguous()
     if gelu_out:
         y = F.gelu(y)
-    return y.to(x.dtype).contiguous(), t_out
+    y = y.to(x.dtype).contiguous()
+    return (y, t_out, pre) if return_pre else (y, t_out)
+
+
+def conv_gelu_block_backward_plain(x, kernel, valid_len: int, gelu_in: bool,
+                                   gelu_out: bool, affine: Affine, dy, pre):
+    """Plain version of the block's backward, in the kernel's arithmetic:
+    g = dtype(gelu'(pre) * dy); dx^[2t + p] = sum_p g[t] . W_p^T (fp32), times
+    gelu'(x^) with the input GELU; da = sum_t dx^ * x, db = sum_t dx^,
+    dx = dtype(dx^ * a), zero past valid_len; dW_p = sum_t H[2t + p]^T . g
+    in fp32. Returns (dx, dW (k, C, C) fp32, da, db); da/db None without
+    the affine."""
+    k = kernel.shape[0]
+    t_out = _check(kernel, valid_len, x.shape[1])
+    B, ts, C = x.shape
+    xh, h = _block_input(x, valid_len, gelu_in, affine)
+    g = dgelu(pre) * dy.float() if gelu_out else dy.float()
+    g = g.to(x.dtype).float()
+    w = kernel.to(x.dtype).float()  # (k, C_in, C_out)
+    dxh = torch.zeros((B, valid_len, C), dtype=torch.float32, device=x.device)
+    dw = torch.empty((k, C, C), dtype=torch.float32, device=x.device)
+    hf = h.float()
+    for p in range(k):
+        dxh[:, p:p + 2 * t_out:2] += g @ w[p].t()
+        dw[p] = hf[:, p:p + 2 * t_out:2].reshape(-1, C).t() @ g.reshape(-1, C)
+    if gelu_in:
+        dxh = dxh * dgelu(xh)
+    da = db = None
+    if affine is not None:
+        xv = x[:, :valid_len].float()
+        da = (dxh * xv).sum(1)
+        db = dxh.sum(1)
+        dxh = dxh * affine[0].float()[:, None, :]
+    dx = torch.zeros_like(x)
+    dx[:, :valid_len] = dxh.to(x.dtype)
+    return dx, dw, da, db
+
+
+def _check_cuda(x, kernel, valid_len, affine):
+    B, ts, C = x.shape
+    t_out = _check(kernel, valid_len, ts)
+    req = _build.require
+    req(x.dtype == torch.bfloat16 and x.is_contiguous(),
+        "conv block kernel takes a contiguous bf16 (B, T, C) input")
+    req(kernel.shape[1] == C and C % 128 == 0,
+        f"conv block kernel takes C % 128 == 0 channels matching x, got {C}")
+    req(kernel.device == x.device, "kernel and input on different devices")
+    ab = None
+    if affine is not None:
+        ab = tuple(t.to(torch.float32).contiguous() for t in affine)
+        req(all(t.shape == (B, C) and t.device == x.device for t in ab),
+            "affine must be two (B, C) tensors on x's device")
+    return B, ts, C, t_out, kernel.to(torch.bfloat16).contiguous(), ab
+
+
+def _forward(x, kernel, valid_len, gelu_in, gelu_out, affine, want_pre):
+    """(y, t_out, pre): pre (the dtype-rounded pre-activation) only with
+    ``want_pre``, else None."""
+    global launches
+    if not x.is_cuda:
+        y, t_out, pre = conv_gelu_block_plain(x, kernel, valid_len, gelu_in, gelu_out,
+                                              affine, return_pre=True)
+        return y, t_out, pre if want_pre else None
+    B, ts, C, t_out, w, ab = _check_cuda(x, kernel, valid_len, affine)
+    k = kernel.shape[0]
+    y = torch.empty((B, t_out, C), dtype=torch.bfloat16, device=x.device)
+    pre = torch.empty_like(y) if want_pre else None
+    fn = _build.function("usk_conv_gelu_block", _SIGNATURE)
+    _build.launch(fn, "conv_gelu_block", x.device, x.data_ptr(), w.data_ptr(),
+                  None if ab is None else ab[0].data_ptr(),
+                  None if ab is None else ab[1].data_ptr(), y.data_ptr(),
+                  None if pre is None else pre.data_ptr(), B, ts, t_out, C, k,
+                  int(gelu_in), int(gelu_out), _build.stream(x))
+    launches += 1
+    return y, t_out, pre
+
+
+def conv_gelu_block_backward(x, kernel, valid_len: int, gelu_in: bool, gelu_out: bool,
+                             affine: Affine, dy, pre):
+    """The block's backward from its cotangent dy (B, t_out, C) and the
+    saved pre-activation (used with the output GELU). CPU tensors take the
+    plain version; a CUDA tensor launches the kernels or raises. Returns
+    (dx (B, T, C), dW (k, C, C) fp32, da, db) as the plain version."""
+    global backward_launches
+    if not x.is_cuda:
+        return conv_gelu_block_backward_plain(x, kernel, valid_len, gelu_in, gelu_out,
+                                              affine, dy, pre)
+    B, ts, C, t_out, w, ab = _check_cuda(x, kernel, valid_len, affine)
+    k = kernel.shape[0]
+    req = _build.require
+    dy = dy.to(torch.bfloat16).contiguous()
+    req(dy.shape == (B, t_out, C) and dy.device == x.device, "dy must be (B, t_out, C)")
+    if gelu_out:
+        req(pre is not None and pre.shape == dy.shape and pre.dtype == torch.bfloat16
+            and pre.is_contiguous(), "the output GELU's backward needs the bf16 pre")
+    dev = x.device
+    g_buf = torch.empty_like(dy) if gelu_out else None
+    h_buf = (torch.empty((B, valid_len, C), dtype=torch.bfloat16, device=dev)
+             if ab is not None or gelu_in else None)
+    dx = torch.empty_like(x)
+    dw = torch.zeros((k, C, C), dtype=torch.float32, device=dev)
+    da = db = None
+    if ab is not None:
+        da = torch.zeros((B, C), dtype=torch.float32, device=dev)
+        db = torch.zeros((B, C), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    fn = _build.function("usk_conv_gelu_block_bwd", _BWD_SIGNATURE)
+    _build.launch(fn, "conv_gelu_block_backward", dev, x.data_ptr(), w.data_ptr(),
+                  ptr(None if ab is None else ab[0]), ptr(None if ab is None else ab[1]),
+                  dy.data_ptr(), ptr(pre if gelu_out else None), ptr(g_buf), ptr(h_buf),
+                  dx.data_ptr(), dw.data_ptr(), ptr(da), ptr(db), B, ts, valid_len, t_out,
+                  C, k, int(gelu_in), _build.stream(x))
+    backward_launches += 1
+    return dx, dw, da, db
+
+
+class _ConvBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, kernel, a, b, valid_len, gelu_in, gelu_out):
+        affine = None if a is None else (a, b)
+        y, _, pre = _forward(x, kernel, valid_len, gelu_in, gelu_out, affine,
+                             want_pre=gelu_out)
+        ctx.args = (valid_len, gelu_in, gelu_out)
+        ctx.save_for_backward(x, kernel, a, b, pre)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, kernel, a, b, pre = ctx.saved_tensors
+        valid_len, gelu_in, gelu_out = ctx.args
+        affine = None if a is None else (a, b)
+        dx, dw, da, db = conv_gelu_block_backward(x, kernel, valid_len, gelu_in, gelu_out,
+                                                  affine, dy.to(x.dtype), pre)
+        return dx, dw.to(kernel.dtype), da, db, None, None, None
 
 
 def conv_gelu_block(x: torch.Tensor, kernel: torch.Tensor, valid_len: int,
@@ -61,31 +216,15 @@ def conv_gelu_block(x: torch.Tensor, kernel: torch.Tensor, valid_len: int,
     valid; kernel (k, C, C) in the JAX (k, in, out) layout, stride 2.
     ``affine`` ((B, C), (B, C)) fp32 applies x*a + b before gelu_in.
     Returns (y, t_out) with y (B, t_out, C), t_out = (valid_len - k)//2 + 1.
-    CPU tensors take the plain version; a CUDA tensor launches the kernel
-    (bf16, C % 128 == 0) or raises."""
-    global launches
-    if not x.is_cuda:
-        return conv_gelu_block_plain(x, kernel, valid_len, gelu_in, gelu_out, affine)
-    B, ts, C = x.shape
-    t_out = _check(kernel, valid_len, ts)
-    k = kernel.shape[0]
-    req = _build.require
-    req(x.dtype == torch.bfloat16 and x.is_contiguous(),
-        "conv block kernel takes a contiguous bf16 (B, T, C) input")
-    req(kernel.shape[1] == C and C % 128 == 0,
-        f"conv block kernel takes C % 128 == 0 channels matching x, got {C}")
-    req(kernel.device == x.device, "kernel and input on different devices")
-    w = kernel.to(torch.bfloat16).contiguous()
-    a_ptr = b_ptr = None
-    if affine is not None:
-        a, b = (t.to(torch.float32).contiguous() for t in affine)
-        req(a.shape == (B, C) and b.shape == (B, C) and a.device == x.device
-            and b.device == x.device, "affine must be two (B, C) tensors on x's device")
-        a_ptr, b_ptr = a.data_ptr(), b.data_ptr()
-    y = torch.empty((B, t_out, C), dtype=torch.bfloat16, device=x.device)
-    fn = _build.function("usk_conv_gelu_block", _SIGNATURE)
-    _build.launch(fn, "conv_gelu_block", x.device, x.data_ptr(), w.data_ptr(), a_ptr,
-                  b_ptr, y.data_ptr(), B, ts, t_out, C, k, int(gelu_in), int(gelu_out),
-                  _build.stream(x))
-    launches += 1
+    Differentiable in x, kernel and the affine. CPU tensors take the plain
+    versions; a CUDA tensor launches the kernels (bf16, C % 128 == 0) or
+    raises."""
+    a, b = (None, None) if affine is None else affine
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, kernel, a, b)):
+        t_out = _check(kernel, valid_len, x.shape[1])
+        if a is not None:
+            a, b = a.to(torch.float32), b.to(torch.float32)
+        return _ConvBlock.apply(x, kernel, a, b, valid_len, gelu_in, gelu_out), t_out
+    y, t_out, _ = _forward(x, kernel, valid_len, gelu_in, gelu_out, affine, want_pre=False)
     return y, t_out

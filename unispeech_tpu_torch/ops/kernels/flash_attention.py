@@ -1,12 +1,16 @@
-"""Fused attention with WavLM's gated relative position bias (forward).
+"""Fused attention with WavLM's gated relative position bias, with dropout.
 
-Counterpart of the JAX package's ``ops/pallas/flash_attention.py`` forward:
-softmax(q*scale . k^T + gate * bias + attn_mask - 1e30 * keypad) . v without
-a (B, H, T, S) tensor in device memory. One CUDA kernel
-(``csrc/flash_attention.cu``) reads q/k/v by strides in the natural
+Counterpart of the JAX package's ``ops/pallas/flash_attention.py``:
+softmax(q*scale . k^T + gate * bias + attn_mask - 1e30 * keypad), dropout on
+the probabilities, . v, and its merged backward, without a (B, H, T, S)
+tensor in device memory. The CUDA kernels (``csrc/flash_attention.cu``,
+``csrc/flash_attention_bwd.cu``) read q/k/v by strides in the natural
 (B, T, H*hd) layout, which covers both of the TPU's layouts. CPU tensors take
-the plain version below, which follows the kernel's arithmetic: bf16 P,
-fp32 P.V, normalization by the fp32 row sum at the end.
+the plain versions below, which follow the kernels' arithmetic: bf16 P,
+fp32 P.V, normalization by the fp32 row sum at the end; the dropout keep
+mask is the same Philox function of (seed, b, h, t, s) on both sides
+(``ops/kernels/philox.py``), so forward and backward, kernel and plain
+version, draw the identical mask.
 """
 
 from __future__ import annotations
@@ -18,26 +22,43 @@ import torch
 
 from unispeech_tpu_torch.ops.attention import scale_in_dtype
 from unispeech_tpu_torch.ops.kernels import _build
+from unispeech_tpu_torch.ops.kernels.philox import attention_keep, keep_threshold
 
-launches = 0  # kernel launches made by fused_attention
+launches = 0  # forward kernel launches made by fused_attention
+backward_launches = 0  # backward kernel launches made by its autograd backward
 
 NEG_INF = -1e30
-_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_SIGNATURE = [_P, _P, _P, _P] + [_L] * 8 + [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P]
+_P, _L, _I, _U, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_FWD_SIGNATURE = [_P] * 4 + [_L] * 8 + [_P] * 5 + [_I] * 4 + [_F, _P, _U, _F, _P]
+_BWD_SIGNATURE = [_P] * 6 + [_L] * 10 + [_P] * 9 + [_I] * 4 + [_F, _P, _U, _F, _P, _P]
 
 
-def _no_dropout(dropout_rate: float) -> None:
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout belongs to the training slice, not yet ported")
+def _dropout_scale(rate: float) -> torch.Tensor:
+    return torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)
 
 
-def fused_attention_plain(q, k, v, bias=None, gate=None, key_padding_mask=None,
-                          attn_mask=None, dropout_rate: float = 0.0,
-                          return_lse: bool = False):
-    """Plain version of ``fused_attention`` on any device."""
-    _no_dropout(dropout_rate)
-    B, T, H, hd = q.shape
+def _check_dropout(dropout_rate: float, dropout_seed) -> None:
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate {dropout_rate} outside [0, 1)")
+    if dropout_rate > 0.0 and (dropout_seed is None or dropout_seed.numel() != 1
+                               or dropout_seed.dtype != torch.int64):
+        raise ValueError("attention dropout needs a 1-element int64 dropout_seed")
+
+
+def _keep_scale(q, k, dropout_rate, dropout_seed):
+    """(B, H, T, S) fp32 keep/(1-rate) multiplier, or None without dropout."""
+    if dropout_rate <= 0.0:
+        return None
+    B, T, H, _ = q.shape
+    keep = attention_keep(dropout_seed.to(q.device), B, H, T, k.shape[1], dropout_rate)
+    return torch.where(keep, _dropout_scale(dropout_rate).to(q.device),
+                       torch.zeros((), device=q.device))
+
+
+def _logits(q, k, bias, gate, key_padding_mask, attn_mask):
+    """fp32 (B, H, T, S) logits of the pre-scaled q, the gated bias and the
+    masks, and the pre-scaled q itself."""
+    hd = q.shape[-1]
     qs = q * scale_in_dtype(hd, q.dtype)
     s = torch.einsum("bthd,bshd->bhts", qs.float(), k.float())
     if bias is not None:
@@ -47,9 +68,22 @@ def fused_attention_plain(q, k, v, bias=None, gate=None, key_padding_mask=None,
         s = s + attn_mask.float()
     if key_padding_mask is not None:
         s = s + torch.where(key_padding_mask, NEG_INF, 0.0)[:, None, None, :]
+    return s, qs
+
+
+def fused_attention_plain(q, k, v, bias=None, gate=None, key_padding_mask=None,
+                          attn_mask=None, dropout_rate: float = 0.0,
+                          dropout_seed: Optional[torch.Tensor] = None,
+                          return_lse: bool = False):
+    """Plain version of ``fused_attention`` on any device."""
+    _check_dropout(dropout_rate, dropout_seed)
+    s, _ = _logits(q, k, bias, gate, key_padding_mask, attn_mask)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
-    l = p.sum(-1, keepdim=True)  # (B, H, T, 1)
+    l = p.sum(-1, keepdim=True)  # (B, H, T, 1), taken before dropout
+    c = _keep_scale(q, k, dropout_rate, dropout_seed)
+    if c is not None:
+        p = p * c
     acc = torch.einsum("bhts,bshd->bthd", p.to(v.dtype).float(), v.float())
     out = (acc / l.permute(0, 2, 1, 3)).to(q.dtype)
     if return_lse:
@@ -57,27 +91,45 @@ def fused_attention_plain(q, k, v, bias=None, gate=None, key_padding_mask=None,
     return out
 
 
-def fused_attention(
-    q: torch.Tensor,  # (B, T, H, hd) unscaled
-    k: torch.Tensor,  # (B, S, H, hd)
-    v: torch.Tensor,  # (B, S, H, hd)
-    bias: Optional[torch.Tensor] = None,  # (H, T, S) shared rel-pos bias
-    gate: Optional[torch.Tensor] = None,  # (B, H, T) per-query gate
-    key_padding_mask: Optional[torch.Tensor] = None,  # (B, S) True = pad
-    attn_mask: Optional[torch.Tensor] = None,  # (T, S) additive fp32
-    dropout_rate: float = 0.0,
-    return_lse: bool = False,
-):
-    """Attention with the factored gated bias; returns out (B, T, H, hd) and,
-    with ``return_lse``, the fp32 log-sum-exp (B, H, T) as well. The bias is
-    read in q's dtype and gated in fp32 (gate 1 when only a bias is given).
-    CPU tensors take the plain version; a CUDA tensor launches the kernel
-    (bf16, hd 64) or raises. Dropout belongs to the training slice."""
-    global launches
-    if not q.is_cuda:
-        return fused_attention_plain(q, k, v, bias, gate, key_padding_mask,
-                                     attn_mask, dropout_rate, return_lse)
-    _no_dropout(dropout_rate)
+def fused_attention_backward_plain(q, k, v, bias, gate, key_padding_mask, attn_mask,
+                                   dropout_rate, dropout_seed, out, lse, dout):
+    """Plain version of the merged backward, in the kernel's arithmetic:
+    p = exp(s - lse) recomputed, dP = dO.v^T, delta = rowsum(dO * out),
+    dS = p * (c*dP - delta) with the regenerated keep scale c; dq = dS.k
+    (then the chain rule through q*scale), dk = dS^T.q_scaled,
+    dv = (p*c)^T.dO with dS and p*c rounded to the operands' dtype;
+    dgate = rowsum(dS * bias), dbias = sum_b gate * dS in fp32.
+    Returns (dq, dk, dv, dbias, dgate); dbias/dgate None without a bias /
+    gate."""
+    hd = q.shape[-1]
+    s, qs = _logits(q, k, bias, gate, key_padding_mask, attn_mask)
+    p = torch.exp(s - lse.float()[..., None])
+    dof = dout.float()
+    dp = torch.einsum("bthd,bshd->bhts", dof, v.float())
+    delta = (dof * out.float()).sum(-1).permute(0, 2, 1)[..., None]  # (B, H, T, 1)
+    c = _keep_scale(q, k, dropout_rate, dropout_seed)
+    if c is None:
+        pc, ds = p, p * (dp - delta)
+    else:
+        pc, ds = p * c, p * (c * dp - delta)
+    dsc = ds.to(q.dtype).float()
+    dq_s = torch.einsum("bhts,bshd->bthd", dsc, k.float())
+    dq = dq_s.to(q.dtype) * scale_in_dtype(hd, q.dtype)
+    dk = torch.einsum("bhts,bthd->bshd", dsc, qs.float()).to(k.dtype)
+    dv = torch.einsum("bhts,bthd->bshd", pc.to(v.dtype).float(), dof).to(v.dtype)
+    dbias = dgate = None
+    if bias is not None:
+        bf = bias.to(q.dtype).float()
+        g = gate.float()[..., None] if gate is not None else 1.0
+        dbias = (g * ds).sum(0).to(bias.dtype)
+        if gate is not None:
+            dgate = (ds * bf[None]).sum(-1)
+    return dq, dk, dv, dbias, dgate
+
+
+def _check_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_seed):
+    """Raise for CUDA inputs the kernels do not take; returns the optional
+    inputs in the kernels' types."""
     B, T, H, hd = q.shape
     S = k.shape[1]
     req = _build.require
@@ -89,39 +141,171 @@ def fused_attention(
         req(t.stride(3) == 1 and t.stride(2) == hd and t.stride(1) % 8 == 0
             and t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0,
             f"{name} must be a (B, T, H*hd) row layout with 16-byte aligned rows")
-    ptrs = {}
     if bias is not None:
-        bias = bias.to(torch.bfloat16)
-        req(bias.shape == (H, T, S) and bias.is_contiguous() and bias.device == q.device,
-            "bias must be a contiguous (H, T, S) tensor on q's device")
-        ptrs["bias"] = bias.data_ptr()
-    if gate is not None and bias is not None:  # a gate without a bias is unused
-        gate = gate.to(torch.float32).contiguous()
-        req(gate.shape == (B, H, T) and gate.device == q.device,
-            "gate must be (B, H, T) on q's device")
-        ptrs["gate"] = gate.data_ptr()
+        req(bias.dtype == torch.bfloat16 and bias.shape == (H, T, S)
+            and bias.is_contiguous() and bias.device == q.device,
+            "bias must be a contiguous bf16 (H, T, S) tensor on q's device")
+    if gate is not None:
+        req(bias is not None, "a gate needs a bias")
+        req(gate.dtype == torch.float32 and gate.shape == (B, H, T) and gate.is_contiguous()
+            and gate.device == q.device, "gate must be a contiguous fp32 (B, H, T) tensor")
     if key_padding_mask is not None:
         req(key_padding_mask.dtype == torch.bool and key_padding_mask.shape == (B, S)
             and key_padding_mask.is_contiguous() and key_padding_mask.device == q.device,
             "key_padding_mask must be a contiguous (B, S) bool tensor on q's device")
-        ptrs["kpm"] = key_padding_mask.data_ptr()
     if attn_mask is not None:
-        attn_mask = attn_mask.to(torch.float32).contiguous()
-        req(attn_mask.shape == (T, S) and attn_mask.device == q.device,
-            "attn_mask must be (T, S) on q's device")
-        ptrs["amask"] = attn_mask.data_ptr()
+        req(attn_mask.dtype == torch.float32 and attn_mask.shape == (T, S)
+            and attn_mask.is_contiguous() and attn_mask.device == q.device,
+            "attn_mask must be a contiguous fp32 (T, S) tensor on q's device")
+    if dropout_seed is not None:
+        req(dropout_seed.device == q.device, "dropout_seed must lie on q's device")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _forward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rate,
+                  dropout_seed, want_lse):
+    global launches
+    _check_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_seed)
+    B, T, H, hd = q.shape
+    S = k.shape[1]
     out = torch.empty((B, T, H, hd), dtype=torch.bfloat16, device=q.device)
-    lse = None
-    if return_lse:
-        lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-        ptrs["lse"] = lse.data_ptr()
-    fn = _build.function("usk_flash_attention_fwd", _SIGNATURE)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if want_lse else None
+    seed = dropout_seed if dropout_rate > 0.0 else None
+    fn = _build.function("usk_flash_attention_fwd", _FWD_SIGNATURE)
     _build.launch(
         fn, "fused_attention", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-        ptrs.get("bias"), ptrs.get("gate"), ptrs.get("kpm"), ptrs.get("amask"),
-        ptrs.get("lse"), B, T, S, H, scale_in_dtype(hd, q.dtype), _build.stream(q))
+        _ptr(bias), _ptr(gate), _ptr(key_padding_mask), _ptr(attn_mask), _ptr(lse),
+        B, T, S, H, scale_in_dtype(hd, q.dtype), _ptr(seed),
+        keep_threshold(dropout_rate) if seed is not None else 0,
+        float(_dropout_scale(dropout_rate)) if seed is not None else 1.0,
+        _build.stream(q))
     launches += 1
+    return out, lse
+
+
+def _backward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rate,
+                   dropout_seed, out, lse, dout):
+    global backward_launches
+    _check_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_seed)
+    B, T, H, hd = q.shape
+    S = k.shape[1]
+    req = _build.require
+    dout, out, lse = dout.contiguous(), out.contiguous(), lse.contiguous()
+    req(dout.dtype == torch.bfloat16 and out.dtype == torch.bfloat16
+        and dout.shape == out.shape == (B, T, H, hd), "dO and out must be bf16 (B, T, H, hd)")
+    req(lse.dtype == torch.float32 and lse.shape == (B, H, T), "lse must be fp32 (B, H, T)")
+    dev = q.device
+    dq_acc = torch.zeros((B, T, H, hd), dtype=torch.float32, device=dev)
+    dk = torch.empty((B, S, H, hd), dtype=torch.bfloat16, device=dev)
+    dv = torch.empty((B, S, H, hd), dtype=torch.bfloat16, device=dev)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)
+    dbias_acc = dgate = None
+    if bias is not None:
+        dbias_acc = torch.zeros((H, T, S), dtype=torch.float32, device=dev)
+        if gate is not None:
+            dgate = torch.zeros((B, H, T), dtype=torch.float32, device=dev)
+    seed = dropout_seed if dropout_rate > 0.0 else None
+    fn = _build.function("usk_flash_attention_bwd", _BWD_SIGNATURE)
+    _build.launch(
+        fn, "fused_attention_backward", dev,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(),
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        out.stride(0), out.stride(1), dout.stride(0), dout.stride(1),
+        _ptr(bias), _ptr(gate), _ptr(key_padding_mask), _ptr(attn_mask),
+        dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dgate), _ptr(dbias_acc),
+        B, T, S, H, scale_in_dtype(hd, q.dtype), delta.data_ptr(),
+        keep_threshold(dropout_rate) if seed is not None else 0,
+        float(_dropout_scale(dropout_rate)) if seed is not None else 1.0,
+        _ptr(seed), _build.stream(q))
+    backward_launches += 1
+    dq = dq_acc.to(torch.bfloat16) * scale_in_dtype(hd, q.dtype)
+    dbias = None if dbias_acc is None else dbias_acc.to(bias.dtype)
+    return dq, dk, dv, dbias, dgate
+
+
+def _forward(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rate,
+             dropout_seed, want_lse):
+    if q.is_cuda:
+        return _forward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask,
+                             dropout_rate, dropout_seed, want_lse)
+    return fused_attention_plain(q, k, v, bias, gate, key_padding_mask, attn_mask,
+                                 dropout_rate, dropout_seed, return_lse=True)
+
+
+def fused_attention_backward(q, k, v, bias, gate, key_padding_mask, attn_mask,
+                             dropout_rate, dropout_seed, out, lse, dout):
+    """The merged backward: the kernel for CUDA tensors, the plain version
+    for CPU tensors. Returns (dq, dk, dv, dbias, dgate)."""
+    if q.is_cuda:
+        return _backward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask,
+                              dropout_rate, dropout_seed, out, lse, dout)
+    return fused_attention_backward_plain(q, k, v, bias, gate, key_padding_mask,
+                                          attn_mask, dropout_rate, dropout_seed,
+                                          out, lse, dout)
+
+
+class _FusedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rate,
+                dropout_seed):
+        out, lse = _forward(q, k, v, bias, gate, key_padding_mask, attn_mask,
+                            dropout_rate, dropout_seed, want_lse=True)
+        ctx.dropout_rate = dropout_rate
+        ctx.save_for_backward(q, k, v, bias, gate, key_padding_mask, attn_mask,
+                              dropout_seed, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, bias, gate, kpm, amask, seed, out, lse = ctx.saved_tensors
+        dq, dk, dv, dbias, dgate = fused_attention_backward(
+            q, k, v, bias, gate, kpm, amask, ctx.dropout_rate, seed, out, lse,
+            dout.to(q.dtype))
+        return dq, dk, dv, dbias, dgate, None, None, None, None
+
+
+def fused_attention(
+    q: torch.Tensor,  # (B, T, H, hd) unscaled
+    k: torch.Tensor,  # (B, S, H, hd)
+    v: torch.Tensor,  # (B, S, H, hd)
+    bias: Optional[torch.Tensor] = None,  # (H, T, S) shared rel-pos bias
+    gate: Optional[torch.Tensor] = None,  # (B, H, T) per-query gate
+    key_padding_mask: Optional[torch.Tensor] = None,  # (B, S) True = pad
+    attn_mask: Optional[torch.Tensor] = None,  # (T, S) additive fp32
+    dropout_rate: float = 0.0,
+    dropout_seed: Optional[torch.Tensor] = None,  # 1-element int64
+    return_lse: bool = False,
+):
+    """Attention with the factored gated bias and dropout on the
+    probabilities; returns out (B, T, H, hd) and, with ``return_lse``, the
+    fp32 log-sum-exp (B, H, T) as well. The bias is read in q's dtype and
+    gated in fp32 (gate 1 when only a bias is given). Differentiable in
+    q, k, v, bias and gate. CPU tensors take the plain versions; a CUDA
+    tensor launches the kernels (bf16, hd 64) or raises."""
+    _check_dropout(dropout_rate, dropout_seed)
+    if bias is not None:
+        bias = bias.to(q.dtype).contiguous()
+        if gate is not None:
+            gate = gate.to(torch.float32).contiguous()
+    else:
+        gate = None  # a gate without a bias is unused
+    if attn_mask is not None:
+        attn_mask = attn_mask.to(torch.float32).contiguous()
+    rate = float(dropout_rate)
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, bias, gate))
+    if needs_grad:
+        out, lse = _FusedAttention.apply(q, k, v, bias, gate, key_padding_mask, attn_mask,
+                                         rate, dropout_seed)
+    else:
+        out, lse = _forward(q, k, v, bias, gate, key_padding_mask, attn_mask, rate,
+                            dropout_seed, want_lse=return_lse)
     return (out, lse) if return_lse else out

@@ -17,10 +17,12 @@ import torch.nn.functional as F
 
 from unispeech_tpu_torch.ops.kernels import _build
 
-launches = 0  # kernel launches made by l1_conv_with_stats
+launches = 0  # forward kernel launches made by l1_conv_with_stats
+backward_launches = 0  # backward kernel launches made by l1_conv_backward
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_BWD_SIGNATURE = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 
 
 def check_geometry(kernel_size: int, stride: int) -> None:
@@ -44,19 +46,27 @@ def l1_conv_with_stats_plain(wav, kernel, stride: int, dtype=torch.bfloat16):
     return y, yf.sum(1), (yf * yf).sum(1), y.shape[1]
 
 
-def l1_conv_with_stats(wav: torch.Tensor, kernel: torch.Tensor, stride: int,
-                       dtype=torch.bfloat16):
-    """Fused first-layer conv + GroupNorm statistics.
+def l1_conv_backward_plain(wav, kernel, stride: int, dy, ds1=None, ds2=None,
+                           dtype=torch.bfloat16):
+    """Plain version of the weight gradient, in the kernel's arithmetic:
+    dy1 = dy + ds1 + 2*ds2*y1 (y1 the recomputed dtype-rounded output) in
+    fp32, rounded to dtype, then dW[j, c] = sum over (b, t < t1) of
+    x[b, t*stride + j] * dy1[b, t, c] in fp32. Returns (k, 1, C) fp32."""
+    k, _, C = kernel.shape
+    t1 = dy.shape[1]
+    x = wav.to(dtype).float()
+    d = dy.float()
+    if ds1 is not None:
+        d = d + ds1.float()[:, None, :]
+    if ds2 is not None:
+        y1 = l1_conv_with_stats_plain(wav, kernel, stride, dtype)[0].float()
+        d = d + 2.0 * ds2.float()[:, None, :] * y1
+    d = d.to(dtype).float()
+    windows = x.unfold(1, k, stride)[:, :t1]  # (B, t1, k)
+    return torch.einsum("btj,btc->jc", windows, d)[:, None, :]
 
-    wav (B, NS) waveform; kernel (k, 1, C) in the JAX (k, in, out) layout
-    with stride <= k <= 2*stride. Returns (y1, s1, s2, t1): y1 (B, t1, C) in
-    ``dtype`` with exactly t1 = (NS - k)//stride + 1 rows, s1/s2 (B, C) fp32
-    sums of y1 and y1**2 over time. CPU tensors take the plain version; a
-    CUDA tensor launches the kernel (bf16 only) or raises.
-    """
-    global launches
-    if not wav.is_cuda:
-        return l1_conv_with_stats_plain(wav, kernel, stride, dtype)
+
+def _geometry_cuda(wav, kernel, stride, dtype):
     k, cin, C = kernel.shape
     check_geometry(k, stride)
     req = _build.require
@@ -69,7 +79,14 @@ def l1_conv_with_stats(wav: torch.Tensor, kernel: torch.Tensor, stride: int,
     B, NS = wav.shape
     t1 = (NS - k) // stride + 1
     req(t1 >= 1 and B >= 1, f"waveform of {NS} samples is shorter than one window")
-    w = kernel[:, 0, :].to(torch.bfloat16).contiguous()
+    return B, NS, t1, k, C, kernel[:, 0, :].to(torch.bfloat16).contiguous()
+
+
+def _forward(wav, kernel, stride, dtype):
+    global launches
+    if not wav.is_cuda:
+        return l1_conv_with_stats_plain(wav, kernel, stride, dtype)
+    B, NS, t1, k, C, w = _geometry_cuda(wav, kernel, stride, dtype)
     y = torch.empty((B, t1, C), dtype=torch.bfloat16, device=wav.device)
     s1 = torch.zeros((B, C), dtype=torch.float32, device=wav.device)
     s2 = torch.zeros((B, C), dtype=torch.float32, device=wav.device)
@@ -79,3 +96,67 @@ def l1_conv_with_stats(wav: torch.Tensor, kernel: torch.Tensor, stride: int,
                   _build.stream(wav))
     launches += 1
     return y, s1, s2, t1
+
+
+def l1_conv_backward(wav, kernel, stride: int, dy, ds1=None, ds2=None,
+                     dtype=torch.bfloat16):
+    """The weight gradient of ``l1_conv_with_stats`` from the cotangents of
+    y1 (B, t1, C) and of the sums (B, C) (None: no such term). CPU tensors
+    take the plain version; a CUDA tensor launches the kernel or raises.
+    Returns (k, 1, C) fp32."""
+    global backward_launches
+    if not wav.is_cuda:
+        return l1_conv_backward_plain(wav, kernel, stride, dy, ds1, ds2, dtype)
+    B, NS, t1, k, C, w = _geometry_cuda(wav, kernel, stride, dtype)
+    req = _build.require
+    req(C <= 1024, f"L1 backward kernel takes C <= 1024 channels, got {C}")
+    dy = dy.contiguous()
+    req(dy.dtype == torch.bfloat16 and dy.shape == (B, t1, C) and dy.device == wav.device,
+        f"dy must be bf16 ({B}, {t1}, {C}) on the waveform's device")
+    sums = []
+    for name, t in (("ds1", ds1), ("ds2", ds2)):
+        if t is not None:
+            t = t.to(torch.float32).contiguous()
+            req(t.shape == (B, C) and t.device == wav.device, f"{name} must be ({B}, {C})")
+        sums.append(t)
+    dw = torch.zeros((k, C), dtype=torch.float32, device=wav.device)
+    fn = _build.function("usk_l1_conv_bwd", _BWD_SIGNATURE)
+    _build.launch(fn, "l1_conv_backward", wav.device, wav.data_ptr(), w.data_ptr(),
+                  dy.data_ptr(), None if sums[0] is None else sums[0].data_ptr(),
+                  None if sums[1] is None else sums[1].data_ptr(), dw.data_ptr(),
+                  B, NS, t1, C, k, stride, _build.stream(wav))
+    backward_launches += 1
+    return dw[:, None, :]
+
+
+class _L1WithStats(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, wav, kernel, stride, dtype):
+        y, s1, s2, t1 = _forward(wav, kernel, stride, dtype)
+        ctx.stride, ctx.dtype = stride, dtype
+        ctx.save_for_backward(wav, kernel)
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, dy, ds1, ds2):
+        wav, kernel = ctx.saved_tensors
+        dw = l1_conv_backward(wav, kernel, ctx.stride, dy.to(ctx.dtype), ds1, ds2, ctx.dtype)
+        dwav = torch.zeros_like(wav) if ctx.needs_input_grad[0] else None
+        return dwav, dw.to(kernel.dtype), None, None
+
+
+def l1_conv_with_stats(wav: torch.Tensor, kernel: torch.Tensor, stride: int,
+                       dtype=torch.bfloat16):
+    """Fused first-layer conv + GroupNorm statistics.
+
+    wav (B, NS) waveform; kernel (k, 1, C) in the JAX (k, in, out) layout
+    with stride <= k <= 2*stride. Returns (y1, s1, s2, t1): y1 (B, t1, C) in
+    ``dtype`` with exactly t1 = (NS - k)//stride + 1 rows, s1/s2 (B, C) fp32
+    sums of y1 and y1**2 over time. Differentiable in ``kernel``. CPU
+    tensors take the plain versions; a CUDA tensor launches the kernels
+    (bf16 only) or raises.
+    """
+    if torch.is_grad_enabled() and kernel.requires_grad:
+        y, s1, s2 = _L1WithStats.apply(wav, kernel, stride, dtype)
+        return y, s1, s2, y.shape[1]
+    return _forward(wav, kernel, stride, dtype)

@@ -12,6 +12,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def relative_position_bucket(
@@ -47,6 +48,32 @@ def relative_position_bucket(
     return ret + torch.where(is_small, n, val_if_large)
 
 
+class _ExpandDiagonals(torch.autograd.Function):
+    """(H, T+S-1) per-diagonal values -> (H, T, S), out[h, t, s] =
+    rel[h, s - t + T - 1]. The backward sums each diagonal of the (H, T, S)
+    cotangent in fp32 (a skew by pad and reshape, then one sum over t) and
+    rounds once to the values' dtype, as the JAX package's expansion does,
+    instead of a scatter-add in the storage dtype."""
+
+    @staticmethod
+    def forward(ctx, rel, T: int, S: int):
+        ctx.T, ctx.S = T, S
+        return rel[:, _diagonal_index(T, S, rel.device)]
+
+    @staticmethod
+    def backward(ctx, g):
+        T, S = ctx.T, ctx.S
+        H, nd = g.shape[0], T + S - 1
+        # flat index identity: t*(T+S-1) + s + (T-1) == t*(T+S) + (s - t + T - 1)
+        flat = F.pad(F.pad(g.float(), (0, nd - S)).reshape(H, T * nd), (T - 1, 1))
+        return flat.reshape(H, T, T + S).sum(1)[:, :nd].to(g.dtype), None, None
+
+
+def _diagonal_index(T: int, S: int, device) -> torch.Tensor:
+    return (torch.arange(S, device=device)[None, :]
+            - torch.arange(T, device=device)[:, None] + (T - 1))
+
+
 def compute_rel_pos_bias(
     bias_table: torch.Tensor,  # (num_buckets, num_heads)
     query_length: int,
@@ -63,9 +90,6 @@ def compute_rel_pos_bias(
     rel = bias_table[buckets.long()].t()  # (H, T+S-1), diagonal d = s - t
     if dtype is not None:
         rel = rel.to(dtype)  # cast the small diagonal vector, not (H, T, S)
-    diag = (
-        torch.arange(S, device=dev)[None, :]
-        - torch.arange(T, device=dev)[:, None]
-        + (T - 1)
-    )
-    return rel[:, diag]
+    if torch.is_grad_enabled() and rel.requires_grad:
+        return _ExpandDiagonals.apply(rel, T, S)
+    return rel[:, _diagonal_index(T, S, dev)]
