@@ -22,9 +22,16 @@ Phases, one line each (any failure raises and exits non-zero):
              245,840 samples: 3 steps of make_train_step with launch counts
              per step; one step's gradients, kernel path against plain path;
              20 steps on one batch, the loss must fall
-  8 times    each kernel (forward at the serving shapes, backward at the
+  8 vpu      the elementwise micro-benchmark's entry point
+             (python -m unispeech_tpu_torch.scripts.exp_vpu_micro) at
+             (6, 49152, 512) bf16 with launch counts; each of its seven
+             variants against its plain version; per-variant times
+  9 times    each kernel (forward at the serving shapes, backward at the
              pretraining shapes), its plain version, its bound and one
-             PyTorch library call; audio-seconds per second of the forward
+             PyTorch library call; the kernel's wrapper and the library
+             call timed by CUDA events as the host enqueues them (wall: a
+             call of several launches follows the host) and queued behind
+             a busy card (device); audio-seconds per second of the forward
              and of the train step
 
 The line before the last is the kernels JSON, the last the device JSON.
@@ -45,19 +52,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from unispeech_tpu_torch.ops.kernels import BF16_TC_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S
+
 REPO = pathlib.Path(__file__).resolve().parent
 SAMPLE_RATE = 16_000
 UTTERANCE_SECONDS = (16, 12, 7, 3)
 SEED = 0
 # pretraining batch: the bench's crop (768 frames) x the reference's per-GPU batch
 TRAIN_B, TRAIN_NS, N_CLASSES = 6, 245_840, 504
-
-# H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
-# is the larger of its bytes over the memory rate and its operations over
-# the peak rate of their type
-HBM_BYTES_PER_S = 3.35e12
-BF16_TC_FLOPS = 989e12
-FP32_FLOPS = 67e12
 
 # one bf16 ulp at a tensor's scale: two fp32 accumulation orders may round
 # a value to neighbouring bf16 numbers (8 significant bits)
@@ -137,6 +139,24 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol_ulps: float = 
     return err
 
 
+def compare_each(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Each |got - want| against one bf16 ulp of that element of want;
+    returns the max abs error."""
+    if got.shape != want.shape:
+        fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite values")
+    diff = (got.float() - want.float()).abs()
+    mag = want.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    over = int((diff > torch.exp2(torch.floor(torch.log2(mag)) - 7)).sum())
+    err = float(diff.max())
+    phase("parity", kernel=name, max_abs_err=f"{err:.6g}", tol="1_bf16_ulp_per_element",
+          over_tol=over, unequal=int((diff != 0).sum()))
+    if over:
+        fail(f"{name}: {over} elements differ by more than one bf16 ulp")
+    return err
+
+
 def smoke_batch(device):
     """4 utterances of 16/12/7/3 s of noise, zero-padded to 16 s."""
     gen = torch.Generator().manual_seed(SEED)
@@ -147,10 +167,43 @@ def smoke_batch(device):
     return wav.to(device), lengths.to(device)
 
 
-def grad_ms(outputs, inputs, grads, iters: int = 10) -> float:
-    """Time of torch.autograd.grad of a retained graph: a library backward."""
-    return cuda_ms(lambda: torch.autograd.grad(outputs, inputs, grads, retain_graph=True),
-                   iters=iters, warmup=2)
+def device_us(event) -> float:
+    return (getattr(event, "self_device_time_total", 0)
+            or getattr(event, "self_cuda_time_total", 0))
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one call: the card spins in a sleep kernel while the
+    host enqueues ``iters`` calls behind it, so CUDA events bracket their
+    execution back to back, without the host's gaps between launches."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    # twice the host time of a synchronised run, in cycles at >= 2 GHz:
+    # longer than the enqueue takes
+    cycles = int(2 * (time.perf_counter() - t0) * 2e9)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(cycles)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def library_times(fn):
+    """(wall ms, device ms) of a library call: CUDA events around calls
+    enqueued as the host goes, and around calls queued behind a busy card."""
+    return cuda_ms(fn), device_ms(fn)
+
+
+def grad_fn(outputs, inputs, grads):
+    """torch.autograd.grad of a retained graph: a library backward."""
+    return lambda: torch.autograd.grad(outputs, inputs, grads, retain_graph=True)
 
 
 @contextlib.contextmanager
@@ -304,7 +357,10 @@ def train_phase(dev, counters, train_counts):
         torch.cuda.synchronize()
         counts = tuple(getattr(m, attr) for m, attr in counters)
         kept = L - met["layers_dropped"]
-        want = (1, 1, 6, 6, kept, kept)
+        # kernels: the six conv blocks forward 6 GEMMs + the first block's H
+        # pass, backward 6 x (g pass, dx, dW) + the H pass; each attention
+        # backward its rows pre-pass and the backward kernel
+        want = (1, 1, 7, 19, kept, 2 * kept)
         loss, gnorm = float(met["loss_per_sample"]), float(met["grad_norm"])
         phase("train", step=i, loss_per_sample=f"{loss:.4f}", grad_norm=f"{gnorm:.4f}",
               sample_size=int(met["sample_size"]), layers_dropped=met["layers_dropped"],
@@ -398,9 +454,6 @@ def profile_once(fn, tag):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-
     # device kernels only: the aten ops that launch them carry the same time
     events = sorted((e for e in prof.key_averages()
                      if e.device_type == DeviceType.CUDA and device_us(e) > 0),
@@ -418,6 +471,12 @@ def profile_once(fn, tag):
         phase(tag, host_op=e.key[:40], calls=e.count,
               self_cpu_ms=f"{e.self_cpu_time_total / 1e3:.3f}")
     return busy_ms, wall_ms, n_launch
+
+
+def library_row(fn, n: int = 1):
+    """The library keys of a kernels row: n calls' wall and device ms."""
+    wall, dev = library_times(fn)
+    return dict(library_ms=n * wall, library_device_ms=n * dev)
 
 
 def bound(nbytes: float, flops: float, peak: float):
@@ -446,24 +505,29 @@ def backward_times(bw, train_counts):
         replaces="unispeech_tpu/ops/pallas/l1_frontend.py:203",
         launches=train_counts["l1_bwd"], max_abs_err=err_l1,
         ms=cuda_ms(lambda: l1_frontend.l1_conv_backward(*bw["l1"])),
+        device_ms=device_ms(lambda: l1_frontend.l1_conv_backward(*bw["l1"])),
         plain_ms=cuda_ms(lambda: l1_frontend.l1_conv_backward_plain(*bw["l1"]), iters=3,
                          warmup=1),
         bound_ms=l1_bound[0], bound_by=l1_bound[1],
-        library_ms=grad_ms(yl, wl, dy1.transpose(1, 2).contiguous()),
+        **library_row(grad_fn(yl, wl, dy1.transpose(1, 2).contiguous())),
     )]
-    c_ms = c_plain = c_lib = c_bound = 0.0
+    c_ms = c_dev = c_plain = c_lib = c_bound = 0.0
+    c_lib_dev = 0.0
     c_by = set()
     for args in bw["conv"]:
         x, w, valid, gelu_in, gelu_out, ab, dy, pre = args
         k = w.shape[0]
         t_out = dy.shape[1]
         c_ms += cuda_ms(lambda: conv_stack.conv_gelu_block_backward(*args))
+        c_dev += device_ms(lambda: conv_stack.conv_gelu_block_backward(*args))
         c_plain += cuda_ms(lambda: conv_stack.conv_gelu_block_backward_plain(*args), iters=2,
                            warmup=1)
         xt = x.transpose(1, 2).contiguous().requires_grad_()
         wt = w.permute(2, 1, 0).contiguous().requires_grad_()
         yt = F.conv1d(xt, wt, stride=2)
-        c_lib += grad_ms(yt, (xt, wt), dy.transpose(1, 2).contiguous())
+        lib = library_times(grad_fn(yt, (xt, wt), dy.transpose(1, 2).contiguous()))
+        c_lib += lib[0]
+        c_lib_dev += lib[1]
         b_ms, by = bound((2 * B * x.shape[1] * C + 2 * k * C * C + 2 * B * t_out * C) * 2
                          + k * C * C * 4, 2 * 2 * B * t_out * C * k * C, BF16_TC_FLOPS)
         c_bound += b_ms
@@ -472,12 +536,13 @@ def backward_times(bw, train_counts):
         name="conv_gelu_block_backward", route="cuda",
         source="unispeech_tpu_torch/csrc/conv_stack.cu",
         replaces="unispeech_tpu/ops/pallas/conv_stack.py:359",
-        launches=train_counts["conv_bwd"], max_abs_err=err_conv, ms=c_ms, plain_ms=c_plain,
+        launches=train_counts["conv_bwd"], max_abs_err=err_conv, ms=c_ms, device_ms=c_dev,
+        plain_ms=c_plain,
         bound_ms=c_bound, bound_by="operations" if "operations" in c_by else "bytes",
-        library_ms=c_lib))
+        library_ms=c_lib, library_device_ms=c_lib_dev))
     q, kk, v, bias, gate, kpm, _, rate, seed, out, lse, dout = bw["attn"]
     B, T, H, hd = q.shape
-    n = train_counts["attn_bwd"]
+    n = train_counts["attn"]  # backward calls: one per forward call
     a_bound = bound(8 * B * T * H * hd * 2 + 2 * H * T * T * 2 + 3 * B * H * T * 4 + B * T,
                     10 * B * H * T * T * hd, BF16_TC_FLOPS)
     qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, kk, v))
@@ -488,17 +553,84 @@ def backward_times(bw, train_counts):
         name="fused_attention_backward", route="cuda",
         source="unispeech_tpu_torch/csrc/flash_attention_bwd.cu",
         replaces="unispeech_tpu/ops/pallas/flash_attention.py:1159",
-        launches=n, max_abs_err=err_attn,
+        launches=train_counts["attn_bwd"], max_abs_err=err_attn,
         ms=n * cuda_ms(lambda: flash_attention.fused_attention_backward(*bw["attn"])),
+        device_ms=n * device_ms(lambda: flash_attention.fused_attention_backward(*bw["attn"])),
         plain_ms=n * cuda_ms(lambda: flash_attention.fused_attention_backward_plain(*bw["attn"]),
                              iters=2, warmup=1),
         bound_ms=n * a_bound[0], bound_by=a_bound[1],
-        library_ms=n * grad_ms(ya, (qh, kh, vh, mask), dout.transpose(1, 2).contiguous()),
+        **library_row(grad_fn(ya, (qh, kh, vh, mask), dout.transpose(1, 2).contiguous()), n),
     ))
+    # where the backward's time goes: one call without dropout, without the
+    # gated bias, without either (same shapes and key padding)
+    q, kk, v, bias, gate, kpm, amask, rate, seed, out, lse, dout = bw["attn"]
+    for tag, args in (("no_dropout", (q, kk, v, bias, gate, kpm, amask, 0.0, None)),
+                      ("no_bias", (q, kk, v, None, None, kpm, amask, rate, seed)),
+                      ("neither", (q, kk, v, None, None, kpm, amask, 0.0, None))):
+        one = cuda_ms(lambda: flash_attention.fused_attention_backward(*args, out, lse, dout))
+        phase("times", kernel=f"fused_attention_backward.{tag}", ms_per_call=f"{one:.4f}")
     q, kk, v, fwd = bw["fwd_drop"]
     phase("times", kernel="fused_attention.dropout_forward_per_train_step",
           ms=f"{train_counts['attn'] * cuda_ms(lambda: flash_attention.fused_attention(q, kk, v, **fwd)):.4f}")
     return rows
+
+
+VPU_SHAPE = (6, 49152, 512)  # the L2 conv block's input at the pretraining crop
+VPU_ITERS = 50
+
+
+def vpu_phase(dev):
+    """Phase 8: the micro-benchmark's entry point at its full shape with the
+    launch count read around it, then each variant against its plain
+    version on the same input. Returns the kernels row."""
+    from unispeech_tpu_torch.ops.kernels import vpu_micro
+    from unispeech_tpu_torch.scripts import exp_vpu_micro
+
+    vpu_micro.launches = 0
+    times = exp_vpu_micro.main(["--shape", ",".join(map(str, VPU_SHAPE)),
+                                "--iters", str(VPU_ITERS)])
+    torch.cuda.synchronize()
+    launches = vpu_micro.launches
+    want = len(vpu_micro.VARIANTS) * (VPU_ITERS + 1)  # a warm-up and the timed passes
+    phase("vpu", launches=launches, want=want)
+    if launches != want:
+        fail(f"vpu_micro: {launches} launches, want {want}")
+
+    x = torch.randn(VPU_SHAPE, generator=torch.Generator(device=dev).manual_seed(SEED),
+                    device=dev, dtype=torch.bfloat16)
+    one_bound = exp_vpu_micro.bound_ms(x.numel())
+    y = torch.empty_like(x)
+    library = {  # one PyTorch call for the same (or, for the GELUs, the nearest) function
+        "copy": lambda: y.copy_(x), "exp": lambda: torch.exp(x),
+        "gelu_poly8": lambda: F.gelu(x), "gelu_poly6c": lambda: F.gelu(x),
+        "gelu_AS_exp": lambda: F.gelu(x),
+    }
+    err, plain, lib, lib_dev, dev_sum = 0.0, 0.0, 0.0, 0.0, 0.0
+    for name in vpu_micro.VARIANTS:
+        before = vpu_micro.launches
+        got = vpu_micro.run(name, x)
+        if vpu_micro.launches != before + 1:
+            fail(f"vpu_micro.{name}: the kernel's count did not move")
+        err = max(err, compare_each(f"vpu_micro.{name}", got, vpu_micro.run_plain(name, x)))
+        del got
+        dev_sum += device_ms(lambda: vpu_micro.run(name, x))
+        p_ms = cuda_ms(lambda: vpu_micro.run_plain(name, x), iters=3, warmup=1)
+        plain += p_ms
+        l_ms = l_dev = None
+        if name in library:
+            l_ms, l_dev = library_times(library[name])
+            lib += l_ms
+            lib_dev += l_dev
+        phase("vpu", variant=name, ms=f"{times[name]:.4f}", plain_ms=f"{p_ms:.4f}",
+              library_ms="null" if l_ms is None else f"{l_ms:.4f}",
+              library_device_ms="null" if l_dev is None else f"{l_dev:.4f}",
+              bound_ms=f"{one_bound:.4f}", bound_share=f"{one_bound / times[name]:.3f}")
+    return dict(
+        name="vpu_micro", route="cuda", source="unispeech_tpu_torch/csrc/vpu_micro.cu",
+        replaces="scripts/exp_vpu_micro.py:31", launches=launches, max_abs_err=err,
+        ms=sum(times.values()), device_ms=dev_sum, plain_ms=plain,
+        bound_ms=len(times) * one_bound,
+        bound_by="bytes", library_ms=lib, library_device_ms=lib_dev)
 
 
 def write_wav(path: pathlib.Path, samples: np.ndarray) -> None:
@@ -632,8 +764,9 @@ def main() -> int:
     n_frames = cfg.num_frames(NS)
     main_out, main_launches = run()
     mid_out, mid_launches = run(output_layer=6)
-    for name, res, got, want in (("full", main_out, main_launches, (1, 6, 12)),
-                                 ("layer6", mid_out, mid_launches, (1, 6, 6))):
+    # conv: six GEMMs and the first block's H pass
+    for name, res, got, want in (("full", main_out, main_launches, (1, 7, 12)),
+                                 ("layer6", mid_out, mid_launches, (1, 7, 6))):
         if res.x.shape != (B, n_frames, D) or not torch.isfinite(res.x).all():
             fail(f"{name}: output {tuple(res.x.shape)} not finite (B, {n_frames}, {D})")
         if got != want:
@@ -702,7 +835,11 @@ def main() -> int:
     train = train_phase(dev, counters, train_counts)
     clock.done("train")
 
-    # 8 times: forward kernels at the serving shapes (per forward: all
+    # 8 the elementwise micro-benchmark at its full shape
+    vpu_row = vpu_phase(dev)
+    clock.done("vpu")
+
+    # 9 times: forward kernels at the serving shapes (per forward: all
     # launches of a kernel), backward kernels at the pretraining shapes (per
     # train step)
     wav_bf = wav.to(torch.bfloat16)[:, None, :]
@@ -714,36 +851,46 @@ def main() -> int:
         replaces="unispeech_tpu/ops/pallas/l1_frontend.py:164",
         launches=main_launches[0], max_abs_err=err_l1,
         ms=cuda_ms(lambda: l1_frontend.l1_conv_with_stats(wav, w1, s0)),
+        device_ms=device_ms(lambda: l1_frontend.l1_conv_with_stats(wav, w1, s0)),
         plain_ms=cuda_ms(lambda: l1_frontend.l1_conv_with_stats_plain(wav, w1, s0), iters=5),
         bound_ms=1e3 * max(l1_bytes / HBM_BYTES_PER_S, l1_flops / FP32_FLOPS),
         bound_by="bytes" if l1_bytes / HBM_BYTES_PER_S >= l1_flops / FP32_FLOPS
         else "operations",
-        library_ms=cuda_ms(lambda: F.conv1d(wav_bf, w1_lib, stride=s0)),
+        **library_row(lambda: F.conv1d(wav_bf, w1_lib, stride=s0)),
     )]
-    conv_ms = conv_plain = conv_lib = conv_bound = 0.0
+    conv_ms = conv_dev = conv_plain = conv_lib = conv_bound = 0.0
+    conv_lib_dev = 0.0
     conv_by = set()
     for args in conv_inputs:
         x, w = args[0], args[1]
         kw = w.shape[0]
         t_out = (x.shape[1] - kw) // 2 + 1
-        conv_ms += cuda_ms(lambda: conv_stack.conv_gelu_block(*args))
+        one = cuda_ms(lambda: conv_stack.conv_gelu_block(*args))
+        one_dev = device_ms(lambda: conv_stack.conv_gelu_block(*args))
+        conv_ms += one
+        conv_dev += one_dev
         conv_plain += cuda_ms(lambda: conv_stack.conv_gelu_block_plain(*args), iters=5)
         xt = x.transpose(1, 2).contiguous()
         wt = w.permute(2, 1, 0).contiguous()
-        conv_lib += cuda_ms(lambda: F.conv1d(xt, wt, stride=2))
+        lib = library_times(lambda: F.conv1d(xt, wt, stride=2))
+        conv_lib += lib[0]
+        conv_lib_dev += lib[1]
         nbytes = (B * x.shape[1] * C + kw * C * C + B * t_out * C) * 2
         flops = 2 * B * t_out * C * kw * C
         conv_bound += 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS)
         conv_by.add("bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_TC_FLOPS
                     else "operations")
-        phase("times", kernel=f"conv_gelu_block.T{x.shape[1]}",
-              bound_ms=f"{1e3 * max(nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS):.4f}")
+        phase("times", kernel=f"conv_gelu_block.T{x.shape[1]}", ms=f"{one:.4f}",
+              device_ms=f"{one_dev:.4f}",
+              bound_ms=f"{1e3 * max(nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS):.4f}",
+              tflops=f"{flops / one_dev / 1e9:.1f}")
     rows.append(dict(
         name="conv_gelu_block", route="cuda", source="unispeech_tpu_torch/csrc/conv_stack.cu",
         replaces="unispeech_tpu/ops/pallas/conv_stack.py:156",
-        launches=main_launches[1], max_abs_err=err_conv, ms=conv_ms, plain_ms=conv_plain,
+        launches=main_launches[1], max_abs_err=err_conv, ms=conv_ms, device_ms=conv_dev,
+        plain_ms=conv_plain,
         bound_ms=conv_bound, bound_by="operations" if "operations" in conv_by else "bytes",
-        library_ms=conv_lib,
+        library_ms=conv_lib, library_device_ms=conv_lib_dev,
     ))
     n_attn = main_launches[2]
     qh, kh, vh = (t.transpose(1, 2) for t in (q, kk, v))
@@ -756,18 +903,21 @@ def main() -> int:
         replaces="unispeech_tpu/ops/pallas/flash_attention.py:878",
         launches=n_attn, max_abs_err=err_attn,
         ms=n_attn * cuda_ms(lambda: flash_attention.fused_attention(*attn_args)),
+        device_ms=n_attn * device_ms(lambda: flash_attention.fused_attention(*attn_args)),
         plain_ms=n_attn * cuda_ms(lambda: flash_attention.fused_attention_plain(*attn_args),
                                   iters=5),
         bound_ms=n_attn * 1e3 * max(a_bytes / HBM_BYTES_PER_S, a_flops / BF16_TC_FLOPS),
         bound_by="bytes" if a_bytes / HBM_BYTES_PER_S >= a_flops / BF16_TC_FLOPS
         else "operations",
-        library_ms=n_attn * cuda_ms(
-            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)),
+        **library_row(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
+                      n_attn),
     ))
     rows += backward_times(bw, train_counts)
+    rows.append(vpu_row)
     del bw
     for r in rows:
-        phase("times", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+        phase("times", **{k: (f"{v:.4f}" if isinstance(v, float) else
+                              "null" if v is None else v)
                           for k, v in r.items() if k not in ("route", "source", "replaces")})
 
     fwd_ms = cuda_ms(lambda: model.extract_features(wav, lengths=lengths), iters=5, warmup=2)

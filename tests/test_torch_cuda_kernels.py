@@ -5,8 +5,9 @@ repo's conftest imports JAX, which the port's machines need not have.
 
 chip_smoke.py checks the kernels at the main path's shapes; these cases
 cover what it does not reach: ragged and very short sequences, tiles cut by
-t_out or T, strided q/k/v views, a bias without a gate, dropout, and the
-inputs each wrapper must reject. Tolerance: one bf16 ulp at the tensor's
+t_out, T or C, odd T under the conv GEMM's even/odd row view, strided q/k/v
+views, a bias without a gate, dropout, the micro-benchmark's ragged sizes,
+and the inputs each wrapper must reject. Tolerance: one bf16 ulp at the tensor's
 scale (two fp32 accumulation orders may round to neighbouring bf16 values);
 attention 2 ulps (its online softmax rounds P against a running max).
 Backward: bf16 outputs within 2 ulps at the tensor's scale (an operand
@@ -19,7 +20,7 @@ operand).
 import pytest
 import torch
 
-from unispeech_tpu_torch.ops.kernels import conv_stack, flash_attention, l1_frontend
+from unispeech_tpu_torch.ops.kernels import conv_stack, flash_attention, l1_frontend, vpu_micro
 
 pytestmark = pytest.mark.cuda
 
@@ -75,6 +76,49 @@ def test_conv_block_edges(dev, k, T, valid, C, gelu_in, affine, gelu_out):
     py, pt = conv_stack.conv_gelu_block_plain(x, w, valid, gelu_in, gelu_out, ab)
     assert t == pt == (valid - k) // 2 + 1
     _close(y, py)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("B,T,valid,C", [
+    (3, 1001, 1001, 256),  # odd T: the last even row has no odd partner
+    (2, 301, 300, 384),    # a 256-channel tile cut by C
+    (2, 258, 258, 128),    # t_out = 128 (k = 3): exactly one row tile
+    (4, 517, 515, 128),    # t_out one past a tile; rows past valid
+])
+@pytest.mark.parametrize("first", [True, False])
+def test_conv_block_tiles(dev, k, B, T, valid, C, first):
+    """The TMA/wgmma GEMM's edges: row tiles cut by t_out at every batch
+    boundary, odd T under the even/odd row view, channel tiles cut by C; the
+    first block with the affine + input GELU pass, the others without."""
+    g = torch.Generator().manual_seed(T * 10 + k + C)
+    x = torch.randn(B, T, C, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(k, C, C, generator=g) * (2.0 / (k * C)) ** 0.5).to(dev, torch.bfloat16)
+    ab = ((torch.rand(B, C, generator=g) + 0.5).to(dev),
+          (torch.randn(B, C, generator=g) * 0.1).to(dev)) if first else None
+    y, t, pre = conv_stack._forward(x, w, valid, first, True, ab, want_pre=True)
+    py, pt, ppre = conv_stack.conv_gelu_block_plain(x, w, valid, first, True, ab,
+                                                    return_pre=True)
+    assert t == pt == (valid - k) // 2 + 1
+    _close(y, py)
+    _close(pre, ppre)
+
+
+@pytest.mark.parametrize("n", [8 * 256 * 3 + 5, 1_000_003, 7])
+@pytest.mark.parametrize("variant", list(vpu_micro.VARIANTS))
+def test_vpu_micro_ragged(dev, n, variant):
+    """Each micro-benchmark variant against its plain version, on sizes that
+    leave a scalar tail and a partial last block (the fp32 arithmetic is the
+    same; exp may differ in the last fp32 bit: one bf16 ulp)."""
+    g = torch.Generator().manual_seed(n)
+    x = (torch.randn(n, generator=g) * 3).to(dev, torch.bfloat16)
+    before = vpu_micro.launches
+    got = vpu_micro.run(variant, x)
+    assert vpu_micro.launches == before + 1
+    want = vpu_micro.run_plain(variant, x)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    mag = want.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert ((got.float() - want.float()).abs() <= ulp).all()
 
 
 def _attn_inputs(dev, B, T, H, seed, fused_qkv=False):
@@ -152,7 +196,8 @@ def test_small_model_kernel_path_matches_plain(dev, monkeypatch, over):
     counts = [m.launches for m in (l1_frontend, conv_stack, flash_attention)]
     got = model.extract_features(wav, lengths=lengths).x
     launched = [m.launches - c for m, c in zip((l1_frontend, conv_stack, flash_attention), counts)]
-    assert launched == [0 if over else 1, 2, 2]
+    # conv: two GEMMs and the first block's H pass
+    assert launched == [0 if over else 1, 3, 2]
     monkeypatch.setattr(encoder, "l1_conv_with_stats", l1_frontend.l1_conv_with_stats_plain)
     monkeypatch.setattr(encoder, "conv_gelu_block", conv_stack.conv_gelu_block_plain)
     monkeypatch.setattr(encoder, "fused_attention", flash_attention.fused_attention_plain)
@@ -300,7 +345,9 @@ def test_small_model_train_step_kernel_path_matches_plain(dev, monkeypatch):
     gk = grads()
     launched = [(m.launches - a, m.backward_launches - b)
                 for m, (a, b) in zip((l1_frontend, conv_stack, flash_attention), counts)]
-    assert launched == [(1, 1), (2, 2), (2, 2)]
+    # conv backward: (g pass, dx, dW) per block and the first block's H pass;
+    # attention backward: the rows pre-pass and the kernel per layer
+    assert launched == [(1, 1), (3, 7), (2, 4)]
     monkeypatch.setattr(encoder, "l1_conv_with_stats", l1_frontend.l1_conv_with_stats_plain)
     monkeypatch.setattr(encoder, "conv_gelu_block", conv_stack.conv_gelu_block_plain)
     monkeypatch.setattr(encoder, "fused_attention", flash_attention.fused_attention_plain)

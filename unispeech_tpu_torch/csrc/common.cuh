@@ -12,6 +12,14 @@ __device__ __forceinline__ __nv_bfloat16 f2bf(float x) { return __float2bfloat16
 // round an fp32 value through bf16 (the storage dtype) and back
 __device__ __forceinline__ float round_bf16(float x) { return bf2f(f2bf(x)); }
 
+// 2^x by the special-function unit (relative error ~2^-22; subnormal
+// results flush to 0, -inf gives 0)
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
 // exact (erf) GELU in fp32; the TPU kernels use a polynomial only because
 // Mosaic has no erf
 __device__ __forceinline__ float gelu_erf(float x) {

@@ -7,20 +7,28 @@
 //
 // Bound on the H100: operations. The block is a GEMM of M = B * t_out rows,
 // N = C = 512 output channels and a contraction of k * C over (tap j, input
-// channel): output row t reads x[b, 2t + j, :] for j < k, i.e. k*C contiguous
-// elements starting at row 2t, so the A operand is the input itself, read
-// with a row stride of 2C and no im2col copy. At 4 x 16 s the first block
-// alone is 161 GFLOP against a 210 MB input, far above the card's
-// ~295 FLOP/byte ridge. Design: bf16 tensor cores through mma.sync.m16n8k16
-// (fp32 accumulate), operands loaded from shared memory by ldmatrix, a
-// 128 x 128 output tile per block of 8 warps (each 32 x 64, accumulators in
-// registers), 32-deep K steps copied by cp.async into a 3-stage ring, one
-// barrier per step, so two steps' copies are in flight under the MMAs. The
-// prologue (the folded GroupNorm affine in fp32, rounded to bf16, then the
-// input GELU, rounded to bf16) is applied in shared memory by the thread that
-// copied each chunk, after it lands; the epilogue applies the output GELU in
-// fp32 to the accumulators and stores bf16 pairs. Output rows stop at t_out:
-// nothing past the returned length is written. GELU is exact erf.
+// channel): output row t reads rows 2t + j of the input. At 4 x 16 s the
+// first block alone is 161 GFLOP against a 210 MB input, far above the
+// card's ~295 FLOP/byte ridge. Design (Hopper):
+//  - the input prologue of the first block (the folded GroupNorm affine,
+//    mul then add in fp32, each rounded, then bf16, then the input GELU,
+//    then bf16) runs once per element in an elementwise pass, conv_h_kernel,
+//    that the backward shares; the block is then a pure GEMM on its output
+//    H, as are the other five;
+//  - no im2col copy: two TMA tensor maps view the input (B, T, C) as its
+//    even rows and its odd rows (row stride 2C); tap 0 of output row t is
+//    even row t, tap 1 odd row t, tap 2 even row t + 1, so every tap of a
+//    128-row tile is one plain 128 x 64 box; rows past the input load as
+//    zeros, and nothing is stored past t_out;
+//  - one block per 128 x 256 output tile: a producer warp keeps TMA loads
+//    of 64-deep K steps (A 128 x 64 of the input, B 256 x 64 of the weight
+//    transposed to (C_out, k * C_in), both 128-byte swizzled) in a 4-stage
+//    ring on mbarriers; two consumer warpgroups (setmaxnreg 232) each run
+//    wgmma.m64n256k16 on 64 of the rows with fp32 accumulators in
+//    registers, one wgmma group in flight while the previous stage is
+//    released to the producer;
+//  - the epilogue applies the output GELU (exact erf, fp32) to the
+//    accumulators and stores bf16 pairs, and pre when asked.
 //
 // Backward: replaces ::_bwd_kernel (launched by _run_bwd). With
 // g = bf16(gelu'(pre) * dy) and x^ = bf16(x * a + b) (or x), H = bf16(gelu(x^))
@@ -36,14 +44,14 @@
 // 0.91 ms at the bf16 tensor-core peak. Design, in four launches:
 //   conv_bwd_g_kernel   g (elementwise, 16-byte vectors; skipped without
 //                       the output GELU, where g is dy itself)
-//   conv_bwd_h_kernel   H (elementwise; only with affine or gelu_in, i.e.
-//                       the first block of the chain)
+//   conv_h_kernel       H (elementwise; only with affine or gelu_in, i.e.
+//                       the first block of the chain; shared with the forward)
 //   conv_bwd_dx_kernel  one GEMM per input-row parity: 128 input rows of one
 //                       parity x 128 input channels per block, contraction
 //                       over (tap, output channel), A rows gathered from g
 //                       (zero-filled outside [0, t_out)), B = W_p read as
-//                       [in][out] rows; the same mma.sync / ldmatrix /
-//                       3-stage cp.async ring as the forward. No overlap-add
+//                       [in][out] rows; mma.sync and ldmatrix on a
+//                       3-stage cp.async ring. No overlap-add
 //                       and no atomics for dx; the epilogue applies gelu'
 //                       and the affine and reduces da/db per block (warp
 //                       shuffles, shared-memory atomics) into fp32 atomics.
@@ -55,19 +63,17 @@
 // from run to run within fp32 rounding.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBM = 128;  // output rows per block
-constexpr int kBN = 128;  // output channels per block
+// backward tiles (mma.sync)
+constexpr int kBM = 128;  // rows per block
+constexpr int kBN = 128;  // channels per block
 constexpr int kBK = 32;   // contraction step
 constexpr int kStages = 3;
 constexpr int kThreads = 256;
 constexpr int kALd = kBK + 8;  // padded rows (bf16): ldmatrix reads conflict-free
-constexpr int kBLd = kBN + 8;
-constexpr int kAStage = kBM * kALd;  // elements per stage
-constexpr int kBStage = kBK * kBLd;
-constexpr size_t kSmemBytes = (size_t)kStages * (kAStage + kBStage) * sizeof(__nv_bfloat16);
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
     const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -103,154 +109,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <bool kAffine, bool kGeluIn, bool kGeluOut>
-__global__ void __launch_bounds__(kThreads) conv_gelu_kernel(
-    const __nv_bfloat16* __restrict__ x,  // (B, ts, C)
-    const __nv_bfloat16* __restrict__ w,  // (k, C, C) == (k*C, C) row-major
-    const float* __restrict__ aff_a,      // (B, C) or null
-    const float* __restrict__ aff_b,      // (B, C) or null
-    __nv_bfloat16* __restrict__ y,        // (B, t_out, C)
-    __nv_bfloat16* __restrict__ pre,      // (B, t_out, C) pre-activation, or null
-    int ts, int t_out, int C, int k) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    auto* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [kStages][kBM][kALd]
-    auto* Bs = As + kStages * kAStage;                 // [kStages][kBK][kBLd]
-
-    const int b = blockIdx.z;
-    const int m0 = blockIdx.x * kBM;
-    const int n0 = blockIdx.y * kBN;
-    const int tid = threadIdx.x;
-    const int warp = tid / 32, lane = tid % 32;
-    const int wm = warp / 2;  // 4 warps along M, 32 rows each
-    const int wn = warp % 2;  // 2 warps along N, 64 columns each
-    const int nk = k * C / kBK;
-    const __nv_bfloat16* xb = x + (size_t)b * ts * C;
-
-    float acc[2][8][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-    // each K step copies a 128x32 A tile and a 32x128 B tile: 512 16-byte
-    // chunks each, two per thread. A rows past t_out read row t_out - 1
-    // (mapped; their outputs are never stored).
-    auto copy = [&](int ks) {
-        const int k0 = ks * kBK, slot = ks % kStages;
-        const int j = k0 / C, ci0 = k0 % C;  // C % kBK == 0: one tap per step
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int ch = tid + i * kThreads;
-            const int r = ch >> 2, cc = (ch & 3) * 8;
-            const int t = min(m0 + r, t_out - 1);
-            cp_async16(As + slot * kAStage + r * kALd + cc,
-                       xb + (size_t)(2 * t + j) * C + ci0 + cc);
-            const int br = ch >> 4, bc = (ch & 15) * 8;
-            cp_async16(Bs + slot * kBStage + br * kBLd + bc,
-                       w + (size_t)(k0 + br) * C + n0 + bc);
-        }
-    };
-    // the prologue on the A chunks this thread copied
-    auto prologue = [&](int ks) {
-        const int ci0 = (ks * kBK) % C, slot = ks % kStages;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int ch = tid + i * kThreads;
-            const int r = ch >> 2, cc = (ch & 3) * 8;
-            uint4* p = reinterpret_cast<uint4*>(As + slot * kAStage + r * kALd + cc);
-            uint4 v = *p;
-            __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
-#pragma unroll
-            for (int q = 0; q < 8; ++q) {
-                float f = usk::bf2f(e[q]);
-                if (kAffine) {
-                    const int ci = b * C + ci0 + cc + q;
-                    // mul then add, each rounded, as the plain version
-                    f = usk::round_bf16(__fadd_rn(__fmul_rn(f, aff_a[ci]), aff_b[ci]));
-                }
-                if (kGeluIn) f = usk::gelu_erf(f);
-                e[q] = usk::f2bf(f);
-            }
-            *p = v;
-        }
-    };
-
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-        if (s < nk) copy(s);
-        cp_async_commit();
-    }
-    for (int ks = 0; ks < nk; ++ks) {
-        cp_async_wait<kStages - 2>();  // step ks has landed (this thread's copies)
-        if (kAffine || kGeluIn) prologue(ks);
-        __syncthreads();  // ks visible to all; every warp is done with step ks-1
-        if (ks + kStages - 1 < nk) copy(ks + kStages - 1);  // into step ks-1's slot
-        cp_async_commit();
-
-        const __nv_bfloat16* At = As + (ks % kStages) * kAStage;
-        const __nv_bfloat16* Bt = Bs + (ks % kStages) * kBStage;
-#pragma unroll
-        for (int kk = 0; kk < kBK; kk += 16) {
-            uint32_t af[2][4];
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-                ldmatrix_x4(af[i], At + (wm * 32 + i * 16 + (lane & 15)) * kALd + kk + (lane >> 4) * 8);
-#pragma unroll
-            for (int jp = 0; jp < 4; ++jp) {
-                uint32_t bf[4];
-                ldmatrix_x4_trans(bf, Bt + (kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * kBLd
-                                          + wn * 64 + jp * 16 + 8 * (lane >> 4));
-#pragma unroll
-                for (int i = 0; i < 2; ++i) {
-                    mma_bf16(acc[i][2 * jp], af[i], bf[0], bf[1]);
-                    mma_bf16(acc[i][2 * jp + 1], af[i], bf[2], bf[3]);
-                }
-            }
-        }
-    }
-
-    // epilogue from the accumulators: rows g / g+8, columns c2, c2+1 of each
-    // 8-wide n-tile
-    const int g = lane >> 2, c2 = (lane & 3) * 2;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-            const int t = m0 + wm * 32 + i * 16 + g + 8 * e;
-            if (t >= t_out) continue;
-            const size_t row = ((size_t)b * t_out + t) * C + n0 + wn * 64 + c2;
-            __nv_bfloat16* yr = y + row;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-                float v0 = acc[i][j][2 * e], v1 = acc[i][j][2 * e + 1];
-                if (pre != nullptr)
-                    *reinterpret_cast<__nv_bfloat162*>(pre + row + j * 8) =
-                        __floats2bfloat162_rn(v0, v1);
-                if (kGeluOut) {
-                    v0 = usk::gelu_erf(v0);
-                    v1 = usk::gelu_erf(v1);
-                }
-                *reinterpret_cast<__nv_bfloat162*>(yr + j * 8) = __floats2bfloat162_rn(v0, v1);
-            }
-        }
-    }
-}
-
-template <bool kAffine, bool kGeluIn, bool kGeluOut>
-cudaError_t launch(const void* x, const void* w, const void* a, const void* bb, void* y,
-                   void* pre, int B, int ts, int t_out, int C, int k, cudaStream_t stream) {
-    auto kernel = conv_gelu_kernel<kAffine, kGeluIn, kGeluOut>;
-    // above 48 KB of dynamic shared memory only after opting in (per device)
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((t_out + kBM - 1) / kBM, C / kBN, B);
-    kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (const float*)a,
-        (const float*)bb, (__nv_bfloat16*)y, (__nv_bfloat16*)pre, ts, t_out, C, k);
-    return cudaGetLastError();
-}
-
 // ------------------------------------------------------------------ backward
 
 constexpr int kVec = 8;  // bf16 values per 16-byte vector
@@ -274,33 +132,60 @@ __global__ void __launch_bounds__(256) conv_bwd_g_kernel(
     }
 }
 
-// H = bf16(gelu_in?(bf16(x * a + b))) on the valid rows, (B, valid, C)
+// H = bf16(gelu_in?(bf16(x * a + b))) on the valid rows, (B, valid, C): one
+// batch row per blockIdx.y; within it x and H are both rows of C, so vector
+// i sits at element 8i of either (32-bit index math)
 template <bool kAffine, bool kGeluIn>
-__global__ void __launch_bounds__(256) conv_bwd_h_kernel(
+__global__ void __launch_bounds__(256) conv_h_kernel(
     const __nv_bfloat16* __restrict__ x, const float* __restrict__ aff_a,
     const float* __restrict__ aff_b, __nv_bfloat16* __restrict__ h, int ts, int valid,
-    int C, size_t n_vec) {
-    const int cv = C / kVec;
-    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_vec;
-         i += (size_t)gridDim.x * blockDim.x) {
-        const size_t per_b = (size_t)valid * cv;
-        const int b = (int)(i / per_b);
-        const size_t rem = i % per_b;
-        const int r = (int)(rem / cv), c0 = (int)(rem % cv) * kVec;
-        uint4 v4 = *reinterpret_cast<const uint4*>(x + ((size_t)b * ts + r) * C + c0);
+    int C) {
+    const int b = blockIdx.y;
+    const uint32_t cv = (uint32_t)C / kVec, n = (uint32_t)valid * cv;
+    const uint4* xb = reinterpret_cast<const uint4*>(x + (size_t)b * ts * C);
+    uint4* hb = reinterpret_cast<uint4*>(h + (size_t)b * valid * C);
+    for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+        uint4 v4 = xb[i];
         __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v4);
+        float av[kVec], bv[kVec];
+        if (kAffine) {
+            const uint32_t c0 = (i % cv) * kVec;
+            const float4* pa = reinterpret_cast<const float4*>(aff_a + (size_t)b * C + c0);
+            const float4* pb = reinterpret_cast<const float4*>(aff_b + (size_t)b * C + c0);
+            const float4 a0 = pa[0], a1 = pa[1], b0 = pb[0], b1 = pb[1];
+            av[0] = a0.x; av[1] = a0.y; av[2] = a0.z; av[3] = a0.w;
+            av[4] = a1.x; av[5] = a1.y; av[6] = a1.z; av[7] = a1.w;
+            bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
+            bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
+        }
 #pragma unroll
         for (int q = 0; q < kVec; ++q) {
             float f = usk::bf2f(e[q]);
-            if (kAffine) {
-                const int ci = b * C + c0 + q;
-                f = usk::round_bf16(__fadd_rn(__fmul_rn(f, aff_a[ci]), aff_b[ci]));
-            }
+            // mul then add, each rounded, as the plain version
+            if (kAffine) f = usk::round_bf16(__fadd_rn(__fmul_rn(f, av[q]), bv[q]));
             if (kGeluIn) f = usk::gelu_erf(f);
             e[q] = usk::f2bf(f);
         }
-        *reinterpret_cast<uint4*>(h + ((size_t)b * valid + r) * C + c0) = v4;
+        hb[i] = v4;
     }
+}
+
+cudaError_t launch_h(const void* x, const void* a, const void* b, void* h, int B, int ts,
+                     int valid, int C, bool gelu_in, cudaStream_t stream) {
+    const size_t n = (size_t)valid * C / kVec;
+    if (n >= (size_t)1 << 31) return cudaErrorInvalidValue;
+    const size_t want = (n + 255) / 256, cap = (132 * 16 + B - 1) / B;
+    const dim3 grid((unsigned)(want < 1 ? 1 : (want > cap ? cap : want)), B);
+    const __nv_bfloat16* xb = (const __nv_bfloat16*)x;
+    __nv_bfloat16* hb = (__nv_bfloat16*)h;
+    const float *fa = (const float*)a, *fb = (const float*)b;
+    if (a != nullptr && gelu_in)
+        conv_h_kernel<true, true><<<grid, 256, 0, stream>>>(xb, fa, fb, hb, ts, valid, C);
+    else if (a != nullptr)
+        conv_h_kernel<true, false><<<grid, 256, 0, stream>>>(xb, fa, fb, hb, ts, valid, C);
+    else
+        conv_h_kernel<false, true><<<grid, 256, 0, stream>>>(xb, fa, fb, hb, ts, valid, C);
+    return cudaGetLastError();
 }
 
 // dx: 128 input rows of one parity (r = 2t' + par) x 128 input channels per
@@ -558,10 +443,8 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* a, const void* 
     const __nv_bfloat16* hsrc = (const __nv_bfloat16*)x;
     int th = ts;
     if (kAffine || kGeluIn) {
-        const size_t n_vec = (size_t)B * valid * C / kVec;
-        conv_bwd_h_kernel<kAffine, kGeluIn><<<grid_for(n_vec), 256, 0, stream>>>(
-            (const __nv_bfloat16*)x, (const float*)a, (const float*)bb,
-            (__nv_bfloat16*)h_buf, ts, valid, C, n_vec);
+        const cudaError_t err = launch_h(x, a, bb, h_buf, B, ts, valid, C, kGeluIn, stream);
+        if (err != cudaSuccess) return err;
         hsrc = (const __nv_bfloat16*)h_buf;
         th = valid;
     }
@@ -593,24 +476,160 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* a, const void* 
     return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ forward
+
+constexpr int kFM = 128;             // output rows per block (two warpgroups of 64)
+constexpr int kFN = 256;             // output channels per block
+constexpr int kFK = 64;              // K step: one 128-byte swizzled row of bf16
+constexpr int kFStages = 4;
+constexpr int kFThreads = 384;       // consumer warpgroups 0, 1; producer warpgroup 2
+constexpr uint32_t kFABytes = kFM * kFK * 2;  // 16 KB
+constexpr uint32_t kFBBytes = kFN * kFK * 2;  // 32 KB
+constexpr size_t kFSmem = 1024 + (size_t)kFStages * (kFABytes + kFBBytes) + 2 * kFStages * 8;
+
+struct ConvMaps {
+    CUtensorMap even;  // input rows 2r   of (B, ts, C): dims {C, ceil(ts/2), B}
+    CUtensorMap odd;   // input rows 2r+1:                dims {C, floor(ts/2), B}
+    CUtensorMap w;     // weight (C_out, k * C_in):       dims {k * C, C_out}
+};
+
+template <bool kGeluOut>
+__global__ void __launch_bounds__(kFThreads, 1) conv_gemm_kernel(
+    const __grid_constant__ ConvMaps maps, __nv_bfloat16* __restrict__ y,
+    __nv_bfloat16* __restrict__ pre, int t_out, int C, int k) {
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    unsigned char* sA = smem;                             // [stage][128 rows][128 B]
+    unsigned char* sB = smem + kFStages * kFABytes;       // [stage][256 rows][128 B]
+    uint64_t* full = reinterpret_cast<uint64_t*>(sB + kFStages * kFBBytes);
+    uint64_t* empty = full + kFStages;
+
+    const int n0 = blockIdx.x * kFN, m0 = blockIdx.y * kFM, b = blockIdx.z;
+    const int nk = k * C / kFK;
+    const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < kFStages; ++s) {
+            usk::mbar_init(&full[s], 1);
+            usk::mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+        }
+        usk::fence_barrier_init();
+    }
+    __syncthreads();
+
+    if (wg == 2) {  // producer
+        usk::reg_dealloc<40>();
+        if (tid == 0) {
+            for (int ks = 0; ks < nk; ++ks) {
+                const int s = ks % kFStages;
+                usk::mbar_wait(&empty[s], ((ks / kFStages) & 1) ^ 1);
+                usk::mbar_expect_tx(&full[s], kFABytes + kFBBytes);
+                const int kk = ks * kFK, tap = kk / C, c0 = kk % C;
+                // tap 0: even row t, tap 1: odd row t, tap 2: even row t + 1
+                usk::tma_load_3d(sA + s * kFABytes, tap == 1 ? &maps.odd : &maps.even, &full[s],
+                                 c0, m0 + (tap >> 1), b);
+                usk::tma_load_2d(sB + s * kFBBytes, &maps.w, &full[s], kk, n0);
+            }
+        }
+    } else {  // consumers: rows m0 + 64 * wg ...
+        usk::reg_alloc<232>();
+        float acc[kFN / 2];
+#pragma unroll
+        for (int i = 0; i < kFN / 2; ++i) acc[i] = 0.f;
+        for (int ks = 0; ks < nk; ++ks) {
+            const int s = ks % kFStages;
+            usk::mbar_wait(&full[s], (ks / kFStages) & 1);
+            const unsigned char* a = sA + s * kFABytes + wg * 64 * 128;
+            const unsigned char* bt = sB + s * kFBBytes;
+            usk::fence_regs(acc);
+            usk::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < kFK / 16; ++kk)
+                usk::wgmma_m64n256k16_ss<0, 0>(acc, usk::desc_sw128(a + kk * 32, 16, 1024),
+                                               usk::desc_sw128(bt + kk * 32, 16, 1024));
+            usk::wgmma_commit();
+            usk::wgmma_wait<1>();  // the previous step's products are done
+            usk::fence_regs(acc);
+            if (ks > 0 && tid == 0) usk::mbar_arrive(&empty[(ks - 1) % kFStages]);
+        }
+        usk::wgmma_wait<0>();
+        usk::fence_regs(acc);
+
+        // epilogue: rows r / r + 8 of this warp's 16, column pairs of each
+        // 8-wide slice j
+        const int warp = tid / 32, lane = tid % 32;
+        const int c2 = (lane & 3) * 2;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const int t = m0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * e;
+            if (t >= t_out) continue;
+            const size_t row = ((size_t)b * t_out + t) * C;
+#pragma unroll
+            for (int j = 0; j < kFN / 8; ++j) {
+                const int n = n0 + j * 8 + c2;
+                if (n >= C) continue;
+                float v0 = acc[4 * j + 2 * e], v1 = acc[4 * j + 2 * e + 1];
+                if (pre != nullptr)
+                    *reinterpret_cast<__nv_bfloat162*>(pre + row + n) = __floats2bfloat162_rn(v0, v1);
+                if (kGeluOut) {
+                    v0 = usk::gelu_erf(v0);
+                    v1 = usk::gelu_erf(v1);
+                }
+                *reinterpret_cast<__nv_bfloat162*>(y + row + n) = __floats2bfloat162_rn(v0, v1);
+            }
+        }
+    }
+}
+
+// the GEMM of one block on its source rows src (B, ts, C) (the input, or H)
+cudaError_t launch_conv_gemm(const void* src, const void* w_t, void* y, void* pre, int B, int ts,
+                             int t_out, int C, int k, bool gelu_out, cudaStream_t stream) {
+    ConvMaps maps;
+    const uint64_t row2 = (uint64_t)2 * C * 2, batch = (uint64_t)ts * C * 2;
+    const uint64_t even_dims[3] = {(uint64_t)C, (uint64_t)(ts + 1) / 2, (uint64_t)B};
+    const uint64_t odd_dims[3] = {(uint64_t)C, (uint64_t)ts / 2, (uint64_t)B};
+    const uint64_t a_strides[2] = {row2, batch};
+    const uint32_t a_box[3] = {kFK, kFM, 1};
+    const uint64_t w_dims[2] = {(uint64_t)k * C, (uint64_t)C};
+    const uint64_t w_strides[1] = {(uint64_t)k * C * 2};
+    const uint32_t w_box[2] = {kFK, kFN};
+    const __nv_bfloat16* x = (const __nv_bfloat16*)src;
+    if (!usk::make_tensor_map(&maps.even, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x, even_dims,
+                              a_strides, a_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !usk::make_tensor_map(&maps.odd, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x + C, odd_dims,
+                              a_strides, a_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !usk::make_tensor_map(&maps.w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w_t, w_dims,
+                              w_strides, w_box, CU_TENSOR_MAP_SWIZZLE_128B))
+        return cudaErrorInvalidValue;
+    auto kernel = gelu_out ? conv_gemm_kernel<true> : conv_gemm_kernel<false>;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFSmem);
+    if (err != cudaSuccess) return err;
+    // channel tiles fastest: the tiles sharing an A row block run together
+    const dim3 grid((C + kFN - 1) / kFN, (t_out + kFM - 1) / kFM, B);
+    kernel<<<grid, kFThreads, kFSmem, stream>>>(maps, (__nv_bfloat16*)y, (__nv_bfloat16*)pre,
+                                                t_out, C, k);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int usk_conv_gelu_block(const void* x, const void* w, const void* a,
-                                   const void* b, void* y, void* pre, int B, int ts,
-                                   int t_out, int C, int k, int gelu_in,
+// x (B, ts, C) with valid rows [0, valid); w_t the weight as (C_out, k * C_in);
+// h_buf (B, valid, C) scratch for H, used with the affine or the input GELU
+extern "C" int usk_conv_gelu_block(const void* x, const void* w_t, const void* a,
+                                   const void* b, void* h_buf, void* y, void* pre, int B,
+                                   int ts, int valid, int t_out, int C, int k, int gelu_in,
                                    int gelu_out, void* stream) {
     const cudaStream_t s = (cudaStream_t)stream;
-    const int sel = (a != nullptr ? 4 : 0) | (gelu_in ? 2 : 0) | (gelu_out ? 1 : 0);
-    switch (sel) {
-        case 0: return (int)launch<false, false, false>(x, w, a, b, y, pre, B, ts, t_out, C, k, s);
-        case 1: return (int)launch<false, false, true>(x, w, a, b, y, pre, B, ts, t_out, C, k, s);
-        case 2: return (int)launch<false, true, false>(x, w, a, b, y, pre, B, ts, t_out, C, k, s);
-        case 3: return (int)launch<false, true, true>(x, w, a, b, y, pre, B, ts, t_out, C, k, s);
-        case 4: return (int)launch<true, false, false>(x, w, a, b, y, pre, B, ts, t_out, C, k, s);
-        case 5: return (int)launch<true, false, true>(x, w, a, b, y, pre, B, ts, t_out, C, k, s);
-        case 6: return (int)launch<true, true, false>(x, w, a, b, y, pre, B, ts, t_out, C, k, s);
-        default: return (int)launch<true, true, true>(x, w, a, b, y, pre, B, ts, t_out, C, k, s);
+    const void* src = x;
+    int rows = ts;
+    if (a != nullptr || gelu_in) {
+        const cudaError_t err = launch_h(x, a, b, h_buf, B, ts, valid, C, gelu_in != 0, s);
+        if (err != cudaSuccess) return (int)err;
+        src = h_buf;
+        rows = valid;
     }
+    return (int)launch_conv_gemm(src, w_t, y, pre, B, rows, t_out, C, k, gelu_out != 0, s);
 }
 
 extern "C" int usk_conv_gelu_block_bwd(const void* x, const void* w, const void* a,

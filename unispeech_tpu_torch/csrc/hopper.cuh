@@ -1,0 +1,283 @@
+// Hopper (sm_90a) building blocks for the port's TMA + wgmma kernels:
+// tensor maps (host), mbarriers, TMA and bulk copies, bulk reductions,
+// wgmma descriptors and instructions (device).
+//
+// Shared-memory tiles that wgmma reads are rows of 128 bytes (64 bf16) in
+// the 128-byte swizzle TMA writes with CU_TENSOR_MAP_SWIZZLE_128B: the
+// 16-byte chunk c of row r sits at chunk c ^ (r % 8), tiles 1024-byte
+// aligned. A K-major operand (K contiguous in a row) is addressed with
+// SBO = 1024 (the next 8 rows) and steps K by 16 elements with +32 bytes;
+// an MN-major one (M or N contiguous in a row, K along rows) with
+// SBO = 1024 between 8-row K groups, LBO between 64-wide MN blocks, and
+// steps K by 16 rows with +2048 bytes.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace usk {
+
+// ------------------------------------------------------------------ host
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime (no link against libcuda)
+inline EncodeTiledFn encode_tiled() {
+    static EncodeTiledFn fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+        const cudaError_t err =
+            cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+        const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+        if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+        fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+    return fn;
+}
+
+// A tiled tensor map, dims innermost first, strides in bytes for dims
+// 1..rank-1; out-of-bounds elements load as zero. False on failure.
+inline bool make_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                            const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                            CUtensorMapSwizzle swizzle) {
+    const EncodeTiledFn fn = encode_tiled();
+    if (fn == nullptr) return false;
+    cuuint64_t d[5], s[4];
+    cuuint32_t b[5], e[5];
+    for (int i = 0; i < rank; ++i) {
+        d[i] = dims[i];
+        b[i] = box[i];
+        e[i] = 1;
+        if (i + 1 < rank) s[i] = strides[i];
+    }
+    return fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), d, s, b, e,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---------------------------------------------------------------- device
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
+}
+
+// make the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_barrier_init() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// wait until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    const uint32_t addr = smem_u32(bar);
+    uint32_t done = 0;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    } while (!done);
+}
+
+__device__ __forceinline__ uint64_t map_addr(const CUtensorMap* map) {
+    return reinterpret_cast<uint64_t>(map);
+}
+
+// TMA tile loads into shared memory, completing on bar (coordinates
+// innermost first, in elements)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4}], [%2];\n"
+        :: "r"(smem_u32(dst)), "l"(map_addr(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+        : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5}], [%2];\n"
+        :: "r"(smem_u32(dst)), "l"(map_addr(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+           "r"(c2)
+        : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+        :: "r"(smem_u32(dst)), "l"(map_addr(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+           "r"(c2), "r"(c3)
+        : "memory");
+}
+
+// contiguous bytes (16-byte aligned, a multiple of 16) into shared memory
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// dst[i] += src[i] in fp32 for bytes / 4 values, by the TMA unit (one
+// thread issues; 16-byte aligned, a multiple of 16 bytes)
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const float* src, uint32_t bytes) {
+    asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
+                 :: "l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+}
+
+// the box at the coordinates += the shared-memory box src, by the TMA unit
+// (the map's element type, here fp32; out-of-bounds elements are skipped)
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, const void* src, int c0,
+                                                  int c1, int c2) {
+    asm volatile(
+        "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.tile.bulk_group "
+        "[%0, {%2, %3, %4}], [%1];\n"
+        :: "l"(map_addr(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map, const void* src, int c0,
+                                                  int c1, int c2, int c3) {
+    asm volatile(
+        "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.tile.bulk_group "
+        "[%0, {%2, %3, %4, %5}], [%1];\n"
+        :: "l"(map_addr(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's bulk operations have read their shared-memory sources
+__device__ __forceinline__ void bulk_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// this thread's bulk operations have completed
+__device__ __forceinline__ void bulk_wait() {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// generic-proxy shared-memory writes become visible to the async proxy
+// (wgmma operands, bulk copies)
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <uint32_t kRegs>
+__device__ __forceinline__ void reg_alloc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kRegs));
+}
+
+template <uint32_t kRegs>
+__device__ __forceinline__ void reg_dealloc() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kRegs));
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand at p
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes) {
+    uint64_t d = (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4);
+    d |= (uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16;
+    d |= (uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32;
+    d |= (uint64_t)1 << 62;
+    return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keep the compiler from moving accesses of registers that an in-flight
+// wgmma reads or writes across this point
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+// byte offset of element (r, c) of a 128-byte-swizzled tile of 2-byte
+// elements with 64 per row
+__device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
+    const uint32_t byte = (uint32_t)c * 2u;
+    return (uint32_t)r * 128u + ((((byte >> 4) ^ (uint32_t)(r & 7)) << 4) | (byte & 15u));
+}
+
+// D (64 x 256, fp32 registers) += A (64 x 16) . B (16 x 256), both from shared
+// memory by descriptor; tA / tB: 0 = K-major, 1 = MN-major
+template <int tA, int tB>
+__device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(1), "n"(tA), "n"(tB));
+}
+
+// D (64 x 64, fp32 registers) += A (64 x 16) . B (16 x 64), both from shared
+// memory by descriptor; tA / tB: 0 = K-major, 1 = MN-major
+template <int tA, int tB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1), "n"(tA), "n"(tB));
+}
+
+// D (64 x 64, fp32 registers) += A (64 x 16, bf16 pairs in registers, the
+// m16n8k16 A-fragment layout per warp) . B (16 x 64) from shared memory
+template <int tB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(tB));
+}
+
+}  // namespace usk

@@ -19,11 +19,11 @@ import torch.nn.functional as F
 
 from unispeech_tpu_torch.ops.kernels import _build
 
-launches = 0  # forward kernel launches made by conv_gelu_block
-backward_launches = 0  # backward launches made by conv_gelu_block_backward
+launches = 0  # forward kernel launches made by the blocks (the H pass and the GEMM)
+backward_launches = 0  # backward kernel launches made by conv_gelu_block_backward
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURE = [_P] * 6 + [_I] * 7 + [_P]
+_SIGNATURE = [_P] * 7 + [_I] * 8 + [_P]
 _BWD_SIGNATURE = [_P] * 12 + [_I] * 7 + [_P]
 
 Affine = Optional[Tuple[torch.Tensor, torch.Tensor]]
@@ -123,6 +123,8 @@ def _check_cuda(x, kernel, valid_len, affine):
     ab = None
     if affine is not None:
         ab = tuple(t.to(torch.float32).contiguous() for t in affine)
+        # the kernels read them as float4: 16-byte aligned
+        ab = tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ab)
         req(all(t.shape == (B, C) and t.device == x.device for t in ab),
             "affine must be two (B, C) tensors on x's device")
     return B, ts, C, t_out, kernel.to(torch.bfloat16).contiguous(), ab
@@ -138,15 +140,21 @@ def _forward(x, kernel, valid_len, gelu_in, gelu_out, affine, want_pre):
         return y, t_out, pre if want_pre else None
     B, ts, C, t_out, w, ab = _check_cuda(x, kernel, valid_len, affine)
     k = kernel.shape[0]
+    # the GEMM's B operand K-major: (C_out, k * C_in), row n = W[:, :, n]
+    w_t = w.reshape(k * C, C).t().contiguous()
     y = torch.empty((B, t_out, C), dtype=torch.bfloat16, device=x.device)
     pre = torch.empty_like(y) if want_pre else None
+    # H = gelu_in?(x * a + b) of the valid rows, written once by an
+    # elementwise pass before the GEMM
+    h_buf = (torch.empty((B, valid_len, C), dtype=torch.bfloat16, device=x.device)
+             if ab is not None or gelu_in else None)
+    ptr = lambda t: None if t is None else t.data_ptr()
     fn = _build.function("usk_conv_gelu_block", _SIGNATURE)
-    _build.launch(fn, "conv_gelu_block", x.device, x.data_ptr(), w.data_ptr(),
-                  None if ab is None else ab[0].data_ptr(),
-                  None if ab is None else ab[1].data_ptr(), y.data_ptr(),
-                  None if pre is None else pre.data_ptr(), B, ts, t_out, C, k,
+    _build.launch(fn, "conv_gelu_block", x.device, x.data_ptr(), w_t.data_ptr(),
+                  ptr(None if ab is None else ab[0]), ptr(None if ab is None else ab[1]),
+                  ptr(h_buf), y.data_ptr(), ptr(pre), B, ts, valid_len, t_out, C, k,
                   int(gelu_in), int(gelu_out), _build.stream(x))
-    launches += 1
+    launches += 1 + (h_buf is not None)  # the GEMM, after the H pass where there is one
     return y, t_out, pre
 
 
@@ -185,7 +193,8 @@ def conv_gelu_block_backward(x, kernel, valid_len: int, gelu_in: bool, gelu_out:
                   dy.data_ptr(), ptr(pre if gelu_out else None), ptr(g_buf), ptr(h_buf),
                   dx.data_ptr(), dw.data_ptr(), ptr(da), ptr(db), B, ts, valid_len, t_out,
                   C, k, int(gelu_in), _build.stream(x))
-    backward_launches += 1
+    # dx and dW, after the g pass (output GELU) and the H pass where they run
+    backward_launches += 2 + (g_buf is not None) + (h_buf is not None)
     return dx, dw, da, db
 
 

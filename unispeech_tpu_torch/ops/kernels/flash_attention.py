@@ -16,6 +16,7 @@ version, draw the identical mask.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -30,7 +31,8 @@ backward_launches = 0  # backward kernel launches made by its autograd backward
 NEG_INF = -1e30
 _P, _L, _I, _U, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _FWD_SIGNATURE = [_P] * 4 + [_L] * 8 + [_P] * 5 + [_I] * 4 + [_F, _P, _U, _F, _P]
-_BWD_SIGNATURE = [_P] * 6 + [_L] * 10 + [_P] * 9 + [_I] * 4 + [_F, _P, _U, _F, _P, _P]
+_BWD_SIGNATURE = ([_P] * 6 + [_L] * 10 + [_P, _L] + [_P] * 8 + [_I] * 4
+                  + [_F, _P, _U, _F, _P, _P])
 
 
 def _dropout_scale(rate: float) -> torch.Tensor:
@@ -200,16 +202,25 @@ def _backward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rat
     req(dout.dtype == torch.bfloat16 and out.dtype == torch.bfloat16
         and dout.shape == out.shape == (B, T, H, hd), "dO and out must be bf16 (B, T, H, hd)")
     req(lse.dtype == torch.float32 and lse.shape == (B, H, T), "lse must be fp32 (B, H, T)")
+    scale = scale_in_dtype(hd, q.dtype)
+    req(scale == 2.0 ** round(math.log2(scale)),
+        "the backward kernel folds the q scale into fp32 products: a power of two")
     dev = q.device
+    n_qt, n_kt = -(-T // 64), -(-S // 64)
+    # cross-block sums, added by the kernel's TMA reductions: dgate and dbias
+    # padded to whole 64-wide tiles
     dq_acc = torch.zeros((B, T, H, hd), dtype=torch.float32, device=dev)
     dk = torch.empty((B, S, H, hd), dtype=torch.bfloat16, device=dev)
     dv = torch.empty((B, S, H, hd), dtype=torch.bfloat16, device=dev)
-    delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)
-    dbias_acc = dgate = None
+    rows = torch.empty((B * H, n_qt, 3, 64), dtype=torch.float32, device=dev)
+    dbias_acc = dgate_acc = None
+    bias_rows = bias
     if bias is not None:
-        dbias_acc = torch.zeros((H, T, S), dtype=torch.float32, device=dev)
+        dbias_acc = torch.zeros((H, T, n_kt * 64), dtype=torch.float32, device=dev)
         if gate is not None:
-            dgate = torch.zeros((B, H, T), dtype=torch.float32, device=dev)
+            dgate_acc = torch.zeros((B * H, n_qt * 64), dtype=torch.float32, device=dev)
+        if S % 8:  # TMA rows are whole 16-byte units
+            bias_rows = torch.nn.functional.pad(bias, (0, 8 - S % 8))
     seed = dropout_seed if dropout_rate > 0.0 else None
     fn = _build.function("usk_flash_attention_bwd", _BWD_SIGNATURE)
     _build.launch(
@@ -218,15 +229,17 @@ def _backward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rat
         lse.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
         out.stride(0), out.stride(1), dout.stride(0), dout.stride(1),
-        _ptr(bias), _ptr(gate), _ptr(key_padding_mask), _ptr(attn_mask),
-        dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dgate), _ptr(dbias_acc),
-        B, T, S, H, scale_in_dtype(hd, q.dtype), delta.data_ptr(),
+        _ptr(bias_rows), 0 if bias_rows is None else bias_rows.stride(1),
+        _ptr(gate), _ptr(key_padding_mask), _ptr(attn_mask),
+        dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dgate_acc), _ptr(dbias_acc),
+        B, T, S, H, scale, rows.data_ptr(),
         keep_threshold(dropout_rate) if seed is not None else 0,
         float(_dropout_scale(dropout_rate)) if seed is not None else 1.0,
         _ptr(seed), _build.stream(q))
-    backward_launches += 1
-    dq = dq_acc.to(torch.bfloat16) * scale_in_dtype(hd, q.dtype)
-    dbias = None if dbias_acc is None else dbias_acc.to(bias.dtype)
+    backward_launches += 2  # the rows pre-pass and the backward kernel
+    dq = dq_acc.to(torch.bfloat16) * scale
+    dbias = None if dbias_acc is None else dbias_acc[..., :S].to(bias.dtype)
+    dgate = None if dgate_acc is None else dgate_acc[:, :T].reshape(B, H, T).contiguous()
     return dq, dk, dv, dbias, dgate
 
 
