@@ -26,9 +26,10 @@ Phases, one line each (any failure raises and exits non-zero):
              (python -m unispeech_tpu_torch.scripts.exp_vpu_micro) at
              (6, 49152, 512) bf16 with launch counts; each of its seven
              variants against its plain version; per-variant times
-  9 times    each kernel (forward at the serving shapes, backward at the
-             pretraining shapes), its plain version, its bound and one
-             PyTorch library call; the kernel's wrapper and the library
+  9 times    each kernel (forward at the serving shapes, backward and the
+             dropout forward at the pretraining shapes; the conv backward
+             per block with dx and dW apart), its plain version, its bound
+             and one PyTorch library call; the kernel's wrapper and the library
              call timed by CUDA events as the host enqueues them (wall: a
              call of several launches follows the host) and queued behind
              a busy card (device); audio-seconds per second of the forward
@@ -311,7 +312,7 @@ def backward_parity(dev, cfg):
     rel_check("fused_attention_backward.dbias", got[3], want[3], 2e-3)
     rel_check("fused_attention_backward.dgate", got[4], want[4], 2e-3)
     return dict(l1=l1_args, conv=conv_args, attn=attn_args, fwd_drop=(q, kk, v, fwd),
-                err=(err_l1, err_conv, max(err_attn, err_drop)))
+                err=(err_l1, err_conv, err_attn, err_drop))
 
 
 def train_phase(dev, counters, train_counts):
@@ -489,8 +490,9 @@ def backward_times(bw, train_counts):
     """The kernels rows of the three backward kernels at the pretraining
     shapes, per train step (all launches of a kernel in one step)."""
     from unispeech_tpu_torch.ops.kernels import conv_stack, flash_attention, l1_frontend
+    from unispeech_tpu_torch.scripts.bench_attention_backward import kernel_ms
 
-    err_l1, err_conv, err_attn = bw["err"]
+    err_l1, err_conv, err_attn, err_drop = bw["err"]
     wav, w1, s0, dy1, ds1, ds2 = bw["l1"]
     B, NS = wav.shape
     k0, _, C = w1.shape
@@ -514,12 +516,23 @@ def backward_times(bw, train_counts):
     c_ms = c_dev = c_plain = c_lib = c_bound = 0.0
     c_lib_dev = 0.0
     c_by = set()
-    for args in bw["conv"]:
+    for i, args in enumerate(bw["conv"], start=2):
         x, w, valid, gelu_in, gelu_out, ab, dy, pre = args
         k = w.shape[0]
         t_out = dy.shape[1]
         c_ms += cuda_ms(lambda: conv_stack.conv_gelu_block_backward(*args))
-        c_dev += device_ms(lambda: conv_stack.conv_gelu_block_backward(*args))
+        one_dev = device_ms(lambda: conv_stack.conv_gelu_block_backward(*args))
+        c_dev += one_dev
+        # dx and dW apart, by the profiler's device time of each kernel
+        split = [kernel_ms(lambda: conv_stack.conv_gelu_block_backward(*args), 1, name)
+                 for name in ("conv_bwd_dx_kernel", "conv_bwd_dw_kernel")]
+        if not min(split) > 0:
+            fail(f"conv block L{i}: the profiler saw no device time of dx or dW")
+        gemm_flops = 2 * B * t_out * C * k * C  # each of dx and dW
+        phase("times", kernel=f"conv_gelu_block_backward.L{i}", device_ms=f"{one_dev:.4f}",
+              tflops=f"{2 * gemm_flops / one_dev / 1e9:.1f}",
+              dx_device_ms=f"{split[0]:.4f}", dx_tflops=f"{gemm_flops / split[0] / 1e9:.1f}",
+              dw_device_ms=f"{split[1]:.4f}", dw_tflops=f"{gemm_flops / split[1] / 1e9:.1f}")
         c_plain += cuda_ms(lambda: conv_stack.conv_gelu_block_backward_plain(*args), iters=2,
                            warmup=1)
         xt = x.transpose(1, 2).contiguous().requires_grad_()
@@ -569,9 +582,29 @@ def backward_times(bw, train_counts):
                       ("neither", (q, kk, v, None, None, kpm, amask, 0.0, None))):
         one = cuda_ms(lambda: flash_attention.fused_attention_backward(*args, out, lse, dout))
         phase("times", kernel=f"fused_attention_backward.{tag}", ms_per_call=f"{one:.4f}")
+    # the dropout forward at the pretraining shape, per train step; SDPA with
+    # the same dropout rate is the library call (it draws another mask)
     q, kk, v, fwd = bw["fwd_drop"]
-    phase("times", kernel="fused_attention.dropout_forward_per_train_step",
-          ms=f"{train_counts['attn'] * cuda_ms(lambda: flash_attention.fused_attention(q, kk, v, **fwd)):.4f}")
+    B, T, H, hd = q.shape
+    d_bound = bound(4 * B * T * H * hd * 2 + H * T * T * 2 + 2 * B * H * T * 4 + B * T,
+                    4 * B * H * T * T * hd, BF16_TC_FLOPS)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, kk, v))
+    dmask = (fwd["gate"][..., None] * fwd["bias"].float()[None]
+             + torch.where(fwd["key_padding_mask"], -1e30, 0.0)[:, None, None, :]).to(
+                 torch.bfloat16)
+    rows.append(dict(
+        name="fused_attention.dropout", route="cuda",
+        source="unispeech_tpu_torch/csrc/flash_attention.cu",
+        replaces="unispeech_tpu/ops/pallas/flash_attention.py:878",
+        launches=train_counts["attn"], max_abs_err=err_drop,
+        ms=n * cuda_ms(lambda: flash_attention.fused_attention(q, kk, v, **fwd)),
+        device_ms=n * device_ms(lambda: flash_attention.fused_attention(q, kk, v, **fwd)),
+        plain_ms=n * cuda_ms(lambda: flash_attention.fused_attention_plain(q, kk, v, **fwd),
+                             iters=2, warmup=1),
+        bound_ms=n * d_bound[0], bound_by=d_bound[1],
+        **library_row(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=dmask, dropout_p=fwd["dropout_rate"]), n),
+    ))
     return rows
 
 

@@ -136,20 +136,46 @@ def _attn_inputs(dev, B, T, H, seed, fused_qkv=False):
     return q, k, v, bias, gate, kpm
 
 
-@pytest.mark.parametrize("B,T,H", [(1, 1, 1), (2, 63, 2), (3, 65, 4), (2, 200, 12)])
-@pytest.mark.parametrize("case", ["full", "bias_no_gate", "no_bias", "attn_mask", "strided"])
+# every template-flag combination of the forward kernel the wrappers reach:
+# {no bias, bias, gated bias} x key padding x (T, S) mask x dropout; then
+# q/k/v as views of one fused projection, and the rel-pos bias as
+# compute_rel_pos_bias's view of rows padded to 8 keys
+FWD_CASES = [b + "+kpm" * p + "+mask" * m + "+drop" * d
+             for b in ("none", "bias", "gate") for p in (0, 1) for m in (0, 1) for d in (0, 1)]
+FWD_CASES += ["strided", "bias_view"]
+
+
+@pytest.mark.parametrize("B,T,H", [(1, 1, 1), (2, 63, 2), (3, 65, 4), (2, 200, 12),
+                                   (1, 799, 12)])
+@pytest.mark.parametrize("case", FWD_CASES)
 def test_attention_edges(dev, B, T, H, case):
+    """The forward kernel against its plain version, out within 2 bf16 ulps
+    (dropout: the same Philox mask on both sides), lse within 1e-3."""
     q, k, v, bias, gate, kpm = _attn_inputs(dev, B, T, H, seed=T * 7 + H,
                                             fused_qkv=case == "strided")
     kw = dict(bias=bias, gate=gate, key_padding_mask=kpm)
-    if case == "bias_no_gate":
-        kw["gate"] = None
-    elif case == "no_bias":
-        kw = dict(key_padding_mask=kpm)
-    elif case == "attn_mask":
-        idx = torch.arange(T, device=dev)
-        kw["attn_mask"] = torch.where((idx[:, None] - idx[None, :]).abs() > 20, -1e4, 0.0)
+    if case == "bias_view":
+        from unispeech_tpu_torch.ops.rel_pos import compute_rel_pos_bias
+
+        table = torch.randn(320, H, generator=torch.Generator().manual_seed(T)).to(dev)
+        kw["bias"] = compute_rel_pos_bias(table, T, T, 320, 800, dtype=torch.bfloat16)
+        assert kw["bias"].stride(1) == -(-T // 8) * 8
+    elif case != "strided":
+        parts = case.split("+")
+        if parts[0] == "none":
+            kw = dict(bias=None, gate=None)
+        elif parts[0] == "bias":
+            kw["gate"] = None
+        kw["key_padding_mask"] = kpm if "kpm" in parts else None
+        if "mask" in parts:
+            idx = torch.arange(T, device=dev)
+            kw["attn_mask"] = torch.where((idx[:, None] - idx[None, :]).abs() > 20, -1e4, 0.0)
+        if "drop" in parts:
+            kw["dropout_rate"] = 0.1
+            kw["dropout_seed"] = torch.tensor([T * 1000 + 17 + H], dtype=torch.int64, device=dev)
+    before = flash_attention.launches
     out, lse = flash_attention.fused_attention(q, k, v, **kw, return_lse=True)
+    assert flash_attention.launches == before + 1
     pout, plse = flash_attention.fused_attention_plain(q, k, v, **kw, return_lse=True)
     _close(out, pout, ulps=2.0)
     assert (lse - plse).abs().max().item() <= 1e-3
@@ -224,19 +250,26 @@ def test_l1_backward_edges(dev, B, ns, C, stats):
 
 
 @pytest.mark.parametrize("k", [2, 3])
-@pytest.mark.parametrize("T,valid,C", [(9, 9, 128), (300, 257, 128), (1000, 1000, 512)])
-@pytest.mark.parametrize("gelu_in,affine,gelu_out", [
-    (True, True, True), (False, False, True), (True, False, False), (False, True, True)])
-def test_conv_backward_edges(dev, k, T, valid, C, gelu_in, affine, gelu_out):
+@pytest.mark.parametrize("B,T,valid,C", [
+    (2, 9, 9, 128),         # t_out < one row tile; tap 2 at t' = 0 everywhere
+    (2, 300, 257, 128),     # rows past valid; a 256-channel tile half out of C
+    (2, 1000, 1000, 512),   # t_out not a multiple of the tile
+    (1, 517, 515, 128),     # odd ts with valid < ts, one utterance
+    (3, 1001, 998, 512),    # odd ts, three utterances: dW steps cross batch rows
+])
+@pytest.mark.parametrize("gelu_in,affine", [(True, True), (False, False), (True, False),
+                                            (False, True)])
+@pytest.mark.parametrize("gelu_out", [True, False])
+def test_conv_backward_edges(dev, k, B, T, valid, C, gelu_in, affine, gelu_out):
     g = torch.Generator().manual_seed(T * 10 + k + 1)
-    x = torch.randn(2, T, C, generator=g).to(dev, torch.bfloat16)
+    x = torch.randn(B, T, C, generator=g).to(dev, torch.bfloat16)
     w = (torch.randn(k, C, C, generator=g) * (2.0 / (k * C)) ** 0.5).to(dev, torch.bfloat16)
-    ab = ((torch.rand(2, C, generator=g) + 0.5).to(dev),
-          (torch.randn(2, C, generator=g) * 0.1).to(dev)) if affine else None
+    ab = ((torch.rand(B, C, generator=g) + 0.5).to(dev),
+          (torch.randn(B, C, generator=g) * 0.1).to(dev)) if affine else None
     t_out = (valid - k) // 2 + 1
     _, _, pre = conv_stack.conv_gelu_block_plain(x, w, valid, gelu_in, gelu_out, ab,
                                                  return_pre=True)
-    dy = torch.randn(2, t_out, C, generator=g).to(dev, torch.bfloat16)
+    dy = torch.randn(B, t_out, C, generator=g).to(dev, torch.bfloat16)
     got = conv_stack.conv_gelu_block_backward(x, w, valid, gelu_in, gelu_out, ab, dy, pre)
     want = conv_stack.conv_gelu_block_backward_plain(x, w, valid, gelu_in, gelu_out, ab,
                                                      dy, pre)

@@ -14,12 +14,14 @@ import torch
 
 from unispeech_tpu.ops.attention import multihead_attention as jax_mha
 from unispeech_tpu.ops.pallas.flash_attention import fused_attention as jax_fused
+from unispeech_tpu.ops.rel_pos import compute_rel_pos_bias as jax_rel_pos_bias
 from unispeech_tpu_torch.ops.attention import multihead_attention
 from unispeech_tpu_torch.ops.kernels.flash_attention import (
     fused_attention,
     fused_attention_backward_plain,
     fused_attention_plain,
 )
+from unispeech_tpu_torch.ops.rel_pos import compute_rel_pos_bias
 
 TOL = 2e-5
 
@@ -85,7 +87,7 @@ def test_fused_matches_xla_and_lse():
     np.testing.assert_allclose(lse.numpy(), ref_lse, rtol=1e-5, atol=1e-4)
 
 
-def test_dropout_not_in_slice():
+def test_dropout_seeded_and_regenerated():
     """Dropout is ported: the output depends on the seed and only on it, its
     keep rate matches, and the op's backward regenerates the forward's mask
     (torch autograd of the plain forward agrees to fp32 rounding)."""
@@ -165,3 +167,38 @@ def test_backward_matches_pallas(case, layout):
     for l, w in zip(leaves, want):
         w = np.asarray(w)
         np.testing.assert_allclose(l.grad.numpy(), w, rtol=1e-4, atol=1e-5 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("layout", [(4, 32), (2, 16)], ids=["packed", "head_major"])
+def test_padded_bias_view_matches_pallas(layout):
+    """compute_rel_pos_bias's (H, T, S) bias, a view of rows padded to 8
+    keys (S = 97), through the plain forward and the op's backward (into the
+    bucket table) against the Pallas kernels in interpret mode with the JAX
+    package's bias, fp32: the forward at TOL, the gradients at rtol 1e-4 /
+    atol 1e-5 of their scale, as above."""
+    H, hd = layout
+    T, buckets, max_dist = 97, 32, 64
+    q, k, v, args = _make(T=T, H=H, hd=hd, bias=False)
+    gate, kpm = args["gate"], args["key_padding_mask"]
+    table = np.random.RandomState(5).randn(buckets, H).astype(np.float32)
+    dout = np.random.RandomState(6).randn(*q.shape).astype(np.float32)
+
+    leaves = [torch.from_numpy(a.copy()).requires_grad_() for a in (q, k, v, table)]
+    bias = compute_rel_pos_bias(leaves[3], T, T, buckets, max_dist)
+    assert bias.shape == (H, T, T) and bias.stride(1) == 104 and not bias.is_contiguous()
+    got = fused_attention(*leaves[:3], bias, torch.from_numpy(gate),
+                          key_padding_mask=torch.from_numpy(kpm))
+    (got * torch.from_numpy(dout)).sum().backward()
+
+    def jloss(qq, kk, vv, tt):
+        b = jax_rel_pos_bias(tt, T, T, buckets, max_dist)
+        out = jax_fused(qq, kk, vv, b, jnp.asarray(gate), key_padding_mask=jnp.asarray(kpm),
+                        interpret=True)
+        return jnp.sum(out * dout), out
+
+    (_, want), grads = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3), has_aux=True)(
+        *map(jnp.asarray, (q, k, v, table)))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    for leaf, w in zip(leaves, grads):
+        w = np.asarray(w)
+        np.testing.assert_allclose(leaf.grad.numpy(), w, rtol=1e-4, atol=1e-5 * np.abs(w).max())

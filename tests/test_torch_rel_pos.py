@@ -32,6 +32,20 @@ def test_bias_equal(T, S, dtype):
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
 
 
+@pytest.mark.parametrize("T,S", [(1, 1), (37, 37), (50, 23), (799, 799), (64, 64)])
+def test_bias_rows_padded_to_16_bytes(T, S):
+    """The (H, T, S) bias is a view of rows padded to a multiple of 8 keys
+    (whole 16-byte units of bf16, the CUDA attention kernels' TMA layout),
+    heads T padded rows apart, with or without gradients."""
+    table = torch.randn(32, 4)
+    for grad in (False, True):
+        got = compute_rel_pos_bias(table.clone().requires_grad_(grad), T, S, 32, 64,
+                                   dtype=torch.bfloat16)
+        rs = -(-S // 8) * 8
+        assert got.shape == (4, T, S) and got.stride() == (T * rs, rs, 1)
+        assert got.untyped_storage().nbytes() == 4 * T * rs * 2
+
+
 def test_gate_equal():
     """fp32 island of a (hd, 8) projection: fp32 rounding only."""
     rng = np.random.RandomState(0)

@@ -41,73 +41,77 @@
 // gelu' is the exact erf derivative Phi(x) + x phi(x), not the TPU
 // kernel's polynomial. Bound on the H100: operations; at the pretraining
 // batch (6 x 245,840 samples) dx and dW of the six blocks are 899 GFLOP,
-// 0.91 ms at the bf16 tensor-core peak. Design, in four launches:
+// 0.909 ms at the bf16 tensor-core peak of 989 TFLOP/s. Design (Hopper),
+// in four launches; both GEMMs have the forward GEMM's shape (a producer
+// warp keeping TMA loads in a 4-stage mbarrier ring, two consumer
+// warpgroups on wgmma.m64n256k16 with 128 fp32 accumulators each under
+// setmaxnreg 232, 128 x 256 tiles, one block per SM), except the first
+// block's dx (below):
 //   conv_bwd_g_kernel   g (elementwise, 16-byte vectors; skipped without
 //                       the output GELU, where g is dy itself)
 //   conv_h_kernel       H (elementwise; only with affine or gelu_in, i.e.
 //                       the first block of the chain; shared with the forward)
-//   conv_bwd_dx_kernel  one GEMM per input-row parity: 128 input rows of one
-//                       parity x 128 input channels per block, contraction
-//                       over (tap, output channel), A rows gathered from g
-//                       (zero-filled outside [0, t_out)), B = W_p read as
-//                       [in][out] rows; mma.sync and ldmatrix on a
-//                       3-stage cp.async ring. No overlap-add
-//                       and no atomics for dx; the epilogue applies gelu'
-//                       and the affine and reduces da/db per block (warp
-//                       shuffles, shared-memory atomics) into fp32 atomics.
-//   conv_bwd_dw_kernel  split-K GEMM over the B * t_out rows: a block owns
-//                       a (tap, 128 in x 128 out) tile and one row range,
-//                       A = H rows 2t + p read transposed by ldmatrix.trans,
-//                       B = g rows; fp32 atomics add the splits into dW.
-// The atomic sums (dW over row splits, da/db over row tiles) vary in order
-// from run to run within fp32 rounding.
+//   conv_bwd_dx_kernel  a GEMM per input-row parity: A = g rows through a
+//                       (C, t_out, B) map (no box crosses an utterance; tap
+//                       2 reads the box at t' - 1, and TMA zero-fills row -1
+//                       and rows past t_out, so the ragged ends need no
+//                       code), B = W_p as stored ([tap][in][out], K-major
+//                       in the output channel), both K-major. A block does
+//                       128 rows t' of parity 0 (taps 0 and 2) and then of
+//                       parity 1 (tap 1): every block contracts over 3C (k =
+//                       3) or 2C (k = 2), where one GEMM per parity left the
+//                       parity-1 blocks half the work. The epilogue, once
+//                       per parity, applies gelu'(x^) (exact erf) and the
+//                       affine and stores bf16 pairs at rows 2t' + par
+//                       (zero from valid to ts). In the first block x^
+//                       comes from a tile of x that TMA loads (through the
+//                       even/odd views) while the parity's GEMM runs, and
+//                       the affine's columns from shared memory, so the
+//                       epilogue waits on no global load. da/db are
+//                       reduced two 8-column slices at a time: a warp's 16
+//                       rows by a reduce-scatter over 8 lanes (7 shuffles
+//                       for 8 sums, each lane left with one column's
+//                       total), then one fire-and-forget global fp32 add
+//                       per lane, so no partial sums sit beside the
+//                       accumulators. (Per-slice shuffle trees into
+//                       shared-memory float atomics cost 1.05 of L2's
+//                       1.9 ms.) That epilogue (an erf and an exp per
+//                       element) does not overlap the GEMM within a block,
+//                       so the first block's dx runs 64 x 128 tiles with
+//                       one consumer warpgroup (wgmma.m64n128k16, 64
+//                       accumulators, no setmaxnreg), a 3-stage ring and
+//                       two blocks per SM: one block's epilogue runs
+//                       under the other's GEMM (L2's dx 1.12 -> 0.97 ms).
+//   conv_bwd_dw_kernel  split-K GEMM over the (b, 64-row t step) pieces of
+//                       B * t_out rows (no box spans two utterances): A = H
+//                       rows 2t + p through the forward's even/odd views (p
+//                       = 0 even row t, 1 odd row t, 2 even row t + 1), B =
+//                       g rows, both channel-contiguous and read MN-major
+//                       (transposed wgmma operands) from 64-wide swizzled
+//                       boxes. The splits are sized so the (tap, 128 in x
+//                       256 out) tiles fill two waves of one block per SM;
+//                       each block adds its fp32 tile into dW through the
+//                       ring's shared memory by 8 TMA tensor reductions
+//                       (cp.reduce.async.bulk.tensor add) per warpgroup
+//                       instead of a scalar atomic per element.
+// The fp32 sums (dW over splits, da/db over row tiles) vary in order from
+// run to run within fp32 rounding.
 
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-// backward tiles (mma.sync)
-constexpr int kBM = 128;  // rows per block
-constexpr int kBN = 128;  // channels per block
-constexpr int kBK = 32;   // contraction step
-constexpr int kStages = 3;
-constexpr int kThreads = 256;
-constexpr int kALd = kBK + 8;  // padded rows (bf16): ldmatrix reads conflict-free
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d), "l"(src));
-}
-// zero-fills the 16 bytes when !valid (the source address must still be mapped)
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
-    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N)); }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-    const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-    const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-// D = A.B + D, A 16x16 row-major bf16, B 16x8 col-major bf16, D fp32
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// GEMM tiles of the forward and of the backward's dx and dW (TMA + wgmma)
+constexpr int kFM = 128;             // rows per block (two warpgroups of 64)
+constexpr int kFN = 256;             // columns per block
+constexpr int kFK = 64;              // K step: one 128-byte swizzled row of bf16
+constexpr int kFStages = 4;
+constexpr int kFThreads = 384;       // consumer warpgroups 0, 1; producer warpgroup 2
+constexpr uint32_t kFABytes = kFM * kFK * 2;  // 16 KB
+constexpr uint32_t kFBBytes = kFN * kFK * 2;  // 32 KB
+constexpr uint32_t kBox = 64 * 128;           // one 64 x 64 bf16 (or 64 x 32 fp32) box
+constexpr size_t kFSmem = 1024 + (size_t)kFStages * (kFABytes + kFBBytes) + 2 * kFStages * 8;
 
 // ------------------------------------------------------------------ backward
 
@@ -188,304 +192,433 @@ cudaError_t launch_h(const void* x, const void* a, const void* b, void* h, int B
     return cudaGetLastError();
 }
 
-// dx: 128 input rows of one parity (r = 2t' + par) x 128 input channels per
-// block; contraction over (tap p = par, par + 2 < k) x output channels
+// byte offset of fp32 element (r, c) of a 128-byte-swizzled box of 32 per row
+__device__ __forceinline__ uint32_t sw128_f32(int r, int c) {
+    return (uint32_t)r * 128u + ((((uint32_t)c >> 2) ^ (uint32_t)(r & 7)) << 4) + ((uint32_t)c & 3u) * 4u;
+}
+
+struct DxMaps {
+    CUtensorMap g;      // g (B, t_out, C): dims {C, t_out, B}, boxes of 64 x 128 rows
+    CUtensorMap w;      // W (k, C_in, C_out) as stored: dims {C_out, C_in, k}, boxes of 64 x 256
+    CUtensorMap xe, xo; // x's even / odd rows (the first block's epilogue), boxes of 64 x 128
+};
+
+// the dx kernel's shape. Without the first block's epilogue arithmetic: the
+// forward's (two consumer warpgroups on 128 x 256 tiles, one block per SM).
+// With it (gelu'(x^), the affine, the da/db sums): one consumer warpgroup
+// on 64 x 128 tiles, two blocks per SM, so one block's epilogue runs while
+// the other's GEMM keeps the tensor cores busy. Shared memory: the ring,
+// then (first block) the x tile of one parity, the barriers and the
+// affine's columns.
+template <bool kX>
+struct DxCfg {
+    static constexpr int kCons = kX ? 1 : 2;  // consumer warpgroups
+    static constexpr int kM = 64 * kCons;     // rows t' per block
+    static constexpr int kN = kX ? 128 : 256; // input channels per block
+    static constexpr int kThreads = 128 * (kCons + 1);
+    static constexpr int kMinBlocks = kX ? 2 : 1;
+    static constexpr int kStages = kX ? 3 : kFStages;
+    static constexpr uint32_t kABytes = kM * 128, kBBytes = kN * 128;
+    static constexpr uint32_t kOffB = kStages * kABytes;
+    static constexpr uint32_t kOffX = kOffB + kStages * kBBytes;
+    static constexpr uint32_t kXBytes = kX ? kM * kN * 2 : 0;
+    static constexpr uint32_t kOffBar = kOffX + kXBytes;  // full, empty, x
+    static constexpr uint32_t kOffAff = kOffBar + (2 * kStages + 1) * 8 + 8;
+    static constexpr size_t kBytes = 1024 + kOffAff + 2 * kN * 4;
+};
+
+// dx: per block kM rows t' of both input-row parities (r = 2t' + par) x kN
+// input channels; parity 0 contracts over taps 0 (g row t') and 2 (g
+// row t' - 1, when k = 3), parity 1 over tap 1 (g row t'), each over the
+// output channels, one after the other with one epilogue each. With the
+// affine or the input GELU (the first block) the epilogue reads x^'s rows
+// from a tile of x that TMA brings in while the parity's GEMM runs.
 template <bool kAffine, bool kGeluIn>
-__global__ void __launch_bounds__(kThreads) conv_bwd_dx_kernel(
-    const __nv_bfloat16* __restrict__ g,   // (B, t_out, C)
-    const __nv_bfloat16* __restrict__ w,   // (k, C, C) [tap][in][out]
-    const __nv_bfloat16* __restrict__ x,   // (B, ts, C)
+__global__ void __launch_bounds__(DxCfg<kAffine || kGeluIn>::kThreads,
+                                  DxCfg<kAffine || kGeluIn>::kMinBlocks) conv_bwd_dx_kernel(
+    const __grid_constant__ DxMaps maps,
     const float* __restrict__ aff_a, const float* __restrict__ aff_b,  // (B, C) or null
     __nv_bfloat16* __restrict__ dx,        // (B, ts, C)
     float* __restrict__ da, float* __restrict__ db,  // (B, C) zeroed, or null
-    int ts, int valid, int t_out, int C, int k) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    auto* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [kStages][kBM][kALd]: g rows
-    auto* Bs = As + kStages * kBM * kALd;              // [kStages][kBN][kALd]: W_p rows
-    auto* red = reinterpret_cast<float*>(Bs + kStages * kBN * kALd);  // [2][kBN]
+    int ts, int valid, int C, int k) {
+    constexpr bool kX = kAffine || kGeluIn;
+    using L = DxCfg<kX>;
+    constexpr int kS = L::kStages, kCons = L::kCons, kM = L::kM, kN = L::kN;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    unsigned char* sA = smem;              // [stage][kM rows][128 B]
+    unsigned char* sB = smem + L::kOffB;   // [stage][kN rows][128 B]
+    unsigned char* sX = smem + L::kOffX;   // [kN / 64 channel boxes][kM rows][128 B]
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kOffBar);
+    uint64_t* empty = full + kS;
+    uint64_t* x_bar = empty + kS;
+    float* aff = reinterpret_cast<float*>(smem + L::kOffAff);  // [2][kN]: a, b columns
 
-    const int par = blockIdx.z & 1, b = blockIdx.z >> 1;
-    const int m0 = blockIdx.x * kBM;  // first parity row t'
-    const int n0 = blockIdx.y * kBN;  // first input channel
-    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-    const int wm = warp / 2, wn = warp % 2, mat = lane >> 3;
-    const int steps = C / kBK;  // per tap
-    const int ntaps = (par == 0 && k == 3) ? 2 : 1;
-    const int nk = ntaps * steps;
-    if (kAffine)
-        for (int i = tid; i < 2 * kBN; i += kThreads) red[i] = 0.f;
-
-    float acc[2][8][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-    auto copy = [&](int ks) {
-        const int slot = ks % kStages;
-        const int p = par + 2 * (ks / steps), k0 = (ks % steps) * kBK;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int ch = tid + i * kThreads;
-            const int r = ch >> 2, cc = (ch & 3) * 8;
-            const int t = m0 + r - (p >> 1);  // g row feeding input row 2(m0 + r) + par
-            const bool ok = t >= 0 && t < t_out;
-            cp_async16_zfill(As + (slot * kBM + r) * kALd + cc,
-                             g + ((size_t)b * t_out + (ok ? t : 0)) * C + k0 + cc, ok);
-            cp_async16(Bs + (slot * kBN + r) * kALd + cc,
-                       w + ((size_t)p * C + n0 + r) * C + k0 + cc);
-        }
+    const int n0 = blockIdx.x * kN, m0 = blockIdx.y * kM, b = blockIdx.z;
+    const int steps = C / kFK;                   // per tap
+    const int nk0 = (k == 3 ? 2 : 1) * steps;    // parity 0
+    const int nk = nk0 + steps;                  // and parity 1
+    const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+    // the x tile of parity par (its rows 2t' + par), issued by one consumer thread
+    auto issue_x = [&](int par) {
+        usk::mbar_expect_tx(x_bar, L::kXBytes);
+        for (int i = 0; i < kN / 64; ++i)
+            usk::tma_load_3d(sX + i * kM * 128, par ? &maps.xo : &maps.xe, x_bar, n0 + 64 * i,
+                             m0, b);
     };
-
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-        if (s < nk) copy(s);
-        cp_async_commit();
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < kS; ++s) {
+            usk::mbar_init(&full[s], 1);
+            usk::mbar_init(&empty[s], kCons);  // one arrival per consumer warpgroup
+        }
+        usk::mbar_init(x_bar, 1);
+        usk::fence_barrier_init();
     }
-    for (int ks = 0; ks < nk; ++ks) {
-        cp_async_wait<kStages - 2>();
-        __syncthreads();
-        if (ks + kStages - 1 < nk) copy(ks + kStages - 1);
-        cp_async_commit();
-        const __nv_bfloat16* At = As + (ks % kStages) * kBM * kALd;
-        const __nv_bfloat16* Bt = Bs + (ks % kStages) * kBN * kALd;
-#pragma unroll
-        for (int kk = 0; kk < kBK; kk += 16) {
-            uint32_t af[2][4];
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-                ldmatrix_x4(af[i], At + (wm * 32 + i * 16 + (lane & 15)) * kALd + kk + (lane >> 4) * 8);
-#pragma unroll
-            for (int jp = 0; jp < 4; ++jp) {
-                uint32_t bf[4];  // B[k = out][n = in] from rows n of W_p: not transposed
-                ldmatrix_x4(bf, Bt + (wn * 64 + jp * 16 + (mat >> 1) * 8 + (lane & 7)) * kALd +
-                                    kk + (mat & 1) * 8);
-#pragma unroll
-                for (int i = 0; i < 2; ++i) {
-                    mma_bf16(acc[i][2 * jp], af[i], bf[0], bf[1]);
-                    mma_bf16(acc[i][2 * jp + 1], af[i], bf[2], bf[3]);
-                }
+    if (kAffine && threadIdx.x < kN) {
+        const int n = n0 + threadIdx.x;
+        aff[threadIdx.x] = n < C ? aff_a[(size_t)b * C + n] : 0.f;
+        aff[kN + threadIdx.x] = n < C ? aff_b[(size_t)b * C + n] : 0.f;
+    }
+    __syncthreads();
+
+    if (wg == kCons) {  // producer
+        if (kCons == 2) usk::reg_dealloc<40>();
+        if (tid == 0) {
+            for (int ks = 0; ks < nk; ++ks) {
+                const int s = ks % kS;
+                usk::mbar_wait(&empty[s], ((ks / kS) & 1) ^ 1);
+                usk::mbar_expect_tx(&full[s], L::kABytes + L::kBBytes);
+                const int p = ks < nk0 ? (ks < steps ? 0 : 2) : 1;
+                const int c0 = (ks % steps) * kFK;
+                // tap 2 reads g row t' - 1: the box at m0 - 1 (row -1 loads as zeros)
+                usk::tma_load_3d(sA + s * L::kABytes, &maps.g, &full[s], c0, m0 - (p >> 1), b);
+                usk::tma_load_3d(sB + s * L::kBBytes, &maps.w, &full[s], c0, n0, p);
             }
         }
+        return;
     }
-
+    if (kCons == 2) usk::reg_alloc<232>();
+    if (kX && threadIdx.x == 0) issue_x(0);
+    const int warp = tid / 32, lane = tid % 32;
     const int gq = lane >> 2, c2 = (lane & 3) * 2;
-    float pa[8][2], pb[8][2];
+    float acc[kN / 2];
+#pragma unroll 1
+    for (int par = 0; par < 2; ++par) {
+        const int lo = par ? nk0 : 0, hi = par ? nk : nk0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) pa[j][0] = pa[j][1] = pb[j][0] = pb[j][1] = 0.f;
+        for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
+        for (int ks = lo; ks < hi; ++ks) {
+            const int s = ks % kS;
+            usk::mbar_wait(&full[s], (ks / kS) & 1);
+            const unsigned char* a = sA + s * L::kABytes + wg * 64 * 128;
+            const unsigned char* bt = sB + s * L::kBBytes;
+            usk::fence_regs(acc);
+            usk::wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+            for (int kk = 0; kk < kFK / 16; ++kk) {
+                const uint64_t da_ = usk::desc_sw128(a + kk * 32, 16, 1024);
+                const uint64_t db_ = usk::desc_sw128(bt + kk * 32, 16, 1024);
+                if constexpr (kN == 256) usk::wgmma_m64n256k16_ss<0, 0>(acc, da_, db_);
+                else usk::wgmma_m64n128k16_ss<0, 0>(acc, da_, db_);
+            }
+            usk::wgmma_commit();
+            usk::wgmma_wait<1>();  // the previous step's products are done
+            usk::fence_regs(acc);
+            if (ks > lo && tid == 0) usk::mbar_arrive(&empty[(ks - 1) % kS]);
+        }
+        usk::wgmma_wait<0>();
+        usk::fence_regs(acc);
+        if (tid == 0) usk::mbar_arrive(&empty[(hi - 1) % kS]);
+        if (kX) usk::mbar_wait(x_bar, par);
+
+        // epilogue: input rows r = 2t' + par of this warp's rows t' (g, g + 8);
+        // gelu'(x^) and the affine, bf16 pairs; rows in [valid, ts) zero
+        int row[2];
+        bool in_ts[2], in_valid[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-            const int r = 2 * (m0 + wm * 32 + i * 16 + gq + 8 * e) + par;
-            if (r >= ts) continue;
-            const size_t off = ((size_t)b * ts + r) * C + n0 + wn * 64 + c2;
-            if (r >= valid) {
+            row[e] = 2 * (m0 + wg * 64 + warp * 16 + gq + 8 * e) + par;
+            in_ts[e] = row[e] < ts;
+            in_valid[e] = row[e] < valid;
+        }
 #pragma unroll
-                for (int j = 0; j < 8; ++j)
-                    *reinterpret_cast<__nv_bfloat162*>(dx + off + j * 8) = __floats2bfloat162_rn(0.f, 0.f);
-                continue;
-            }
+        for (int jp = 0; jp < kN / 16; ++jp) {
+            if (n0 + jp * 16 >= C) break;  // uniform over the block: C % 128 == 0
+            // v * x and v of this lane's rows, per (slice jj, column q):
+            // sums[jj * 4 + q] (da), sums[jj * 4 + 2 + q] (db)
+            float sums[8];
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
-                float v[2] = {acc[i][j][2 * e], acc[i][j][2 * e + 1]};
-                if (kAffine || kGeluIn) {
-                    const float2 xf = __bfloat1622float2(
-                        *reinterpret_cast<const __nv_bfloat162*>(x + off + j * 8));
-                    const float xr[2] = {xf.x, xf.y};
+            for (int jj = 0; jj < 2; ++jj) {
+                const int j = 2 * jp + jj;
+                const int n = n0 + j * 8 + c2;
+                float sa[2] = {0.f, 0.f}, sb[2] = {0.f, 0.f};
+                float2 av = make_float2(1.f, 1.f), bv = make_float2(0.f, 0.f);
+                if (kAffine) {
+                    av = *reinterpret_cast<const float2*>(aff + j * 8 + c2);
+                    bv = *reinterpret_cast<const float2*>(aff + kN + j * 8 + c2);
+                }
 #pragma unroll
-                    for (int q = 0; q < 2; ++q) {
-                        const int ci = b * C + n0 + wn * 64 + j * 8 + c2 + q;
-                        float xh = xr[q];
-                        if (kAffine) xh = usk::round_bf16(__fadd_rn(__fmul_rn(xh, aff_a[ci]), aff_b[ci]));
-                        if (kGeluIn) v[q] = v[q] * usk::dgelu_erf(xh);
-                        if (kAffine) {
-                            pa[j][q] += v[q] * xr[q];
-                            pb[j][q] += v[q];
-                            v[q] = v[q] * aff_a[ci];
+                for (int e = 0; e < 2; ++e) {
+                    if (!in_ts[e]) continue;
+                    const size_t off = ((size_t)b * ts + row[e]) * C + n;
+                    float v[2] = {0.f, 0.f};
+                    if (in_valid[e]) {
+                        v[0] = acc[4 * j + 2 * e];
+                        v[1] = acc[4 * j + 2 * e + 1];
+                        if (kX) {
+                            const int rl = wg * 64 + warp * 16 + gq + 8 * e;
+                            const float2 xf = __bfloat1622float2(
+                                *reinterpret_cast<const __nv_bfloat162*>(
+                                    sX + (j >> 3) * kM * 128 + usk::sw128_offset(rl, (j & 7) * 8 + c2)));
+                            const float xr[2] = {xf.x, xf.y};
+                            const float ar[2] = {av.x, av.y}, br[2] = {bv.x, bv.y};
+#pragma unroll
+                            for (int q = 0; q < 2; ++q) {
+                                float xh = xr[q];
+                                if (kAffine) xh = usk::round_bf16(__fadd_rn(__fmul_rn(xh, ar[q]), br[q]));
+                                if (kGeluIn) v[q] = v[q] * usk::dgelu_erf(xh);
+                                if (kAffine) {
+                                    sa[q] += v[q] * xr[q];
+                                    sb[q] += v[q];
+                                    v[q] = v[q] * ar[q];
+                                }
+                            }
                         }
                     }
+                    *reinterpret_cast<__nv_bfloat162*>(dx + off) = __floats2bfloat162_rn(v[0], v[1]);
                 }
-                *reinterpret_cast<__nv_bfloat162*>(dx + off + j * 8) = __floats2bfloat162_rn(v[0], v[1]);
+                sums[jj * 4] = sa[0];
+                sums[jj * 4 + 1] = sa[1];
+                sums[jj * 4 + 2] = sb[0];
+                sums[jj * 4 + 3] = sb[1];
             }
-        }
-    }
-    if (kAffine) {
+            if (kAffine) {
+                // sums over the warp's 16 rows (the 8 lanes of one c2): a
+                // reduce-scatter in 7 shuffles leaves lane gq with the total
+                // of sums[gq]; one fire-and-forget global add per lane
+                float s4[4], s2[2];
+                const bool hi2 = gq & 4, hi1 = gq & 2, hi0 = gq & 1;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-#pragma unroll
-            for (int q = 0; q < 2; ++q) {
-                float sa = pa[j][q], sb = pb[j][q];
-#pragma unroll
-                for (int sh = 4; sh < 32; sh <<= 1) {
-                    sa += __shfl_xor_sync(0xffffffffu, sa, sh);
-                    sb += __shfl_xor_sync(0xffffffffu, sb, sh);
+                for (int i = 0; i < 4; ++i) {
+                    const float send = hi2 ? sums[i] : sums[i + 4];
+                    s4[i] = (hi2 ? sums[i + 4] : sums[i]) + __shfl_xor_sync(0xffffffffu, send, 16);
                 }
-                if (gq == 0) {
-                    atomicAdd(&red[wn * 64 + j * 8 + c2 + q], sa);
-                    atomicAdd(&red[kBN + wn * 64 + j * 8 + c2 + q], sb);
-                }
-            }
-        }
-        __syncthreads();
-        if (tid < kBN) {
-            atomicAdd(da + (size_t)b * C + n0 + tid, red[tid]);
-            atomicAdd(db + (size_t)b * C + n0 + tid, red[kBN + tid]);
-        }
-    }
-}
-
-// dW_p[in, out] = sum over rows (b, t) of H[b, 2t + p, in] * g[b, t, out]:
-// a (tap, 128 in x 128 out) tile and one range of B * t_out rows per block
-constexpr int kWLd = kBN + 8;  // [row][channel] tiles, 128 channels + pad
-__global__ void __launch_bounds__(kThreads) conv_bwd_dw_kernel(
-    const __nv_bfloat16* __restrict__ hsrc,  // (B, th, C): rows 2t + p
-    const __nv_bfloat16* __restrict__ g,     // (B, t_out, C)
-    float* __restrict__ dw,                  // (k, C, C) zeroed
-    int th, int t_out, int C, int k, int rows_per_split, int total_rows) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    auto* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [kStages][kBK][kWLd]: H rows
-    auto* Bs = As + kStages * kBK * kWLd;              // [kStages][kBK][kWLd]: g rows
-
-    const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-    const int p = blockIdx.z % k, split = blockIdx.z / k;
-    const int R0 = split * rows_per_split;
-    const int R1 = min(R0 + rows_per_split, total_rows);
-    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-    const int wm = warp / 2, wn = warp % 2, mat = lane >> 3;
-    const int nk = R1 > R0 ? (R1 - R0 + kBK - 1) / kBK : 0;
-
-    float acc[2][8][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-    auto copy = [&](int ks) {
-        const int slot = ks % kStages;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int ch = tid + i * kThreads;
-            const int rr = ch >> 4, cc = (ch & 15) * 8;
-            const int R = R0 + ks * kBK + rr;
-            const bool ok = R < R1;
-            const int Rc = ok ? R : R0;
-            const int bq = Rc / t_out, t = Rc % t_out;
-            cp_async16_zfill(As + (slot * kBK + rr) * kWLd + cc,
-                             hsrc + ((size_t)bq * th + 2 * t + p) * C + m0 + cc, ok);
-            cp_async16_zfill(Bs + (slot * kBK + rr) * kWLd + cc,
-                             g + ((size_t)bq * t_out + t) * C + n0 + cc, ok);
-        }
-    };
-
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-        if (s < nk) copy(s);
-        cp_async_commit();
-    }
-    for (int ks = 0; ks < nk; ++ks) {
-        cp_async_wait<kStages - 2>();
-        __syncthreads();
-        if (ks + kStages - 1 < nk) copy(ks + kStages - 1);
-        cp_async_commit();
-        const __nv_bfloat16* At = As + (ks % kStages) * kBK * kWLd;
-        const __nv_bfloat16* Bt = Bs + (ks % kStages) * kBK * kWLd;
-#pragma unroll
-        for (int kk = 0; kk < kBK; kk += 16) {
-            uint32_t af[2][4];  // A[m = in][k = row] from rows k of H: transposed
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-                ldmatrix_x4_trans(af[i], At + (kk + (mat >> 1) * 8 + (lane & 7)) * kWLd +
-                                             wm * 32 + i * 16 + (mat & 1) * 8);
-#pragma unroll
-            for (int jp = 0; jp < 4; ++jp) {
-                uint32_t bf[4];
-                ldmatrix_x4_trans(bf, Bt + (kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * kWLd
-                                          + wn * 64 + jp * 16 + 8 * (lane >> 4));
 #pragma unroll
                 for (int i = 0; i < 2; ++i) {
-                    mma_bf16(acc[i][2 * jp], af[i], bf[0], bf[1]);
-                    mma_bf16(acc[i][2 * jp + 1], af[i], bf[2], bf[3]);
+                    const float send = hi1 ? s4[i] : s4[i + 2];
+                    s2[i] = (hi1 ? s4[i + 2] : s4[i]) + __shfl_xor_sync(0xffffffffu, send, 8);
                 }
+                const float send = hi0 ? s2[0] : s2[1];
+                const float total = (hi0 ? s2[1] : s2[0]) + __shfl_xor_sync(0xffffffffu, send, 4);
+                // sums index gq = jj * 4 + (db ? 2 : 0) + q
+                const int col = n0 + (2 * jp + (gq >> 2)) * 8 + c2 + (gq & 1);
+                atomicAdd(((gq & 2) ? db : da) + (size_t)b * C + col, total);
             }
         }
-    }
-
-    const int gq = lane >> 2, c2 = (lane & 3) * 2;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-            const int m = m0 + wm * 32 + i * 16 + gq + 8 * e;
-            float* dst = dw + ((size_t)p * C + m) * C + n0 + wn * 64 + c2;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-                atomicAdd(dst + j * 8, acc[i][j][2 * e]);
-                atomicAdd(dst + j * 8 + 1, acc[i][j][2 * e + 1]);
-            }
+        if (kX && par == 0) {  // both warpgroups are done with x's even rows
+            usk::named_bar_sync(1, kCons * 128);
+            if (threadIdx.x == 0) issue_x(1);
         }
     }
 }
 
-constexpr size_t kDxSmem = (size_t)kStages * (kBM + kBN) * kALd * sizeof(__nv_bfloat16) +
-                           2 * kBN * sizeof(float);
-constexpr size_t kDwSmem = (size_t)kStages * 2 * kBK * kWLd * sizeof(__nv_bfloat16);
+struct DwMaps {
+    CUtensorMap even;  // H rows 2r   of (B, th, C): dims {C, ceil(th/2), B}, boxes of 64 x 64
+    CUtensorMap odd;   // H rows 2r+1:                 dims {C, floor(th/2), B}
+    CUtensorMap g;     // g (B, t_out, C): dims {C, t_out, B}, boxes of 64 x 64
+    CUtensorMap dw;    // fp32 dW (k, C_in, C_out): dims {C_out, C_in, k}, boxes of 32 x 64
+};
+
+// dW_p[in, out] = sum over rows (b, t) of H[b, 2t + p, in] * g[b, t, out]:
+// per block one (tap, 128 in x 256 out) tile and one range of the B *
+// ceil(t_out / 64) 64-row K steps (each inside one utterance), both
+// operands MN-major; the block's fp32 tile is added into dW by TMA tensor
+// reductions of 32 x 64 boxes
+__global__ void __launch_bounds__(kFThreads, 1) conv_bwd_dw_kernel(
+    const __grid_constant__ DwMaps maps, int C, int k, int nkb, int total_steps,
+    int steps_per_split) {
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    unsigned char* sA = smem;                        // [stage][2 boxes: 64 rows x 64 in]
+    unsigned char* sB = smem + kFStages * kFABytes;  // [stage][4 boxes: 64 rows x 64 out]
+    uint64_t* full = reinterpret_cast<uint64_t*>(sB + kFStages * kFBBytes);
+    uint64_t* empty = full + kFStages;
+
+    const int n0 = blockIdx.x * kFN, m0 = blockIdx.y * kFM;
+    const int p = blockIdx.z % k, split = blockIdx.z / k;
+    const int s_lo = split * steps_per_split;
+    const int s_hi = min(s_lo + steps_per_split, total_steps);
+    const int nk = s_hi - s_lo;
+    const int nbox = min(kFN / 64, (C - n0) / 64);  // g boxes inside C
+    const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < kFStages; ++s) {
+            usk::mbar_init(&full[s], 1);
+            usk::mbar_init(&empty[s], 2);
+        }
+        usk::fence_barrier_init();
+    }
+    __syncthreads();
+
+    if (wg == 2) {  // producer
+        usk::reg_dealloc<40>();
+        if (tid == 0) {
+            // H row 2t + p: even row t (p = 0), odd row t (p = 1), even row t + 1 (p = 2)
+            const CUtensorMap* hmap = p == 1 ? &maps.odd : &maps.even;
+            for (int ks = 0; ks < nk; ++ks) {
+                const int s = ks % kFStages;
+                usk::mbar_wait(&empty[s], ((ks / kFStages) & 1) ^ 1);
+                usk::mbar_expect_tx(&full[s], kFABytes + nbox * kBox);
+                const int step = s_lo + ks, bq = step / nkb, t0 = (step % nkb) * 64;
+                unsigned char* a = sA + s * kFABytes;
+                usk::tma_load_3d(a, hmap, &full[s], m0, t0 + (p >> 1), bq);
+                usk::tma_load_3d(a + kBox, hmap, &full[s], m0 + 64, t0 + (p >> 1), bq);
+                for (int bx = 0; bx < nbox; ++bx)
+                    usk::tma_load_3d(sB + s * kFBBytes + bx * kBox, &maps.g, &full[s],
+                                     n0 + 64 * bx, t0, bq);
+            }
+        }
+        return;
+    }
+    usk::reg_alloc<232>();
+    float acc[kFN / 2];
+#pragma unroll
+    for (int i = 0; i < kFN / 2; ++i) acc[i] = 0.f;
+    for (int ks = 0; ks < nk; ++ks) {
+        const int s = ks % kFStages;
+        usk::mbar_wait(&full[s], (ks / kFStages) & 1);
+        const unsigned char* a = sA + s * kFABytes + wg * kBox;
+        const unsigned char* bt = sB + s * kFBBytes;
+        usk::fence_regs(acc);
+        usk::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 64 / 16; ++kk)
+            usk::wgmma_m64n256k16_ss<1, 1>(acc, usk::desc_sw128(a + kk * 2048, kBox, 1024),
+                                           usk::desc_sw128(bt + kk * 2048, kBox, 1024));
+        usk::wgmma_commit();
+        usk::wgmma_wait<1>();
+        usk::fence_regs(acc);
+        if (ks > 0 && tid == 0) usk::mbar_arrive(&empty[(ks - 1) % kFStages]);
+    }
+    usk::wgmma_wait<0>();
+    usk::fence_regs(acc);
+
+    // the ring is free once both warpgroups' products are done: stage this
+    // warpgroup's 64 x 256 fp32 tile there as eight swizzled 32-wide boxes
+    usk::named_bar_sync(1, 2 * 128);
+    unsigned char* stg = smem + wg * 8 * kBox;
+    const int warp = tid / 32, lane = tid % 32;
+    const int gq = lane >> 2, c2 = (lane & 3) * 2;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+        const int r = warp * 16 + gq + 8 * e;
+#pragma unroll
+        for (int j = 0; j < kFN / 8; ++j)
+            *reinterpret_cast<float2*>(stg + (j >> 2) * kBox + sw128_f32(r, (j & 3) * 8 + c2)) =
+                make_float2(acc[4 * j + 2 * e], acc[4 * j + 2 * e + 1]);
+    }
+    usk::fence_proxy_async();
+    usk::named_bar_sync(2 + wg, 128);
+    if (tid == 0) {
+        for (int bx = 0; bx < 8 && n0 + 32 * bx < C; ++bx)
+            usk::tma_reduce_add_3d(&maps.dw, stg + bx * kBox, n0 + 32 * bx, m0 + 64 * wg, p);
+        usk::bulk_commit();
+        usk::bulk_wait();
+    }
+}
 
 int grid_for(size_t n_vec) {
     const size_t blocks = (n_vec + 255) / 256;
     return (int)(blocks < 132 * 16 ? blocks : 132 * 16);
 }
 
+// the even/odd row views of src (B, rows, C) (row stride 2C) with boxes of
+// 64 channels x box_rows rows
+bool parity_maps(CUtensorMap* even, CUtensorMap* odd, const void* src, int B, int rows, int C,
+                 uint32_t box_rows) {
+    const uint64_t strides[2] = {(uint64_t)2 * C * 2, (uint64_t)rows * C * 2};
+    const uint64_t even_dims[3] = {(uint64_t)C, (uint64_t)(rows + 1) / 2, (uint64_t)B};
+    const uint64_t odd_dims[3] = {(uint64_t)C, (uint64_t)rows / 2, (uint64_t)B};
+    const uint32_t box[3] = {kFK, box_rows, 1};
+    const __nv_bfloat16* x = (const __nv_bfloat16*)src;
+    return usk::make_tensor_map(even, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x, even_dims, strides,
+                                box, CU_TENSOR_MAP_SWIZZLE_128B) &&
+           usk::make_tensor_map(odd, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x + C, odd_dims,
+                                strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// g (B, t_out, C) with boxes of 64 channels x box_rows rows
+bool g_map(CUtensorMap* m, const void* g, int B, int t_out, int C, uint32_t box_rows) {
+    const uint64_t dims[3] = {(uint64_t)C, (uint64_t)t_out, (uint64_t)B};
+    const uint64_t strides[2] = {(uint64_t)C * 2, (uint64_t)t_out * C * 2};
+    const uint32_t box[3] = {kFK, box_rows, 1};
+    return usk::make_tensor_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, g, dims, strides, box,
+                                CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 template <bool kAffine, bool kGeluIn>
 cudaError_t launch_bwd(const void* x, const void* w, const void* a, const void* bb,
                        const void* gsrc, void* h_buf, void* dx, void* dw, void* da, void* db,
                        int B, int ts, int valid, int t_out, int C, int k, cudaStream_t stream) {
-    const __nv_bfloat16* hsrc = (const __nv_bfloat16*)x;
+    const void* hsrc = x;
     int th = ts;
     if (kAffine || kGeluIn) {
         const cudaError_t err = launch_h(x, a, bb, h_buf, B, ts, valid, C, kGeluIn, stream);
         if (err != cudaSuccess) return err;
-        hsrc = (const __nv_bfloat16*)h_buf;
+        hsrc = h_buf;
         th = valid;
     }
+    using L = DxCfg<kAffine || kGeluIn>;
+    DxMaps dxm;
+    const uint64_t w_dims[3] = {(uint64_t)C, (uint64_t)C, (uint64_t)k};
+    const uint64_t w_strides[2] = {(uint64_t)C * 2, (uint64_t)C * C * 2};
+    const uint32_t w_box[3] = {kFK, L::kN, 1};
+    if (!g_map(&dxm.g, gsrc, B, t_out, C, L::kM) ||
+        !usk::make_tensor_map(&dxm.w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, w, w_dims, w_strides,
+                              w_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !parity_maps(&dxm.xe, &dxm.xo, x, B, ts, C, L::kM))
+        return cudaErrorInvalidValue;
+    DwMaps dwm;
+    const uint64_t dw_strides[2] = {(uint64_t)C * 4, (uint64_t)C * C * 4};
+    const uint32_t dw_box[3] = {32, 64, 1};
+    if (!parity_maps(&dwm.even, &dwm.odd, hsrc, B, th, C, 64) ||
+        !g_map(&dwm.g, gsrc, B, t_out, C, 64) ||
+        !usk::make_tensor_map(&dwm.dw, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, dw, w_dims, dw_strides,
+                              dw_box, CU_TENSOR_MAP_SWIZZLE_128B))
+        return cudaErrorInvalidValue;
+
     auto dx_kernel = conv_bwd_dx_kernel<kAffine, kGeluIn>;
-    cudaError_t err = cudaFuncSetAttribute(
-        dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDxSmem);
+    cudaError_t err = cudaFuncSetAttribute(dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)L::kBytes);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(
-        conv_bwd_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem);
+    err = cudaFuncSetAttribute(conv_bwd_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kFSmem);
     if (err != cudaSuccess) return err;
-    const dim3 gdx(((ts + 1) / 2 + kBM - 1) / kBM, C / kBN, 2 * B);
-    dx_kernel<<<gdx, kThreads, kDxSmem, stream>>>(
-        (const __nv_bfloat16*)gsrc, (const __nv_bfloat16*)w, (const __nv_bfloat16*)x,
-        (const float*)a, (const float*)bb, (__nv_bfloat16*)dx, (float*)da, (float*)db,
-        ts, valid, t_out, C, k);
-    // split the B * t_out contraction so the card gets ~4 blocks per SM
-    const int total_rows = B * t_out;
-    const int tiles = k * (C / kBM) * (C / kBN);
-    int splits = (4 * 132 + tiles - 1) / tiles;
-    const int max_splits = (total_rows + kBK - 1) / kBK;
+    // both parities of kM rows t' per block: ceil(ts / 2) rows cover every input row
+    const dim3 gdx((C + L::kN - 1) / L::kN, ((ts + 1) / 2 + L::kM - 1) / L::kM, B);
+    dx_kernel<<<gdx, L::kThreads, L::kBytes, stream>>>(
+        dxm, (const float*)a, (const float*)bb, (__nv_bfloat16*)dx,
+        (float*)da, (float*)db, ts, valid, C, k);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    // split the B * ceil(t_out / 64) K steps so the tiles fill two waves of
+    // one block per SM
+    const int nkb = (t_out + 63) / 64, total_steps = B * nkb;
+    const int tiles = k * (C / kFM) * ((C + kFN - 1) / kFN);
+    int splits = 2 * 132 / tiles;
+    const int max_splits = (total_steps + 3) / 4;  // at least ~4 steps each
     splits = splits < 1 ? 1 : (splits > max_splits ? max_splits : splits);
-    int rows_per_split = (total_rows + splits - 1) / splits;
-    rows_per_split = (rows_per_split + kBK - 1) / kBK * kBK;
-    splits = (total_rows + rows_per_split - 1) / rows_per_split;
-    const dim3 gdw(C / kBM, C / kBN, k * splits);
-    conv_bwd_dw_kernel<<<gdw, kThreads, kDwSmem, stream>>>(
-        hsrc, (const __nv_bfloat16*)gsrc, (float*)dw, th, t_out, C, k, rows_per_split,
-        total_rows);
+    const int per_split = (total_steps + splits - 1) / splits;
+    splits = (total_steps + per_split - 1) / per_split;
+    const dim3 gdw((C + kFN - 1) / kFN, C / kFM, k * splits);
+    conv_bwd_dw_kernel<<<gdw, kFThreads, kFSmem, stream>>>(dwm, C, k, nkb, total_steps,
+                                                           per_split);
     return cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ forward
-
-constexpr int kFM = 128;             // output rows per block (two warpgroups of 64)
-constexpr int kFN = 256;             // output channels per block
-constexpr int kFK = 64;              // K step: one 128-byte swizzled row of bf16
-constexpr int kFStages = 4;
-constexpr int kFThreads = 384;       // consumer warpgroups 0, 1; producer warpgroup 2
-constexpr uint32_t kFABytes = kFM * kFK * 2;  // 16 KB
-constexpr uint32_t kFBBytes = kFN * kFK * 2;  // 32 KB
-constexpr size_t kFSmem = 1024 + (size_t)kFStages * (kFABytes + kFBBytes) + 2 * kFStages * 8;
 
 struct ConvMaps {
     CUtensorMap even;  // input rows 2r   of (B, ts, C): dims {C, ceil(ts/2), B}
@@ -585,19 +718,10 @@ __global__ void __launch_bounds__(kFThreads, 1) conv_gemm_kernel(
 cudaError_t launch_conv_gemm(const void* src, const void* w_t, void* y, void* pre, int B, int ts,
                              int t_out, int C, int k, bool gelu_out, cudaStream_t stream) {
     ConvMaps maps;
-    const uint64_t row2 = (uint64_t)2 * C * 2, batch = (uint64_t)ts * C * 2;
-    const uint64_t even_dims[3] = {(uint64_t)C, (uint64_t)(ts + 1) / 2, (uint64_t)B};
-    const uint64_t odd_dims[3] = {(uint64_t)C, (uint64_t)ts / 2, (uint64_t)B};
-    const uint64_t a_strides[2] = {row2, batch};
-    const uint32_t a_box[3] = {kFK, kFM, 1};
     const uint64_t w_dims[2] = {(uint64_t)k * C, (uint64_t)C};
     const uint64_t w_strides[1] = {(uint64_t)k * C * 2};
     const uint32_t w_box[2] = {kFK, kFN};
-    const __nv_bfloat16* x = (const __nv_bfloat16*)src;
-    if (!usk::make_tensor_map(&maps.even, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x, even_dims,
-                              a_strides, a_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
-        !usk::make_tensor_map(&maps.odd, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x + C, odd_dims,
-                              a_strides, a_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+    if (!parity_maps(&maps.even, &maps.odd, src, B, ts, C, kFM) ||
         !usk::make_tensor_map(&maps.w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w_t, w_dims,
                               w_strides, w_box, CU_TENSOR_MAP_SWIZZLE_128B))
         return cudaErrorInvalidValue;

@@ -8,36 +8,55 @@
 // and, when asked, lse = max + log(sum) per query row (taken before
 // dropout). Neither the logits nor the probabilities reach device memory.
 //
-// Bound on the H100: bytes. At WavLM-Base+ width and 4 x 16 s one call does
-// 7.85 GFLOP (8 us at the bf16 tensor-core peak) but must read q, k, v and
-// the (H, T, S) bf16 bias and write out, about 35 MB (10 us at 3.35 TB/s).
-// Design: one block of 4 warps per (64-query tile, head, utterance); q, k, v
-// and out are addressed by strides straight in the (B, T, H*hd) projection
-// layout, so the TPU's two layouts collapse into one kernel and no transpose
-// runs. Keys stream in 64-row tiles through shared memory, double-buffered:
-// the next tile's K/V are copied by cp.async (zero-filled past S) while the
-// current one is used. With each key tile the block stages the gated bias (gate * bias + attn_mask) of its
-// 64 x 64 (query, key) tile in shared memory with coalesced loads, all of a
-// thread's loads issued before its first store, so the bias costs about one
-// memory latency per tile. Each warp owns 16 query rows and keeps its
-// scores, probabilities and output in registers in the layout of the bf16
-// tensor-core instruction mma.sync.m16n8k16 (fp32 accumulate): S = q.k^T,
-// the online softmax (running max and sum in fp32), P rounded to bf16 and
-// fed back as the A operand of P.V without leaving registers (V fragments
-// by ldmatrix.trans). Ragged T and S are masked in the kernel: key rows past
-// S are zero-filled and -1e30'd, query rows past T are not stored.
-//
+// Bound on the H100: bytes. At WavLM-Base+ width and 4 x 16 s (T = 799)
+// one call does 7.85 GFLOP (8 us at the bf16 tensor-core peak) but must
+// read q, k, v and the (H, T, S) bf16 bias and write out, about 35 MB
+// (10.5 us at 3.35 TB/s).
+// Design (Hopper), one warpgroup (128 threads) per (64-query tile, head,
+// utterance), three blocks per SM (60 KB of shared memory, <= 168
+// registers): at T = 799 the 624 blocks of a serving call fill 1.6 waves
+// of 396 resident blocks, at T = 768 the 864 of a training call 2.2; two
+// warpgroups of 64 queries per block would share K/V loads (which L2
+// serves anyway) at the price of half the blocks in flight.
+//  - loads by TMA, issued by one thread: q once, then per 64-key step the
+//    K, V and bias tiles (128-byte swizzled 64 x 64 boxes) into a 2-stage
+//    ring on mbarriers; q, k and v go through one 4-D map shape over
+//    (hd, H, rows, B) by the wrapper's strides, so the packed and the
+//    head-major layouts (and q/k/v views of one fused projection) are one
+//    kernel; rows past T or S load as zeros. The bias is read through a
+//    (S, T, H) map whose rows are padded to whole 16-byte units by its
+//    producer (ops/rel_pos.py), so no copy runs per call. The key mask of
+//    a step (-1e30 for padded keys and keys past S) is loaded a step
+//    ahead into the ring; the gates are read once into registers;
+//  - products on wgmma with fp32 accumulators in registers: S = q.K^T by
+//    wgmma.m64n64k16 with both operands K-major from shared memory, and
+//    O += P.V by wgmma.m64n64k16 with P (bf16) converted in place from the
+//    S accumulators as the register A operand and V read MN-major;
+//  - online softmax in fp32: the logits x = s q.k + g b + mask and their
+//    row max m stay in natural units, in the plain version's order (so lse
+//    = m + log l matches it to fp32 rounding), and p = ex2(x log2e - m
+//    log2e) is one FMA and one ex2; the q scale is a power of two (hd =
+//    64: 1/8), so it multiplies the fp32 products instead of rounding a
+//    scaled copy of q;
+//  - bias, gate, key padding, the (T, S) mask and dropout are template
+//    flags, so the per-element block is straight-line code. The wrappers
+//    reach 24 instantiations: {none, bias, bias + gate} x key padding x
+//    mask x dropout (serving: bias + gate + key padding; pretraining: bias
+//    + gate + dropout).
 // Dropout (training): the un-normalised P is multiplied by keep/(1 - rate)
 // after its row sum is taken, as the TPU kernel does. The keep bit of each
-// (b, h, t, s) comes from Philox-4x32-10 keyed by the 64-bit seed, which is
-// read from device memory (no host sync to draw it), counted by the
-// absolute coordinates (philox.cuh), so the backward kernel and the plain
-// version regenerate the identical mask. One Philox call serves a 2 x 2
-// (t, s) block; a thread uses two of its words.
+// (b, h, t, s) comes from Philox-4x32-10 keyed by the 64-bit seed (read
+// from device memory: no host sync to draw it) and counted by the absolute
+// coordinates (philox.cuh), so the backward kernel and the plain version
+// regenerate the identical mask. One Philox call gives the words of a
+// 2 x 2 (query, key) block; the two lanes that hold its two query rows
+// each compute half of their calls and swap the other lane's words by a
+// shuffle, while S = q.K^T runs on the tensor cores.
 
 #include <math.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -45,35 +64,36 @@ namespace {
 constexpr int kHd = 64;    // head dim
 constexpr int kBQ = 64;    // queries per block
 constexpr int kBKey = 64;  // keys per step
-constexpr int kWarps = kBQ / 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kLd = kHd + 8;     // bf16 row of the Q/K/V tiles: 144 B, conflict-free
-constexpr int kALd = kBKey + 8;  // fp32 row of the staged bias tile
+constexpr int kThreads = 128;
+constexpr int kStages = 2;
+constexpr int kMinBlocks = 3;
+constexpr uint32_t kTile = 64 * 128;  // 64 rows of 64 bf16, 128-byte swizzled
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegInf = -1e30f;
 
-constexpr size_t kTileBytes = kBKey * kLd * sizeof(__nv_bfloat16);
-constexpr size_t kOffK = kTileBytes;  // Q tile first, then K/V of two stages
-constexpr size_t kOffV = kOffK + 2 * kTileBytes;
-constexpr size_t kOffA = kOffV + 2 * kTileBytes;  // staged gate * bias + attn_mask
-constexpr size_t kOffCol = kOffA + kBQ * kALd * sizeof(float);  // key mask of the tile
-constexpr size_t kOffGate = kOffCol + kBKey * sizeof(float);
-constexpr size_t kSmemBytes = kOffGate + kBQ * sizeof(float);
-constexpr int kStageRows = kThreads / kBKey;  // tile rows one staging pass covers
+// shared memory, from a 1024-byte aligned base: q, then per stage K, V,
+// the bias tile and the step's key mask
+constexpr uint32_t kOffStage = kTile;
+constexpr uint32_t kStageK = 0, kStageV = kTile, kStageB = 2 * kTile, kStageCol = 3 * kTile;
+constexpr uint32_t kStageBytes = 3 * kTile + 1024;
+constexpr uint32_t kOffBar = kOffStage + kStages * kStageBytes;  // q, full[kStages]
+constexpr size_t kSmemBytes = 1024 + kOffBar + 8 * (1 + kStages);
+
+struct Maps {
+    CUtensorMap q, k, v;  // (B, rows, H, 64) by strides: dims {64, H, rows, B}
+    CUtensorMap bias;     // (H, T, S) with row stride bias_rs: dims {S, T, H}
+};
 
 struct Args {
-    const __nv_bfloat16* q;
-    const __nv_bfloat16* k;
-    const __nv_bfloat16* v;
     __nv_bfloat16* out;
-    long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs;  // elements
-    const __nv_bfloat16* bias;  // (H, T, S) or null
-    const float* gate;          // (B, H, T) or null (gate 1 with bias)
-    const uint8_t* kpm;         // (B, S) 1 = padded key, or null
-    const float* amask;         // (T, S) or null
-    float* lse;                 // (B, H, T) or null
-    const long long* seed;      // dropout seed (1 element) or null: no dropout
-    unsigned threshold;         // keep iff the Philox word >= threshold
-    float drop_scale;           // 1 / (1 - rate)
+    long long o_bs, o_rs;  // elements
+    const float* gate;     // (B, H, T) or null (gate 1 with bias)
+    const uint8_t* kpm;    // (B, S) 1 = padded key, or null
+    const float* amask;    // (T, S) or null
+    float* lse;            // (B, H, T) or null
+    const long long* seed; // dropout seed (1 element) or null: no dropout
+    unsigned threshold;    // keep iff the Philox word >= threshold
+    float drop_scale;      // 1 / (1 - rate)
     int T, S, H;
     float scale;
 };
@@ -83,201 +103,188 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// D = A.B + D, A 16x16 row-major bf16, B 16x8 col-major bf16, D fp32
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// kBias: a bias tile per key step; kGate: the bias is gated per query;
+// kKpm: a (B, S) key padding mask; kMask: an additive (T, S) mask; kDrop:
+// dropout on the probabilities
+template <bool kBias, bool kGate, bool kKpm, bool kMask, bool kDrop>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    flash_fwd_kernel(const __grid_constant__ Maps maps, const Args a) {
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    const unsigned char* Qs = smem;
+    uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + kOffBar);
+    uint64_t* full = q_bar + 1;
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem_row) {
-    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_row));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// 16-byte global -> shared copy that bypasses registers; zero-fills when
-// !valid (the source address must still be mapped)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N)); }
-
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    auto* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-    auto* Ks = reinterpret_cast<__nv_bfloat16*>(smem + kOffK);
-    auto* Vs = reinterpret_cast<__nv_bfloat16*>(smem + kOffV);
-    auto* As = reinterpret_cast<float*>(smem + kOffA);
-    auto* colneg = reinterpret_cast<float*>(smem + kOffCol);
-    auto* Gs = reinterpret_cast<float*>(smem + kOffGate);
-
-    const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
+    const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
     const int T = a.T, S = a.S, H = a.H;
-    const bool has_add = a.bias != nullptr || a.amask != nullptr;
-    const bool dropout = a.seed != nullptr;
-    const uint64_t seed = dropout ? (uint64_t)*a.seed : 0;
-
-    // q tile, scaled in its own dtype (bf16(q * scale), as the reference
-    // pre-scales q before the kernel), and the tile's gates
-    for (int ch = tid; ch < kBQ * kHd / 8; ch += kThreads) {
-        const int r = ch / (kHd / 8), c8 = (ch % (kHd / 8)) * 8;
-        const int t = q0 + r;
-        uint4 v4 = make_uint4(0, 0, 0, 0);
-        if (t < T) {
-            v4 = *reinterpret_cast<const uint4*>(a.q + b * a.q_bs + t * a.q_rs + h * kHd + c8);
-            __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v4);
-#pragma unroll
-            for (int i = 0; i < 8; ++i) e[i] = usk::f2bf(usk::bf2f(e[i]) * a.scale);
-        }
-        *reinterpret_cast<uint4*>(Qs + r * kLd + c8) = v4;
-    }
-    for (int r = tid; r < kBQ; r += kThreads) {
-        const int t = q0 + r;
-        Gs[r] = (a.gate != nullptr && t < T) ? a.gate[((size_t)b * H + h) * T + t] : 1.f;
-    }
-    __syncthreads();
-
-    // mma fragment coordinates: g = row group, c = column pair
+    const int n_kt = (S + kBKey - 1) / kBKey;
     const int g = lane >> 2, c2 = (lane & 3) * 2;
-    const int row0 = warp * 16 + g;  // rows row0 and row0 + 8 of the block tile
-    uint32_t qa[kHd / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kHd / 16; ++kk) {
-        const __nv_bfloat16* q_lo = Qs + row0 * kLd + kk * 16 + c2;
-        const __nv_bfloat16* q_hi = q_lo + 8 * kLd;
-        qa[kk][0] = lds32(q_lo);
-        qa[kk][1] = lds32(q_hi);
-        qa[kk][2] = lds32(q_lo + 8);
-        qa[kk][3] = lds32(q_hi + 8);
+    const int half = g & 1;  // this lane's query-row parity; lane ^ 4 holds the other row
+    const uint64_t seed = kDrop ? (uint64_t)*a.seed : 0;
+
+    auto stage = [&](int st) { return smem + kOffStage + st * kStageBytes; };
+    // key tile it's K, V and bias into stage it % kStages (one thread)
+    auto issue = [&](int it) {
+        unsigned char* sp = stage(it % kStages);
+        uint64_t* bar = &full[it % kStages];
+        usk::mbar_expect_tx(bar, 2 * kTile + (kBias ? kTile : 0));
+        usk::tma_load_4d(sp + kStageK, &maps.k, bar, 0, h, it * kBKey, b);
+        usk::tma_load_4d(sp + kStageV, &maps.v, bar, 0, h, it * kBKey, b);
+        if (kBias) usk::tma_load_3d(sp + kStageB, &maps.bias, bar, it * kBKey, q0, h);
+    };
+    // the additive key mask of key tile it for column tid (tid < 64)
+    auto key_mask = [&](int it) {
+        const int s = it * kBKey + tid;
+        bool pad = s >= S;
+        if (kKpm && !pad) pad = a.kpm[(size_t)b * S + s] != 0;
+        return pad ? kNegInf : 0.f;
+    };
+
+    if (tid == 0) {
+        usk::mbar_init(q_bar, 1);
+        for (int st = 0; st < kStages; ++st) usk::mbar_init(&full[st], 1);
+        usk::fence_barrier_init();
+    }
+    if (tid < kBKey)
+        for (int it = 0; it < kStages && it < n_kt; ++it)
+            reinterpret_cast<float*>(stage(it) + kStageCol)[tid] = key_mask(it);
+    __syncthreads();
+    if (tid == 0) {
+        usk::mbar_expect_tx(q_bar, kTile);
+        usk::tma_load_4d(smem, &maps.q, q_bar, 0, h, q0, b);
+        for (int it = 0; it < kStages && it < n_kt; ++it) issue(it);
     }
 
+    // this thread's rows: r_e = warp * 16 + g + 8e of the tile
+    float gate[2] = {1.f, 1.f};
+    if (kGate) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const int t = q0 + warp * 16 + g + 8 * e;
+            if (t < T) gate[e] = a.gate[((size_t)b * H + h) * T + t];
+        }
+    }
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    float o[kHd / 8][4];
+    float o[32];
 #pragma unroll
-    for (int j = 0; j < kHd / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    usk::mbar_wait(q_bar, 0);
 
-    // K/V tile copies: key row s of the tile (clamped to a mapped row, then
-    // zero-filled past S) into stage st
-    auto copy_kv = [&](int s0, int st) {
-#pragma unroll
-        for (int i = 0; i < kBKey * kHd / 8 / kThreads; ++i) {
-            const int ch = tid + i * kThreads;
-            const int kr = ch / (kHd / 8), c8 = (ch % (kHd / 8)) * 8;
-            const int s = min(s0 + kr, S - 1);
-            cp_async16(Ks + (st * kBKey + kr) * kLd + c8,
-                       a.k + b * a.k_bs + s * a.k_rs + h * kHd + c8, s0 + kr < S);
-            cp_async16(Vs + (st * kBKey + kr) * kLd + c8,
-                       a.v + b * a.v_bs + s * a.v_rs + h * kHd + c8, s0 + kr < S);
-        }
-        cp_async_commit();
-    };
-
-    // staging coordinates: thread -> column sc, rows sr, sr + kStageRows, ...
-    const int sc = tid % kBKey, sr = tid / kBKey;
-    constexpr int kN = kBQ / kStageRows;
-    // an additive (T, S) term of the tile into As: every load is issued (from
-    // a clamped, mapped address) before the first store, so they overlap
-    auto stage_add = [&](int s0, const auto* src, bool accumulate) {
-        const int ss = s0 + sc;
-        const int ssc = min(ss, S - 1);
-        float vals[kN];
-#pragma unroll
-        for (int j = 0; j < kN; ++j) {
-            const int tt = min(q0 + sr + j * kStageRows, T - 1);
-            vals[j] = static_cast<float>(src[(size_t)tt * S + ssc]);
-        }
-#pragma unroll
-        for (int j = 0; j < kN; ++j) {
-            const int rr = sr + j * kStageRows;
-            const float v = (q0 + rr < T && ss < S) ? vals[j] : 0.f;
-            if (accumulate) As[rr * kALd + sc] += v;
-            else As[rr * kALd + sc] = Gs[rr] * v;
-        }
-    };
-
-    copy_kv(0, 0);
-    const int n_tiles = (S + kBKey - 1) / kBKey;
-    for (int it = 0; it < n_tiles; ++it) {
-        const int s0 = it * kBKey, st = it & 1;
-        __syncthreads();  // every warp is done with the previous tile
-        if (it + 1 < n_tiles) copy_kv(s0 + kBKey, st ^ 1);
-        if (tid < kBKey) {
-            const int s = s0 + tid;
-            colneg[tid] = (s >= S || (a.kpm != nullptr && a.kpm[(size_t)b * S + s]))
-                              ? kNegInf : 0.f;
-        }
-        if (has_add) {
-            if (a.bias != nullptr) {
-                stage_add(s0, a.bias + (size_t)h * T * S, false);
-            } else {
-#pragma unroll
-                for (int j = 0; j < kN; ++j) As[(sr + j * kStageRows) * kALd + sc] = 0.f;
-            }
-            if (a.amask != nullptr) stage_add(s0, a.amask, true);
-        }
-        if (it + 1 < n_tiles) cp_async_wait<1>();
-        else cp_async_wait<0>();
+    for (int it = 0; it < n_kt; ++it) {
+        const int s0 = it * kBKey, st = it % kStages;
+        const unsigned char* sp = stage(st);
+        const unsigned char* Ks = sp + kStageK;
+        const unsigned char* Vs = sp + kStageV;
+        const unsigned char* Bs = sp + kStageB;
+        const float* colneg = reinterpret_cast<const float*>(sp + kStageCol);
+        // every thread is done with tile it - 1: refill its stage with tile
+        // it - 1 + kStages; that tile's key mask is loaded now, stored at
+        // the end of the step
         __syncthreads();
-        const __nv_bfloat16* Kt = Ks + st * kBKey * kLd;
-        const __nv_bfloat16* Vt = Vs + st * kBKey * kLd;
+        const int refill = it - 1 + kStages;
+        const bool do_refill = it > 0 && refill < n_kt;
+        if (tid == 0 && do_refill) issue(refill);
+        float next_mask = 0.f;
+        if (do_refill && tid < kBKey) next_mask = key_mask(refill);
+        usk::mbar_wait(&full[st], (it / kStages) & 1);
 
-        // S = q.k^T: 8 n-tiles of 8 keys, in the accumulator layout
-        // (rows g / g+8, columns c2, c2+1 of each n-tile)
-        float sacc[kBKey / 8][4];
+        // S = q.K^T: 64 queries x 64 keys
+        float sacc[32];
 #pragma unroll
-        for (int j = 0; j < kBKey / 8; ++j) {
-            sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.f;
-            const __nv_bfloat16* krow = Kt + (j * 8 + g) * kLd + c2;
+        for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
+        usk::fence_regs(sacc);
+        usk::wgmma_fence();
 #pragma unroll
-            for (int kk = 0; kk < kHd / 16; ++kk)
-                mma_bf16(sacc[j], qa[kk], lds32(krow + kk * 16), lds32(krow + kk * 16 + 8));
+        for (int kk = 0; kk < kHd / 16; ++kk)
+            usk::wgmma_m64n64k16_ss<0, 0>(sacc, usk::desc_sw128(Qs + kk * 32, 16, 1024),
+                                          usk::desc_sw128(Ks + kk * 32, 16, 1024));
+        usk::wgmma_commit();
+
+        // the keep mask while the product runs: bit ((j * 2 + e) * 2 + i)
+        // for query row g + 8e and key 8j + c2 + i; this lane computes the
+        // calls of the j with j % 2 == half and sends lane ^ 4 its words
+        uint32_t keep = 0xffffffffu;
+        if (kDrop) {
+            keep = 0;
+#pragma unroll
+            for (int jj = 0; jj < kBKey / 16; ++jj) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int j = 2 * jj + half;
+                    const int t = q0 + warp * 16 + g + 8 * e, s = s0 + j * 8 + c2;
+                    const usk::Philox4 w = usk::philox4x32_10(
+                        (uint32_t)(s >> 1), (uint32_t)(t >> 1), (uint32_t)h, (uint32_t)b,
+                        (uint32_t)seed, (uint32_t)(seed >> 32));
+                    // word (s & 1) | (t & 1) << 1; s is even, t & 1 == half
+                    const uint32_t self0 = half ? w.x[2] : w.x[0], self1 = half ? w.x[3] : w.x[1];
+                    const uint32_t oth0 = half ? w.x[0] : w.x[2], oth1 = half ? w.x[1] : w.x[3];
+                    const uint32_t mine = (uint32_t)(self0 >= a.threshold) |
+                                          ((uint32_t)(self1 >= a.threshold) << 1);
+                    const uint32_t other = (uint32_t)(oth0 >= a.threshold) |
+                                           ((uint32_t)(oth1 >= a.threshold) << 1);
+                    const uint32_t recv = __shfl_xor_sync(0xffffffffu, other, 4);
+                    keep |= mine << ((j * 2 + e) * 2);
+                    keep |= recv << (((2 * jj + (half ^ 1)) * 2 + e) * 2);
+                }
+            }
         }
+        usk::wgmma_wait<0>();
+        usk::fence_regs(sacc);
 
-        // gated bias, masks, online softmax; rows row0 (e=0) and row0 + 8 (e=1)
+        // logits and the row maxima; rows g (e = 0) and g + 8
         float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
         for (int j = 0; j < kBKey / 8; ++j) {
+            const float2 cn = *reinterpret_cast<const float2*>(colneg + j * 8 + c2);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const int e = i >> 1, col = j * 8 + c2 + (i & 1);
-                float x = sacc[j][i];
-                if (has_add) x += As[(row0 + 8 * e) * kALd + col];
-                x += colneg[col];
-                sacc[j][i] = x;
-                mx[e] = fmaxf(mx[e], x);
+            for (int e = 0; e < 2; ++e) {
+                const int r = warp * 16 + g + 8 * e;
+                float bb[2] = {0.f, 0.f};
+                if (kBias) {
+                    const __nv_bfloat162 b2 = *reinterpret_cast<const __nv_bfloat162*>(
+                        Bs + usk::sw128_offset(r, j * 8 + c2));
+                    bb[0] = __low2float(b2);
+                    bb[1] = __high2float(b2);
+                }
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    const int idx = 4 * j + 2 * e + i;
+                    float x = sacc[idx] * a.scale;
+                    if (kBias) x = fmaf(gate[e], bb[i], x);
+                    if (kMask) {
+                        const int t = q0 + r, s = s0 + j * 8 + c2 + i;
+                        x += (t < T && s < S) ? a.amask[(size_t)t * S + s] : 0.f;
+                    }
+                    x += i ? cn.y : cn.x;
+                    sacc[idx] = x;
+                    mx[e] = fmaxf(mx[e], x);
+                }
             }
         }
-        float alpha[2], rs[2] = {0.f, 0.f};
+        float alpha[2], ml2[2], rs[2] = {0.f, 0.f};
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
             mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
             mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
             const float m_new = fmaxf(m[e], mx[e]);
-            alpha[e] = expf(m[e] - m_new);
+            alpha[e] = usk::ex2((m[e] - m_new) * kLog2e);
             m[e] = m_new;
+            ml2[e] = m_new * kLog2e;
         }
 #pragma unroll
         for (int j = 0; j < kBKey / 8; ++j) {
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-                const int e = i >> 1;
-                const float p = expf(sacc[j][i] - m[e]);
+                const int e = i >> 1, idx = 4 * j + i;
+                const float p = usk::ex2(fmaf(sacc[idx], kLog2e, -ml2[e]));
                 rs[e] += p;
-                sacc[j][i] = p;
+                // after the row sum: l is the undropped normaliser
+                if (kDrop)
+                    sacc[idx] = ((keep >> ((j * 2 + e) * 2 + (i & 1))) & 1) ? p * a.drop_scale : 0.f;
+                else
+                    sacc[idx] = p;
             }
         }
 #pragma unroll
@@ -286,85 +293,119 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
             rs[e] += __shfl_xor_sync(0xffffffffu, rs[e], 2);
             l[e] = l[e] * alpha[e] + rs[e];
         }
-        if (dropout) {  // after the row sums: l is the undropped normaliser
-#pragma unroll
-            for (int j = 0; j < kBKey / 8; ++j) {
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    bool k0, k1;
-                    usk::attention_keep_pair(seed, a.threshold, b, h, q0 + row0 + 8 * e,
-                                             s0 + j * 8 + c2, k0, k1);
-                    sacc[j][2 * e] *= k0 ? a.drop_scale : 0.f;
-                    sacc[j][2 * e + 1] *= k1 ? a.drop_scale : 0.f;
-                }
-            }
-        }
 #pragma unroll
         for (int j = 0; j < kHd / 8; ++j) {
-            o[j][0] *= alpha[0];
-            o[j][1] *= alpha[0];
-            o[j][2] *= alpha[1];
-            o[j][3] *= alpha[1];
+            o[4 * j] *= alpha[0];
+            o[4 * j + 1] *= alpha[0];
+            o[4 * j + 2] *= alpha[1];
+            o[4 * j + 3] *= alpha[1];
         }
 
-        // O += P.V: P (bf16) from the score registers as A fragments of 16
-        // keys; V fragments of (16 keys x 16 dims) by one ldmatrix.x4.trans
+        // O += P.V: P (bf16) from the S accumulators, 16 keys per step
+        uint32_t pa[kBKey / 16][4];
 #pragma unroll
         for (int kk = 0; kk < kBKey / 16; ++kk) {
-            const uint32_t pa[4] = {
-                pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]),
-                pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
-                pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
-                pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3]),
-            };
-            const int mat = lane >> 3;  // which 8x8 matrix this lane addresses
-            const __nv_bfloat16* vrow =
-                Vt + (kk * 16 + (lane & 7) + 8 * (mat & 1)) * kLd + 8 * (mat >> 1);
-#pragma unroll
-            for (int jp = 0; jp < kHd / 16; ++jp) {
-                uint32_t vb[4];
-                ldmatrix_x4_trans(vb, vrow + jp * 16);
-                mma_bf16(o[2 * jp], pa, vb[0], vb[1]);
-                mma_bf16(o[2 * jp + 1], pa, vb[2], vb[3]);
-            }
+            pa[kk][0] = pack_bf16(sacc[8 * kk + 0], sacc[8 * kk + 1]);
+            pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+            pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+            pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
         }
+        usk::fence_regs(o);
+        usk::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBKey / 16; ++kk)
+            usk::wgmma_m64n64k16_rs<1>(o, pa[kk], usk::desc_sw128(Vs + kk * 2048, kTile, 1024));
+        usk::wgmma_commit();
+        usk::wgmma_wait<0>();
+        usk::fence_regs(o);
+#pragma unroll
+        for (int kk = 0; kk < kBKey / 16; ++kk) usk::fence_regs(pa[kk]);
+        if (do_refill && tid < kBKey)
+            reinterpret_cast<float*>(stage(refill % kStages) + kStageCol)[tid] = next_mask;
     }
 
-    // normalize and store: rows row0 / row0 + 8, columns j*8 + c2, +1
+    // normalise and store: rows g / g + 8 of this warp's 16, column pairs
+    // of each 8-wide slice; lse = m + log l
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-        const int t = q0 + row0 + 8 * e;
+        const int t = q0 + warp * 16 + g + 8 * e;
         if (t >= T) continue;
+        const float inv = 1.f / l[e];
         __nv_bfloat16* dst = a.out + b * a.o_bs + t * a.o_rs + h * kHd + c2;
 #pragma unroll
         for (int j = 0; j < kHd / 8; ++j)
             *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
-                __floats2bfloat162_rn(o[j][2 * e] / l[e], o[j][2 * e + 1] / l[e]);
-        if (a.lse != nullptr && c2 == 0) a.lse[((size_t)b * H + h) * T + t] = m[e] + logf(l[e]);
+                __floats2bfloat162_rn(o[4 * j + 2 * e] * inv, o[4 * j + 2 * e + 1] * inv);
+        if (a.lse != nullptr && c2 == 0)
+            a.lse[((size_t)b * H + h) * T + t] = m[e] + logf(l[e]);
+    }
+}
+
+// (B, rows, H, 64) bf16 by element strides (batch, row) as a 4D map
+bool head_map(CUtensorMap* m, const void* p, int B, int rows, int H, long long bs, long long rs) {
+    const uint64_t dims[4] = {(uint64_t)kHd, (uint64_t)H, (uint64_t)rows, (uint64_t)B};
+    const uint64_t strides[3] = {(uint64_t)kHd * 2, (uint64_t)rs * 2, (uint64_t)bs * 2};
+    const uint32_t box[4] = {kHd, 1, 64, 1};
+    return usk::make_tensor_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, p, dims, strides, box,
+                                CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <bool kBias, bool kGate, bool kKpm, bool kMask, bool kDrop>
+cudaError_t launch_kernel(const Maps& maps, const Args& a, dim3 grid, cudaStream_t s) {
+    auto kernel = flash_fwd_kernel<kBias, kGate, kKpm, kMask, kDrop>;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, kSmemBytes, s>>>(maps, a);
+    return cudaGetLastError();
+}
+
+template <bool kBias, bool kGate>
+cudaError_t launch_flags(const Maps& maps, const Args& a, dim3 grid, cudaStream_t s) {
+    const int sel = (a.kpm != nullptr ? 4 : 0) | (a.amask != nullptr ? 2 : 0) |
+                    (a.seed != nullptr ? 1 : 0);
+    switch (sel) {
+        case 0: return launch_kernel<kBias, kGate, false, false, false>(maps, a, grid, s);
+        case 1: return launch_kernel<kBias, kGate, false, false, true>(maps, a, grid, s);
+        case 2: return launch_kernel<kBias, kGate, false, true, false>(maps, a, grid, s);
+        case 3: return launch_kernel<kBias, kGate, false, true, true>(maps, a, grid, s);
+        case 4: return launch_kernel<kBias, kGate, true, false, false>(maps, a, grid, s);
+        case 5: return launch_kernel<kBias, kGate, true, false, true>(maps, a, grid, s);
+        case 6: return launch_kernel<kBias, kGate, true, true, false>(maps, a, grid, s);
+        default: return launch_kernel<kBias, kGate, true, true, true>(maps, a, grid, s);
     }
 }
 
 }  // namespace
 
+// q/k/v/out by element strides (batch, row) in the (B, rows, H*64) layout;
+// bias (H, T, S) with row stride bias_rs (a multiple of 8, T * bias_rs
+// between heads) or null
 extern "C" int usk_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out,
     long long q_bs, long long q_rs, long long k_bs, long long k_rs,
     long long v_bs, long long v_rs, long long o_bs, long long o_rs,
-    const void* bias, const void* gate, const void* kpm, const void* amask,
+    const void* bias, long long bias_rs, const void* gate, const void* kpm, const void* amask,
     void* lse, int B, int T, int S, int H, float scale, const void* seed,
     unsigned threshold, float drop_scale, void* stream) {
-    // above 48 KB of dynamic shared memory only after opting in (per device)
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
+    Maps maps;
+    if (!head_map(&maps.q, q, B, T, H, q_bs, q_rs) || !head_map(&maps.k, k, B, S, H, k_bs, k_rs) ||
+        !head_map(&maps.v, v, B, S, H, v_bs, v_rs))
+        return (int)cudaErrorInvalidValue;
+    if (bias != nullptr) {
+        const uint64_t dims[3] = {(uint64_t)S, (uint64_t)T, (uint64_t)H};
+        const uint64_t strides[2] = {(uint64_t)bias_rs * 2, (uint64_t)bias_rs * T * 2};
+        const uint32_t box[3] = {kBKey, kBQ, 1};
+        if (!usk::make_tensor_map(&maps.bias, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, bias, dims,
+                                  strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
+            return (int)cudaErrorInvalidValue;
+    } else {
+        maps.bias = maps.q;  // unused
+    }
     Args a;
-    a.q = (const __nv_bfloat16*)q;
-    a.k = (const __nv_bfloat16*)k;
-    a.v = (const __nv_bfloat16*)v;
     a.out = (__nv_bfloat16*)out;
-    a.q_bs = q_bs; a.q_rs = q_rs; a.k_bs = k_bs; a.k_rs = k_rs;
-    a.v_bs = v_bs; a.v_rs = v_rs; a.o_bs = o_bs; a.o_rs = o_rs;
-    a.bias = (const __nv_bfloat16*)bias;
+    a.o_bs = o_bs;
+    a.o_rs = o_rs;
     a.gate = (const float*)gate;
     a.kpm = (const uint8_t*)kpm;
     a.amask = (const float*)amask;
@@ -375,6 +416,8 @@ extern "C" int usk_flash_attention_fwd(
     a.T = T; a.S = S; a.H = H;
     a.scale = scale;
     const dim3 grid((T + kBQ - 1) / kBQ, H, B);
-    flash_fwd_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+    cudaStream_t s = (cudaStream_t)stream;
+    if (bias == nullptr) return (int)launch_flags<false, false>(maps, a, grid, s);
+    if (gate == nullptr) return (int)launch_flags<true, false>(maps, a, grid, s);
+    return (int)launch_flags<true, true>(maps, a, grid, s);
 }

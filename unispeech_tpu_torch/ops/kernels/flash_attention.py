@@ -30,7 +30,7 @@ backward_launches = 0  # backward kernel launches made by its autograd backward
 
 NEG_INF = -1e30
 _P, _L, _I, _U, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-_FWD_SIGNATURE = [_P] * 4 + [_L] * 8 + [_P] * 5 + [_I] * 4 + [_F, _P, _U, _F, _P]
+_FWD_SIGNATURE = [_P] * 4 + [_L] * 8 + [_P, _L] + [_P] * 4 + [_I] * 4 + [_F, _P, _U, _F, _P]
 _BWD_SIGNATURE = ([_P] * 6 + [_L] * 10 + [_P, _L] + [_P] * 8 + [_I] * 4
                   + [_F, _P, _U, _F, _P, _P])
 
@@ -144,9 +144,9 @@ def _check_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_seed):
             and t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0,
             f"{name} must be a (B, T, H*hd) row layout with 16-byte aligned rows")
     if bias is not None:
-        req(bias.dtype == torch.bfloat16 and bias.shape == (H, T, S)
-            and bias.is_contiguous() and bias.device == q.device,
-            "bias must be a contiguous bf16 (H, T, S) tensor on q's device")
+        req(bias.dtype == torch.bfloat16 and bias.shape == (H, T, S) and bias.device == q.device,
+            "bias must be a bf16 (H, T, S) tensor on q's device")
+        req(_bias_rows_ok(bias), "bias rows must be whole 16-byte units (see bias_rows)")
     if gate is not None:
         req(bias is not None, "a gate needs a bias")
         req(gate.dtype == torch.float32 and gate.shape == (B, H, T) and gate.is_contiguous()
@@ -161,6 +161,34 @@ def _check_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_seed):
             "attn_mask must be a contiguous fp32 (T, S) tensor on q's device")
     if dropout_seed is not None:
         req(dropout_seed.device == q.device, "dropout_seed must lie on q's device")
+
+
+def _bias_rows_ok(bias: torch.Tensor) -> bool:
+    H, T, S = bias.shape
+    rs = bias.stride(1)
+    return (bias.stride(2) == 1 and rs % 8 == 0 and rs >= S and bias.stride(0) == rs * T
+            and bias.data_ptr() % 16 == 0)
+
+
+def bias_rows(bias: torch.Tensor) -> torch.Tensor:
+    """The (H, T, S) bias in the layout the kernels read by TMA: unit inner
+    stride, rows a multiple of 8 elements apart (whole 16-byte units of
+    bf16), heads T rows apart. A bias in that layout, such as the view
+    ``ops/rel_pos.py::compute_rel_pos_bias`` returns, is taken as it is;
+    any other is copied into it (differentiably)."""
+    if _bias_rows_ok(bias):
+        return bias
+    S = bias.shape[-1]
+    if S % 8 == 0:
+        return bias.contiguous()
+    return torch.nn.functional.pad(bias, (0, 8 - S % 8))[..., :S]
+
+
+def _check_scale(hd: int, dtype) -> float:
+    scale = scale_in_dtype(hd, dtype)
+    _build.require(scale == 2.0 ** round(math.log2(scale)),
+                   "the kernels fold the q scale into fp32 products: a power of two")
+    return scale
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -182,8 +210,9 @@ def _forward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rate
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-        _ptr(bias), _ptr(gate), _ptr(key_padding_mask), _ptr(attn_mask), _ptr(lse),
-        B, T, S, H, scale_in_dtype(hd, q.dtype), _ptr(seed),
+        _ptr(bias), 0 if bias is None else bias.stride(1),
+        _ptr(gate), _ptr(key_padding_mask), _ptr(attn_mask), _ptr(lse),
+        B, T, S, H, _check_scale(hd, q.dtype), _ptr(seed),
         keep_threshold(dropout_rate) if seed is not None else 0,
         float(_dropout_scale(dropout_rate)) if seed is not None else 1.0,
         _build.stream(q))
@@ -202,9 +231,7 @@ def _backward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rat
     req(dout.dtype == torch.bfloat16 and out.dtype == torch.bfloat16
         and dout.shape == out.shape == (B, T, H, hd), "dO and out must be bf16 (B, T, H, hd)")
     req(lse.dtype == torch.float32 and lse.shape == (B, H, T), "lse must be fp32 (B, H, T)")
-    scale = scale_in_dtype(hd, q.dtype)
-    req(scale == 2.0 ** round(math.log2(scale)),
-        "the backward kernel folds the q scale into fp32 products: a power of two")
+    scale = _check_scale(hd, q.dtype)
     dev = q.device
     n_qt, n_kt = -(-T // 64), -(-S // 64)
     # cross-block sums, added by the kernel's TMA reductions: dgate and dbias
@@ -214,13 +241,10 @@ def _backward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rat
     dv = torch.empty((B, S, H, hd), dtype=torch.bfloat16, device=dev)
     rows = torch.empty((B * H, n_qt, 3, 64), dtype=torch.float32, device=dev)
     dbias_acc = dgate_acc = None
-    bias_rows = bias
     if bias is not None:
         dbias_acc = torch.zeros((H, T, n_kt * 64), dtype=torch.float32, device=dev)
         if gate is not None:
             dgate_acc = torch.zeros((B * H, n_qt * 64), dtype=torch.float32, device=dev)
-        if S % 8:  # TMA rows are whole 16-byte units
-            bias_rows = torch.nn.functional.pad(bias, (0, 8 - S % 8))
     seed = dropout_seed if dropout_rate > 0.0 else None
     fn = _build.function("usk_flash_attention_bwd", _BWD_SIGNATURE)
     _build.launch(
@@ -229,7 +253,7 @@ def _backward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rat
         lse.data_ptr(),
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
         out.stride(0), out.stride(1), dout.stride(0), dout.stride(1),
-        _ptr(bias_rows), 0 if bias_rows is None else bias_rows.stride(1),
+        _ptr(bias), 0 if bias is None else bias.stride(1),
         _ptr(gate), _ptr(key_padding_mask), _ptr(attn_mask),
         dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dgate_acc), _ptr(dbias_acc),
         B, T, S, H, scale, rows.data_ptr(),
@@ -257,8 +281,9 @@ def fused_attention_backward(q, k, v, bias, gate, key_padding_mask, attn_mask,
     """The merged backward: the kernel for CUDA tensors, the plain version
     for CPU tensors. Returns (dq, dk, dv, dbias, dgate)."""
     if q.is_cuda:
-        return _backward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask,
-                              dropout_rate, dropout_seed, out, lse, dout)
+        return _backward_cuda(q, k, v, None if bias is None else bias_rows(bias), gate,
+                              key_padding_mask, attn_mask, dropout_rate, dropout_seed, out,
+                              lse, dout)
     return fused_attention_backward_plain(q, k, v, bias, gate, key_padding_mask,
                                           attn_mask, dropout_rate, dropout_seed,
                                           out, lse, dout)
@@ -300,12 +325,16 @@ def fused_attention(
     """Attention with the factored gated bias and dropout on the
     probabilities; returns out (B, T, H, hd) and, with ``return_lse``, the
     fp32 log-sum-exp (B, H, T) as well. The bias is read in q's dtype and
-    gated in fp32 (gate 1 when only a bias is given). Differentiable in
-    q, k, v, bias and gate. CPU tensors take the plain versions; a CUDA
-    tensor launches the kernels (bf16, hd 64) or raises."""
+    gated in fp32 (gate 1 when only a bias is given); on the card it goes
+    through ``bias_rows`` (``compute_rel_pos_bias``'s view is taken as it
+    is). Differentiable in q, k, v, bias and gate. CPU tensors take the
+    plain versions; a CUDA tensor launches the kernels (bf16, hd 64) or
+    raises."""
     _check_dropout(dropout_rate, dropout_seed)
     if bias is not None:
-        bias = bias.to(q.dtype).contiguous()
+        bias = bias.to(q.dtype)
+        if q.is_cuda:
+            bias = bias_rows(bias)
         if gate is not None:
             gate = gate.to(torch.float32).contiguous()
     else:

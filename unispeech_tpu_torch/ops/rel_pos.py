@@ -49,29 +49,32 @@ def relative_position_bucket(
 
 
 class _ExpandDiagonals(torch.autograd.Function):
-    """(H, T+S-1) per-diagonal values -> (H, T, S), out[h, t, s] =
-    rel[h, s - t + T - 1]. The backward sums each diagonal of the (H, T, S)
+    """(H, T+S-1) per-diagonal values -> (H, T, W), W >= S, out[h, t, s] =
+    rel[h, s - t + T - 1] for s < S (columns past S repeat the last
+    diagonal). The backward sums each diagonal of the first S columns of the
     cotangent in fp32 (a skew by pad and reshape, then one sum over t) and
     rounds once to the values' dtype, as the JAX package's expansion does,
     instead of a scatter-add in the storage dtype."""
 
     @staticmethod
-    def forward(ctx, rel, T: int, S: int):
+    def forward(ctx, rel, T: int, S: int, W: int):
         ctx.T, ctx.S = T, S
-        return rel[:, _diagonal_index(T, S, rel.device)]
+        return rel[:, _diagonal_index(T, S, W, rel.device)]
 
     @staticmethod
     def backward(ctx, g):
         T, S = ctx.T, ctx.S
         H, nd = g.shape[0], T + S - 1
         # flat index identity: t*(T+S-1) + s + (T-1) == t*(T+S) + (s - t + T - 1)
-        flat = F.pad(F.pad(g.float(), (0, nd - S)).reshape(H, T * nd), (T - 1, 1))
-        return flat.reshape(H, T, T + S).sum(1)[:, :nd].to(g.dtype), None, None
+        flat = F.pad(F.pad(g[..., :S].float(), (0, nd - S)).reshape(H, T * nd), (T - 1, 1))
+        return flat.reshape(H, T, T + S).sum(1)[:, :nd].to(g.dtype), None, None, None
 
 
-def _diagonal_index(T: int, S: int, device) -> torch.Tensor:
-    return (torch.arange(S, device=device)[None, :]
-            - torch.arange(T, device=device)[:, None] + (T - 1))
+def _diagonal_index(T: int, S: int, W: int, device) -> torch.Tensor:
+    """(T, W) index of diagonal s - t + T - 1, columns past S clamped."""
+    idx = (torch.arange(W, device=device)[None, :]
+           - torch.arange(T, device=device)[:, None] + (T - 1))
+    return idx.clamp_(max=T + S - 2)
 
 
 def compute_rel_pos_bias(
@@ -82,7 +85,11 @@ def compute_rel_pos_bias(
     max_distance: int,
     dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """Return the (num_heads, query_length, key_length) bias."""
+    """Return the (num_heads, query_length, key_length) bias as a view of
+    a buffer whose rows are padded to a multiple of 8 keys: whole 16-byte
+    units of bf16, the layout the CUDA attention kernels read by TMA, so
+    no per-call copy pads it. Made once per forward and shared by all
+    layers."""
     T, S = query_length, key_length
     dev = bias_table.device
     rel_pos = torch.arange(T + S - 1, device=dev, dtype=torch.int32) - (T - 1)
@@ -90,6 +97,7 @@ def compute_rel_pos_bias(
     rel = bias_table[buckets.long()].t()  # (H, T+S-1), diagonal d = s - t
     if dtype is not None:
         rel = rel.to(dtype)  # cast the small diagonal vector, not (H, T, S)
+    W = -(-S // 8) * 8
     if torch.is_grad_enabled() and rel.requires_grad:
-        return _ExpandDiagonals.apply(rel, T, S)
-    return rel[:, _diagonal_index(T, S, dev)]
+        return _ExpandDiagonals.apply(rel, T, S, W)[..., :S]
+    return rel[:, _diagonal_index(T, S, W, dev)][..., :S]

@@ -64,8 +64,9 @@ def queued_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(fn, iters: int) -> float:
-    """Device ms per call of the backward kernel (``flash_bwd_kernel``)."""
+def kernel_ms(fn, iters: int, name: str = "flash_bwd_kernel") -> float:
+    """Device ms per call of the kernels whose names hold ``name`` (by
+    default the backward kernel), under ``torch.profiler``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -77,7 +78,7 @@ def kernel_ms(fn, iters: int) -> float:
         torch.cuda.synchronize()
     us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
              for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and "flash_bwd_kernel" in e.key)
+             if e.device_type == DeviceType.CUDA and name in e.key)
     return us / 1e3 / iters
 
 
