@@ -246,6 +246,15 @@ def backward_parity(dev, cfg):
     # cross-tile atomics vs one einsum): relative L2 1e-3
     err_l1 = rel_check("l1_conv_backward.dw", l1_frontend.l1_conv_backward(*l1_args),
                        l1_frontend.l1_conv_backward_plain(*l1_args), 1e-3)
+    # a second geometry, (k, stride) = (8, 4), through the kernel's generic
+    # instantiation at a pretraining-sized t1 (61,459 rows)
+    t8 = (NS - 8) // 4 + 1
+    gen8 = torch.Generator().manual_seed(SEED + 5)
+    args8 = (wav, (torch.randn(8, 1, C, generator=gen8) * 0.5).to(dev), 4,
+             (torch.randn(B, t8, C, generator=gen8) * 1e-3).to(dev, torch.bfloat16), ds1, ds2)
+    rel_check("l1_conv_backward.dw.k8s4", l1_frontend.l1_conv_backward(*args8),
+              l1_frontend.l1_conv_backward_plain(*args8), 1e-3)
+    del args8
 
     conv_args = []  # (x, w, valid, gelu_in, gelu_out, affine, dy, pre) per block
     x = torch.randn(B, t1, C, generator=gen).to(dev, torch.bfloat16)
@@ -490,7 +499,6 @@ def backward_times(bw, train_counts):
     """The kernels rows of the three backward kernels at the pretraining
     shapes, per train step (all launches of a kernel in one step)."""
     from unispeech_tpu_torch.ops.kernels import conv_stack, flash_attention, l1_frontend
-    from unispeech_tpu_torch.scripts.bench_attention_backward import kernel_ms
 
     err_l1, err_conv, err_attn, err_drop = bw["err"]
     wav, w1, s0, dy1, ds1, ds2 = bw["l1"]
@@ -523,11 +531,13 @@ def backward_times(bw, train_counts):
         c_ms += cuda_ms(lambda: conv_stack.conv_gelu_block_backward(*args))
         one_dev = device_ms(lambda: conv_stack.conv_gelu_block_backward(*args))
         c_dev += one_dev
-        # dx and dW apart, by the profiler's device time of each kernel
-        split = [kernel_ms(lambda: conv_stack.conv_gelu_block_backward(*args), 1, name)
-                 for name in ("conv_bwd_dx_kernel", "conv_bwd_dw_kernel")]
+        # dx and dW apart: the device time of calls that launch one GEMM past
+        # the g and H passes, less that of calls that launch neither
+        part_ms = [device_ms(lambda: conv_stack.backward_parts(*args, parts))
+                   for parts in (0, conv_stack.BWD_DX, conv_stack.BWD_DW)]
+        split = [part_ms[1] - part_ms[0], part_ms[2] - part_ms[0]]
         if not min(split) > 0:
-            fail(f"conv block L{i}: the profiler saw no device time of dx or dW")
+            fail(f"conv block L{i}: no device time of dx or dW ({split})")
         gemm_flops = 2 * B * t_out * C * k * C  # each of dx and dW
         phase("times", kernel=f"conv_gelu_block_backward.L{i}", device_ms=f"{one_dev:.4f}",
               tflops=f"{2 * gemm_flops / one_dev / 1e9:.1f}",

@@ -103,14 +103,25 @@ def test_conv_block_tiles(dev, k, B, T, valid, C, first):
     _close(pre, ppre)
 
 
-@pytest.mark.parametrize("n", [8 * 256 * 3 + 5, 1_000_003, 7])
+# sizes with a scalar tail and a partial last block; one element either
+# side of one block's 256 threads x 2 vectors (4,096 elements), of two
+# blocks', of 132 x 8 blocks' (a wave at eight blocks per SM) and of the
+# gelu+dgelu6 ring's 32 KB stage (16,384 elements)
+VPU_SIZES = [8 * 256 * 3 + 5, 1_000_003, 7, 4095, 4097, 8191, 8193, 16383, 16385,
+             132 * 8 * 4096 - 1, 132 * 8 * 4096 + 1]
+
+
+@pytest.mark.parametrize("n", VPU_SIZES)
 @pytest.mark.parametrize("variant", list(vpu_micro.VARIANTS))
-def test_vpu_micro_ragged(dev, n, variant):
+@pytest.mark.parametrize("offset", [0, 8], ids=["base", "offset16B"])
+def test_vpu_micro_ragged(dev, n, variant, offset):
     """Each micro-benchmark variant against its plain version, on sizes that
-    leave a scalar tail and a partial last block (the fp32 arithmetic is the
-    same; exp may differ in the last fp32 bit: one bf16 ulp)."""
+    leave a scalar tail and a partial last block, from the start of a buffer
+    or 16 bytes into one (the fp32 arithmetic is the same; exp may differ in
+    the last fp32 bit: one bf16 ulp)."""
     g = torch.Generator().manual_seed(n)
-    x = (torch.randn(n, generator=g) * 3).to(dev, torch.bfloat16)
+    buf = (torch.randn(n + offset + 5, generator=g) * 3).to(dev, torch.bfloat16)
+    x = buf[offset:offset + n]
     before = vpu_micro.launches
     got = vpu_micro.run(variant, x)
     assert vpu_micro.launches == before + 1
@@ -232,21 +243,50 @@ def test_small_model_kernel_path_matches_plain(dev, monkeypatch, over):
     assert ((got.float() - want.float()).norm() / want.float().norm()).item() <= 2e-2
 
 
-@pytest.mark.parametrize("B,ns,C", [(1, 400, 512), (3, 5003, 64), (2, 16000 * 3 + 7, 512)])
+# (B, t1, C): short, long and ragged; t1 one row before, on and one row
+# after the end of a tile of the backward's ring (R = 32 rows at C = 512,
+# each warp a 16-row chunk; R = 256 at C = 64); C = 1024 (one 16-row chunk
+# per warp) and C = 192 (15 consumer warps, 80-row tiles)
+L1_BWD_SHAPES = [(1, 79, 512), (3, 999, 64), (2, 9600, 512), (2, 95, 512), (2, 96, 512),
+                 (2, 97, 512), (1, 255, 64), (1, 256, 64), (1, 257, 64), (1, 1000, 1024),
+                 (2, 333, 192)]
+
+
+@pytest.mark.parametrize("B,t1,C", L1_BWD_SHAPES)
+@pytest.mark.parametrize("k,stride", [(10, 5), (5, 5), (8, 4), (16, 8)])
 @pytest.mark.parametrize("stats", [True, False])
-def test_l1_backward_edges(dev, B, ns, C, stats):
-    g = torch.Generator().manual_seed(ns + 1)
+def test_l1_backward_edges(dev, B, t1, C, k, stride, stats):
+    g = torch.Generator().manual_seed(t1 + k)
+    ns = (t1 - 1) * stride + k + t1 % stride  # a ragged tail of samples past the last window
     wav = (torch.randn(B, ns, generator=g) * 0.1).to(dev)
-    w = (torch.randn(10, 1, C, generator=g) * 0.4).to(dev)
-    t1 = (ns - 10) // 5 + 1
+    w = (torch.randn(k, 1, C, generator=g) * 0.4).to(dev)
+    assert (ns - k) // stride + 1 == t1
     dy = torch.randn(B, t1, C, generator=g).to(dev, torch.bfloat16)
     ds1 = ds2 = None
     if stats:
         ds1 = (torch.randn(B, C, generator=g) * 1e-2).to(dev)
         ds2 = (torch.randn(B, C, generator=g) * 1e-2).to(dev)
-    got = l1_frontend.l1_conv_backward(wav, w, 5, dy, ds1, ds2)
-    want = l1_frontend.l1_conv_backward_plain(wav, w, 5, dy, ds1, ds2)
+    before = l1_frontend.backward_launches
+    got = l1_frontend.l1_conv_backward(wav, w, stride, dy, ds1, ds2)
+    assert l1_frontend.backward_launches == before + 1
+    want = l1_frontend.l1_conv_backward_plain(wav, w, stride, dy, ds1, ds2)
     _rel(got, want)
+
+
+def test_l1_backward_unaligned_views(dev):
+    """A waveform and a dy that start 4 and 2 bytes into their buffers: the
+    kernel reads both by TMA, which needs 16-byte aligned storage."""
+    g = torch.Generator().manual_seed(7)
+    B, t1, C, k, s = 2, 97, 512, 10, 5
+    ns = (t1 - 1) * s + k
+    wav = (torch.randn(B * ns + 1, generator=g) * 0.1).to(dev)[1:].view(B, ns)
+    dy = torch.randn(B * t1 * C + 1, generator=g).to(dev, torch.bfloat16)[1:].view(B, t1, C)
+    w = (torch.randn(k, 1, C, generator=g) * 0.4).to(dev)
+    ds1 = (torch.randn(B, C, generator=g) * 1e-2).to(dev)
+    ds2 = (torch.randn(B, C, generator=g) * 1e-2).to(dev)
+    assert wav.data_ptr() % 16 and dy.data_ptr() % 16
+    _rel(l1_frontend.l1_conv_backward(wav, w, s, dy, ds1, ds2),
+         l1_frontend.l1_conv_backward_plain(wav, w, s, dy, ds1, ds2))
 
 
 @pytest.mark.parametrize("k", [2, 3])
@@ -282,6 +322,38 @@ def test_conv_backward_edges(dev, k, B, T, valid, C, gelu_in, affine, gelu_out):
     # the forward writes the same pre-activation as the plain version
     y, _, kpre = conv_stack._forward(x, w, valid, gelu_in, gelu_out, ab, want_pre=True)
     _close(kpre, pre)
+
+
+@pytest.mark.parametrize("parts", [0, conv_stack.BWD_DX, conv_stack.BWD_DW])
+def test_conv_backward_parts(dev, parts):
+    """A backward call that names one GEMM (or neither) launches the g and H
+    passes and that GEMM alone, counts them, and writes what it launched as
+    the full call does: chip_smoke.py times dx and dW apart this way."""
+    g = torch.Generator().manual_seed(parts + 11)
+    B, T, valid, C, k = 2, 300, 257, 128, 3
+    x = torch.randn(B, T, C, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(k, C, C, generator=g) * (2.0 / (k * C)) ** 0.5).to(dev, torch.bfloat16)
+    ab = ((torch.rand(B, C, generator=g) + 0.5).to(dev),
+          (torch.randn(B, C, generator=g) * 0.1).to(dev))
+    _, t_out, pre = conv_stack.conv_gelu_block_plain(x, w, valid, True, True, ab,
+                                                     return_pre=True)
+    dy = torch.randn(B, t_out, C, generator=g).to(dev, torch.bfloat16)
+    args = (x, w, valid, True, True, ab, dy, pre)
+    want = conv_stack.conv_gelu_block_backward_plain(*args)
+    before = conv_stack.backward_launches
+    got = conv_stack.backward_parts(*args, parts)
+    torch.cuda.synchronize()
+    assert conv_stack.backward_launches == before + 2 + (parts != 0)
+    if parts & conv_stack.BWD_DX:
+        _close(got[0], want[0], ulps=2.0)
+        _rel(got[2], want[2])
+        _rel(got[3], want[3])
+    else:
+        assert (got[2] == 0).all() and (got[3] == 0).all()
+    if parts & conv_stack.BWD_DW:
+        _rel(got[1], want[1])
+    else:
+        assert (got[1] == 0).all()
 
 
 @pytest.mark.parametrize("B,T,H", [(1, 1, 1), (2, 63, 2), (3, 65, 4), (2, 200, 12)])

@@ -25,10 +25,10 @@ from unispeech_tpu_torch.ops.kernels.l1_frontend import (
 C, K, STRIDE = 64, 10, 5
 
 
-def _inputs(ns, seed=0, B=2):
+def _inputs(ns, seed=0, B=2, k=K):
     rng = np.random.RandomState(seed)
     wav = rng.randn(B, ns).astype(np.float32)
-    kern = (rng.randn(K, 1, C) * 0.05).astype(np.float32)
+    kern = (rng.randn(k, 1, C) * 0.05).astype(np.float32)
     return wav, kern
 
 
@@ -66,21 +66,32 @@ def _cotangents(B, t1, seed=1):
             (rng.randn(B, C) * 0.1).astype(np.float32))
 
 
-@pytest.mark.parametrize("ns", [2565, 3001, 700], ids=["aligned", "ragged", "short"])
-@pytest.mark.parametrize("stats", [True, False], ids=["stats", "no_stats"])
-def test_l1_backward_matches_pallas(ns, stats):
+_NS_IDS = {2565: "aligned", 3001: "ragged", 700: "short"}
+# WavLM's (10, 5) at three lengths, then every other kind of geometry the
+# kernel's generic instantiation takes: k = stride (no second collapsed
+# row), k = 2 stride, and stride 8 (all eight lanes)
+_BWD_CASES = [(ns, stats, K, STRIDE) for stats in (True, False) for ns in _NS_IDS] + [
+    (ns, stats, k, stride) for k, stride in ((8, 4), (5, 5), (16, 8))
+    for stats in (True, False) for ns in (3001, 700)]
+
+
+@pytest.mark.parametrize(
+    "ns,stats,k,stride", _BWD_CASES,
+    ids=[f"{'stats' if st else 'no_stats'}-{_NS_IDS[ns]}"
+         + ("" if (k, sd) == (K, STRIDE) else f"-k{k}s{sd}") for ns, st, k, sd in _BWD_CASES])
+def test_l1_backward_matches_pallas(ns, stats, k, stride):
     """The plain backward against jax.grad through the Pallas op (interpret
     mode) and against torch autograd of the plain forward, fp32: the same
     products summed over t1 rows in other orders, rtol 1e-4 / atol 1e-4 of
     the gradient's scale."""
-    wav, kern = _inputs(ns)
-    t1 = (ns - K) // STRIDE + 1
+    wav, kern = _inputs(ns, k=k)
+    t1 = (ns - k) // stride + 1
     dy, d1, d2 = _cotangents(2, t1)
     if not stats:
         d1 = d2 = np.zeros_like(d1)
 
     def jloss(kk):
-        y, s1, s2, _ = jax_l1(jnp.asarray(wav), kk, STRIDE, dtype=jnp.float32, tile=256,
+        y, s1, s2, _ = jax_l1(jnp.asarray(wav), kk, stride, dtype=jnp.float32, tile=256,
                               interpret=True, with_stats=stats)
         out = jnp.sum(y[:, :t1] * dy)
         if stats:
@@ -90,7 +101,7 @@ def test_l1_backward_matches_pallas(ns, stats):
     want = np.asarray(jax.grad(jloss)(jnp.asarray(kern)))
     tw = torch.from_numpy(wav)
     sums = (torch.from_numpy(d1), torch.from_numpy(d2)) if stats else (None, None)
-    got = l1_conv_backward_plain(tw, torch.from_numpy(kern), STRIDE, torch.from_numpy(dy),
+    got = l1_conv_backward_plain(tw, torch.from_numpy(kern), stride, torch.from_numpy(dy),
                                  *sums, dtype=torch.float32)
     scale = np.abs(want).max()
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4 * scale)
@@ -100,7 +111,7 @@ def test_l1_backward_matches_pallas(ns, stats):
     k_op = torch.from_numpy(kern).requires_grad_()
     k_ref = torch.from_numpy(kern).requires_grad_()
     for fn, kk in ((l1_conv_with_stats, k_op), (l1_conv_with_stats_plain, k_ref)):
-        y, s1, s2, _ = fn(tw, kk, STRIDE, dtype=torch.float32)
+        y, s1, s2, _ = fn(tw, kk, stride, dtype=torch.float32)
         loss = (y * torch.from_numpy(dy)).sum()
         if stats:
             loss = loss + (s1 * sums[0]).sum() + (s2 * sums[1]).sum()

@@ -20,6 +20,18 @@ __device__ __forceinline__ float ex2(float x) {
     return y;
 }
 
+// the current device's SM count (host), for persistent grids
+inline int sm_count() {
+    static int n = 0;
+    if (n == 0) {
+        int dev = 0;
+        if (cudaGetDevice(&dev) != cudaSuccess ||
+            cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+            n = 132;
+    }
+    return n;
+}
+
 // exact (erf) GELU in fp32; the TPU kernels use a polynomial only because
 // Mosaic has no erf
 __device__ __forceinline__ float gelu_erf(float x) {

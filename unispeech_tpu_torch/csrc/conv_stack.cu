@@ -558,10 +558,15 @@ bool g_map(CUtensorMap* m, const void* g, int B, int t_out, int C, uint32_t box_
                                 CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// which of the two GEMMs a backward call launches (the g and H passes always
+// run); a call with one of them times that kernel alone
+constexpr int kBwdDx = 1, kBwdDw = 2;
+
 template <bool kAffine, bool kGeluIn>
 cudaError_t launch_bwd(const void* x, const void* w, const void* a, const void* bb,
                        const void* gsrc, void* h_buf, void* dx, void* dw, void* da, void* db,
-                       int B, int ts, int valid, int t_out, int C, int k, cudaStream_t stream) {
+                       int B, int ts, int valid, int t_out, int C, int k, int parts,
+                       cudaStream_t stream) {
     const void* hsrc = x;
     int th = ts;
     if (kAffine || kGeluIn) {
@@ -598,11 +603,13 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* a, const void* 
     if (err != cudaSuccess) return err;
     // both parities of kM rows t' per block: ceil(ts / 2) rows cover every input row
     const dim3 gdx((C + L::kN - 1) / L::kN, ((ts + 1) / 2 + L::kM - 1) / L::kM, B);
-    dx_kernel<<<gdx, L::kThreads, L::kBytes, stream>>>(
-        dxm, (const float*)a, (const float*)bb, (__nv_bfloat16*)dx,
-        (float*)da, (float*)db, ts, valid, C, k);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+    if (parts & kBwdDx) {
+        dx_kernel<<<gdx, L::kThreads, L::kBytes, stream>>>(
+            dxm, (const float*)a, (const float*)bb, (__nv_bfloat16*)dx,
+            (float*)da, (float*)db, ts, valid, C, k);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return err;
+    }
     // split the B * ceil(t_out / 64) K steps so the tiles fill two waves of
     // one block per SM
     const int nkb = (t_out + 63) / 64, total_steps = B * nkb;
@@ -613,8 +620,9 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* a, const void* 
     const int per_split = (total_steps + splits - 1) / splits;
     splits = (total_steps + per_split - 1) / per_split;
     const dim3 gdw((C + kFN - 1) / kFN, C / kFM, k * splits);
-    conv_bwd_dw_kernel<<<gdw, kFThreads, kFSmem, stream>>>(dwm, C, k, nkb, total_steps,
-                                                           per_split);
+    if (parts & kBwdDw)
+        conv_bwd_dw_kernel<<<gdw, kFThreads, kFSmem, stream>>>(dwm, C, k, nkb, total_steps,
+                                                               per_split);
     return cudaGetLastError();
 }
 
@@ -760,7 +768,7 @@ extern "C" int usk_conv_gelu_block_bwd(const void* x, const void* w, const void*
                                        const void* b, const void* dy, const void* pre,
                                        void* g_buf, void* h_buf, void* dx, void* dw, void* da,
                                        void* db, int B, int ts, int valid, int t_out, int C,
-                                       int k, int gelu_in, void* stream) {
+                                       int k, int gelu_in, int parts, void* stream) {
     const cudaStream_t s = (cudaStream_t)stream;
     const void* gsrc = dy;
     if (pre != nullptr) {
@@ -771,9 +779,9 @@ extern "C" int usk_conv_gelu_block_bwd(const void* x, const void* w, const void*
     }
     const int sel = (a != nullptr ? 2 : 0) | (gelu_in ? 1 : 0);
     switch (sel) {
-        case 0: return (int)launch_bwd<false, false>(x, w, a, b, gsrc, h_buf, dx, dw, da, db, B, ts, valid, t_out, C, k, s);
-        case 1: return (int)launch_bwd<false, true>(x, w, a, b, gsrc, h_buf, dx, dw, da, db, B, ts, valid, t_out, C, k, s);
-        case 2: return (int)launch_bwd<true, false>(x, w, a, b, gsrc, h_buf, dx, dw, da, db, B, ts, valid, t_out, C, k, s);
-        default: return (int)launch_bwd<true, true>(x, w, a, b, gsrc, h_buf, dx, dw, da, db, B, ts, valid, t_out, C, k, s);
+        case 0: return (int)launch_bwd<false, false>(x, w, a, b, gsrc, h_buf, dx, dw, da, db, B, ts, valid, t_out, C, k, parts, s);
+        case 1: return (int)launch_bwd<false, true>(x, w, a, b, gsrc, h_buf, dx, dw, da, db, B, ts, valid, t_out, C, k, parts, s);
+        case 2: return (int)launch_bwd<true, false>(x, w, a, b, gsrc, h_buf, dx, dw, da, db, B, ts, valid, t_out, C, k, parts, s);
+        default: return (int)launch_bwd<true, true>(x, w, a, b, gsrc, h_buf, dx, dw, da, db, B, ts, valid, t_out, C, k, parts, s);
     }
 }

@@ -106,6 +106,15 @@ __device__ __forceinline__ uint64_t map_addr(const CUtensorMap* map) {
 
 // TMA tile loads into shared memory, completing on bar (coordinates
 // innermost first, in elements)
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0) {
+    asm volatile(
+        "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3}], [%2];\n"
+        :: "r"(smem_u32(dst)), "l"(map_addr(map)), "r"(smem_u32(bar)), "r"(c0)
+        : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1) {
     asm volatile(
@@ -143,6 +152,13 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
         :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
 
+// contiguous bytes from shared memory to global memory (16-byte aligned, a
+// multiple of 16), in this thread's bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+                 :: "l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+}
+
 // dst[i] += src[i] in fp32 for bytes / 4 values, by the TMA unit (one
 // thread issues; 16-byte aligned, a multiple of 16 bytes)
 __device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const float* src, uint32_t bytes) {
@@ -173,9 +189,11 @@ __device__ __forceinline__ void bulk_commit() {
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-// this thread's bulk operations have read their shared-memory sources
+// this thread's bulk operations have read their shared-memory sources (all
+// but the N most recent bulk groups)
+template <int N = 0>
 __device__ __forceinline__ void bulk_wait_read() {
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
 }
 
 // this thread's bulk operations have completed
@@ -240,6 +258,25 @@ template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
 #pragma unroll
     for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8i..8i+7
+// give the row addresses (16 bytes each) of matrix i, lane l receives its
+// elements (2 (l % 4) + {0, 1}, l / 4)
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
+}
+
+// D (16 x 8 fp32) += A (16 x 16 bf16, row) . B (16 x 8 bf16, col), one warp:
+// the fragments of mma.sync.m16n8k16
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                               uint32_t b1) {
+    asm(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // byte offset of element (r, c) of a 128-byte-swizzled tile of 2-byte

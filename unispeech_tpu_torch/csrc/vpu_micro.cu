@@ -11,14 +11,15 @@
 // values (exp may differ by one fp32 ulp).
 //
 // Bound on the H100: bytes. One pass reads and writes 2 bytes per element:
-// at (6, 49152, 512) 604 MB, 0.180 ms at 3.35 TB/s; the heaviest variant
-// (gelu+dgelu6, ~40 fp32 operations per element) needs 0.090 ms of the
-// 67 TFLOP/s fp32 rate. Design: a grid-stride loop over 16-byte vectors
-// (8 bf16 per thread per iteration), about 16 blocks of 256 threads per SM
-// so that enough loads are in flight to cover the memory latency; the
-// last n % 8 elements go through a scalar tail.
+// at (6, 49152, 512) 604 MB, 0.180 ms at 3.35 TB/s. The arithmetic of the
+// longer variants (gelu_AS_exp: an exp, a reciprocal and ~25 fp32
+// operations per element) comes close to that time at one instruction per
+// lane and cycle, so every instruction counts: the reciprocal is
+// __frcp_rn (correctly rounded, the same bits as 1 / d), not a division.
+// The last n % 8 elements go through a scalar tail.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -80,7 +81,7 @@ __device__ __forceinline__ float gelu_as_exp(float x) {
                 a4 = -0x1.7401c6p+0f, a5 = 0x1.0fb844p+0f, p = 0x1.4f740ap-2f;
     const float z = __fmul_rn(x, 0x1.6a09e6p-1f);
     const float az = fabsf(z);
-    const float t = __fdiv_rn(1.0f, __fadd_rn(1.0f, __fmul_rn(p, az)));
+    const float t = __frcp_rn(__fadd_rn(1.0f, __fmul_rn(p, az)));  // d >= 1
     float poly = __fadd_rn(__fmul_rn(a5, t), a4);
     poly = __fadd_rn(__fmul_rn(poly, t), a3);
     poly = __fadd_rn(__fmul_rn(poly, t), a2);
@@ -103,31 +104,149 @@ __device__ __forceinline__ float apply(float x) {
     return __fadd_rn(gelu_poly6c(x), dgelu_poly8(x));
 }
 
+// Design, for all variants but gelu+dgelu6: a register stream. Each thread
+// issues kUnroll 16-byte loads that skip L1 before it computes, and stores
+// with the streaming hint; block j takes step j of kThreads x kUnroll
+// vectors, so the blocks the card holds at once, and each one that replaces
+// a finished one, advance through memory together. (Measured slower on the
+// H100: the same loop over the resident blocks only, each walking one
+// contiguous chunk or every grid-th step.) gelu+dgelu6, whose arithmetic
+// takes about as long as its bytes, runs faster through a bulk-copy ring
+// (vpu_ring_kernel), the other variants slower.
 constexpr int kThreads = 256;
+constexpr int kUnroll = 2;  // 16-byte loads in flight per thread (4: 1% slower)
+constexpr size_t kStep = (size_t)kThreads * kUnroll;  // vectors per block
+
+__device__ __forceinline__ uint4 ld_stream(const uint4* p) {
+    uint4 v;
+    asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+    return v;
+}
+
+__device__ __forceinline__ void st_stream(uint4* p, uint4 v) {
+    asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};"
+                 :: "l"(p), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
 
 template <int V>
 __global__ void __launch_bounds__(kThreads) vpu_micro_kernel(
     const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ y, size_t n) {
     const size_t n_vec = n / 8;
-    const size_t stride = (size_t)gridDim.x * blockDim.x;
-    const size_t first = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    for (size_t i = first; i < n_vec; i += stride) {
-        uint4 v = reinterpret_cast<const uint4*>(x)[i];
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+    const size_t i0 = blockIdx.x * kStep + threadIdx.x;
+    const uint4* xv = reinterpret_cast<const uint4*>(x);
+    uint4* yv = reinterpret_cast<uint4*>(y);
+    uint4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+        const size_t i = i0 + (size_t)u * kThreads;
+        v[u] = i < n_vec ? ld_stream(xv + i) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v[u]);
 #pragma unroll
         for (int q = 0; q < 8; ++q) e[q] = usk::f2bf(apply<V>(usk::bf2f(e[q])));
-        reinterpret_cast<uint4*>(y)[i] = v;
+        const size_t i = i0 + (size_t)u * kThreads;
+        if (i < n_vec) st_stream(yv + i, v[u]);
     }
-    const size_t tail = n_vec * 8 + first;
-    if (tail < n) y[tail] = usk::f2bf(apply<V>(usk::bf2f(x[tail])));
+    // the last n % 8 elements
+    const size_t t = n_vec * 8 + threadIdx.x;
+    if (blockIdx.x == gridDim.x - 1 && t < n) y[t] = usk::f2bf(apply<V>(usk::bf2f(x[t])));
+}
+
+constexpr int kRingStages = 6;
+constexpr int kRingChunk = 32768;  // bytes per stage
+constexpr int kRingConsumers = 512;
+constexpr size_t kRingSmem = (size_t)kRingStages * kRingChunk + 2 * kRingStages * 8;
+
+// One block per SM; chunk c of the vector part goes to block c % gridDim.x.
+// One thread moves the block's chunks global -> shared and back with
+// cp.async.bulk (the copies take no registers) while 16 warps transform
+// each chunk in place; a stage is refilled once its store has read it.
+template <int V>
+__global__ void __launch_bounds__(kRingConsumers + 32, 1) vpu_ring_kernel(
+    const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ y, size_t n) {
+    extern __shared__ __align__(1024) unsigned char ring[];
+    uint64_t* full = reinterpret_cast<uint64_t*>(ring + kRingStages * kRingChunk);
+    uint64_t* done = full + kRingStages;
+    const size_t n_bytes = n / 8 * 16;
+    const size_t n_chunks = (n_bytes + kRingChunk - 1) / kRingChunk;
+    const int mine = blockIdx.x < n_chunks
+                         ? (int)((n_chunks - 1 - blockIdx.x) / gridDim.x + 1) : 0;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < kRingStages; ++s) {
+            usk::mbar_init(&full[s], 1);
+            usk::mbar_init(&done[s], kRingConsumers);
+        }
+        usk::fence_barrier_init();
+    }
+    __syncthreads();
+    auto chunk_of = [&](int i) { return (size_t)blockIdx.x + (size_t)i * gridDim.x; };
+    auto bytes_of = [&](size_t c) {
+        const size_t left = n_bytes - c * kRingChunk;
+        return (uint32_t)(left < (size_t)kRingChunk ? left : kRingChunk);
+    };
+    auto load = [&](int i) {
+        const int s = i % kRingStages;
+        const size_t c = chunk_of(i);
+        usk::mbar_expect_tx(&full[s], bytes_of(c));
+        usk::bulk_load(ring + s * kRingChunk,
+                       reinterpret_cast<const unsigned char*>(x) + c * kRingChunk, bytes_of(c),
+                       &full[s]);
+    };
+    if (threadIdx.x == kRingConsumers) {  // the copying thread
+        for (int i = 0; i < kRingStages - 1 && i < mine; ++i) load(i);
+        for (int i = 0; i < mine; ++i) {
+            // chunk i is transformed: write it back, then refill the stage of
+            // chunk i - 1, whose store has read it once at most the newest
+            // bulk group is pending
+            const int s = i % kRingStages;
+            usk::mbar_wait(&done[s], (i / kRingStages) & 1);
+            const size_t c = chunk_of(i);
+            usk::bulk_store(reinterpret_cast<unsigned char*>(y) + c * kRingChunk,
+                            ring + s * kRingChunk, bytes_of(c));
+            usk::bulk_commit();
+            if (i + kRingStages - 1 < mine) {
+                usk::bulk_wait_read<1>();
+                load(i + kRingStages - 1);
+            }
+        }
+        usk::bulk_wait();
+    } else if (threadIdx.x < kRingConsumers) {
+        for (int i = 0; i < mine; ++i) {
+            const int s = i % kRingStages;
+            usk::mbar_wait(&full[s], (i / kRingStages) & 1);
+            uint4* p = reinterpret_cast<uint4*>(ring + s * kRingChunk);
+            const int nv = (int)(bytes_of(chunk_of(i)) / 16);
+            for (int j = threadIdx.x; j < nv; j += kRingConsumers) {
+                uint4 v = p[j];
+                __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+#pragma unroll
+                for (int q = 0; q < 8; ++q) e[q] = usk::f2bf(apply<V>(usk::bf2f(e[q])));
+                p[j] = v;
+            }
+            usk::fence_proxy_async();  // the transformed chunk, for the bulk store
+            usk::mbar_arrive(&done[s]);
+        }
+        const size_t t = n / 8 * 8 + threadIdx.x;  // the last n % 8 elements
+        if (blockIdx.x == 0 && t < n) y[t] = usk::f2bf(apply<V>(usk::bf2f(x[t])));
+    }
 }
 
 template <int V>
 cudaError_t launch(const void* x, void* y, size_t n, cudaStream_t stream) {
-    const size_t want = (n / 8 + kThreads - 1) / kThreads;
-    const int grid = (int)(want < 1 ? 1 : (want > 132 * 16 ? 132 * 16 : want));
-    vpu_micro_kernel<V><<<grid, kThreads, 0, stream>>>(
-        (const __nv_bfloat16*)x, (__nv_bfloat16*)y, n);
+    if constexpr (V == kGeluDgelu6) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            vpu_ring_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kRingSmem);
+        if (err != cudaSuccess) return err;
+        vpu_ring_kernel<V><<<usk::sm_count(), kRingConsumers + 32, kRingSmem, stream>>>(
+            (const __nv_bfloat16*)x, (__nv_bfloat16*)y, n);
+    } else {
+        const size_t steps = (n / 8 + kStep - 1) / kStep;
+        vpu_micro_kernel<V><<<(unsigned)(steps > 0 ? steps : 1), kThreads, 0, stream>>>(
+            (const __nv_bfloat16*)x, (__nv_bfloat16*)y, n);
+    }
     return cudaGetLastError();
 }
 

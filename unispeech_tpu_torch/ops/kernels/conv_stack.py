@@ -24,7 +24,8 @@ backward_launches = 0  # backward kernel launches made by conv_gelu_block_backwa
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURE = [_P] * 7 + [_I] * 8 + [_P]
-_BWD_SIGNATURE = [_P] * 12 + [_I] * 7 + [_P]
+_BWD_SIGNATURE = [_P] * 12 + [_I] * 8 + [_P]
+BWD_DX, BWD_DW = 1, 2  # the backward's two GEMMs, as bits of ``parts``
 
 Affine = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -164,10 +165,19 @@ def conv_gelu_block_backward(x, kernel, valid_len: int, gelu_in: bool, gelu_out:
     saved pre-activation (used with the output GELU). CPU tensors take the
     plain version; a CUDA tensor launches the kernels or raises. Returns
     (dx (B, T, C), dW (k, C, C) fp32, da, db) as the plain version."""
-    global backward_launches
     if not x.is_cuda:
         return conv_gelu_block_backward_plain(x, kernel, valid_len, gelu_in, gelu_out,
                                               affine, dy, pre)
+    return backward_parts(x, kernel, valid_len, gelu_in, gelu_out, affine, dy, pre,
+                          BWD_DX | BWD_DW)
+
+
+def backward_parts(x, kernel, valid_len: int, gelu_in: bool, gelu_out: bool, affine: Affine,
+                   dy, pre, parts: int):
+    """The backward's kernels on CUDA tensors: the g and H passes where they
+    run, then those of the GEMMs dx and dW that ``parts`` names. With one
+    GEMM left out, its output is left unwritten; this times each GEMM alone."""
+    global backward_launches
     B, ts, C, t_out, w, ab = _check_cuda(x, kernel, valid_len, affine)
     k = kernel.shape[0]
     req = _build.require
@@ -192,9 +202,10 @@ def conv_gelu_block_backward(x, kernel, valid_len: int, gelu_in: bool, gelu_out:
                   ptr(None if ab is None else ab[0]), ptr(None if ab is None else ab[1]),
                   dy.data_ptr(), ptr(pre if gelu_out else None), ptr(g_buf), ptr(h_buf),
                   dx.data_ptr(), dw.data_ptr(), ptr(da), ptr(db), B, ts, valid_len, t_out,
-                  C, k, int(gelu_in), _build.stream(x))
+                  C, k, int(gelu_in), parts, _build.stream(x))
     # dx and dW, after the g pass (output GELU) and the H pass where they run
-    backward_launches += 2 + (g_buf is not None) + (h_buf is not None)
+    backward_launches += (bool(parts & BWD_DX) + bool(parts & BWD_DW) + (g_buf is not None)
+                          + (h_buf is not None))
     return dx, dw, da, db
 
 

@@ -4,8 +4,10 @@ Counterpart of the JAX package's ``ops/pallas/l1_frontend.py``: one pass
 from the raw waveform writes the (B, t1, C) conv output and the per-(batch,
 channel) fp32 sum and sum of squares of its bf16-rounded values, so the
 GroupNorm mean/variance need no second pass over the largest tensor of the
-model. CUDA tensors go to the kernel in ``csrc/l1_frontend.cu``; CPU tensors
-to the plain version below.
+model. CUDA tensors go to the kernels in ``csrc/l1_frontend.cu`` (the
+backward: one launch, y1 recomputed and dW summed on tensor cores from the
+JAX kernel's collapsed waveform layout, dy by TMA); CPU tensors to the plain
+versions below.
 """
 
 from __future__ import annotations
@@ -79,6 +81,7 @@ def _geometry_cuda(wav, kernel, stride, dtype):
     B, NS = wav.shape
     t1 = (NS - k) // stride + 1
     req(t1 >= 1 and B >= 1, f"waveform of {NS} samples is shorter than one window")
+    req(B * NS < 2**31, f"L1 kernels index {B} x {NS} samples with 32-bit integers")
     return B, NS, t1, k, C, kernel[:, 0, :].to(torch.bfloat16).contiguous()
 
 
@@ -111,6 +114,9 @@ def l1_conv_backward(wav, kernel, stride: int, dy, ds1=None, ds2=None,
     req = _build.require
     req(C <= 1024, f"L1 backward kernel takes C <= 1024 channels, got {C}")
     dy = dy.contiguous()
+    # the kernel reads dy and the waveform by TMA: 16-byte aligned
+    dy = dy.clone() if dy.data_ptr() % 16 else dy
+    wav = wav.clone() if wav.data_ptr() % 16 else wav
     req(dy.dtype == torch.bfloat16 and dy.shape == (B, t1, C) and dy.device == wav.device,
         f"dy must be bf16 ({B}, {t1}, {C}) on the waveform's device")
     sums = []

@@ -15,8 +15,10 @@ out, in the TPU script's operation order:
   gelu+dgelu6   gelu_poly6c(x) + dgelu_poly8(x)
 
 CUDA tensors go to ``csrc/vpu_micro.cu`` (bound: bytes, 4 bytes moved per
-element; design: grid-stride 16-byte vectors); CPU tensors to the plain
-versions below, one fp32 operation per step, as the kernel rounds.
+element; design: two 16-byte streaming loads in flight per thread, one
+block per 512 vectors; gelu+dgelu6 through a ring of bulk copies in shared
+memory); CPU tensors to the plain versions below, one fp32 operation per
+step, as the kernel rounds.
 """
 
 from __future__ import annotations
