@@ -7,26 +7,35 @@ Phases, one line each (any failure raises and exits non-zero):
   1 device   the card's name and power limit; TF32 off for the plain versions
   2 build    nvcc builds the port's kernels from unispeech_tpu_torch/csrc
   3 parity   each forward kernel against its plain PyTorch version, on the
-             card, at the shapes the serving path gives it, in bf16
+             card, at the shapes the serving path gives it, in bf16; the L1
+             forward with and without its sums also at the pretraining
+             shape, at (k, stride) = (10, 5) and (8, 4)
   4 main     WavLM-Base+ (random weights from a seed, bf16) extract_features
              on a padded batch of 4 utterances (16/12/7/3 s), full depth and
              output_layer=6; launch counts per forward; the kernel path held
              against the same model with the three ops' plain versions
-  5 cli      python -m unispeech_tpu_torch.tools dump-features --feature model
+  5 large    WavLM-Large (the config dump-features --arch large builds:
+             layer_norm extractor, pre-LN, normalized input; 24 layers,
+             width 1024; random weights from a seed, bf16) extract_features
+             on the same batch: the conv blocks in the extractor's form
+             against their plain versions, launch counts per forward, the
+             kernel path against the plain path, forward ms, host enqueue
+             ms, audio-seconds per second, peak memory
+  6 cli      python -m unispeech_tpu_torch.tools dump-features --feature model
              on a manifest of wav files and a params .npz in the JAX layout
-  6 bwd      each backward kernel, and the attention forward with dropout,
+  7 bwd      each backward kernel, and the attention forward with dropout,
              against its plain version at the pretraining shapes (6 crops of
              245,840 samples, 768 frames, two rows padded for attention)
-  7 train    WavLM-Base masked-prediction pretraining (the bench's config,
+  8 train    WavLM-Base masked-prediction pretraining (the bench's config,
              full width and depth, random weights from a seed) on 6 crops of
              245,840 samples: 3 steps of make_train_step with launch counts
              per step; one step's gradients, kernel path against plain path;
              20 steps on one batch, the loss must fall
-  8 vpu      the elementwise micro-benchmark's entry point
+  9 vpu      the elementwise micro-benchmark's entry point
              (python -m unispeech_tpu_torch.scripts.exp_vpu_micro) at
              (6, 49152, 512) bf16 with launch counts; each of its seven
              variants against its plain version; per-variant times
-  9 times    each kernel (forward at the serving shapes, backward and the
+ 10 times    each kernel (forward at the serving shapes, backward and the
              dropout forward at the pretraining shapes; the conv backward
              per block with dx and dW apart), its plain version, its bound
              and one PyTorch library call; the kernel's wrapper and the library
@@ -224,8 +233,125 @@ def plain_ops():
         encoder.l1_conv_with_stats, encoder.conv_gelu_block, encoder.fused_attention = saved
 
 
+def l1_forward_parity(dev, wav, w1, s0):
+    """Both instantiations of the L1 forward (with and without the sums)
+    against the plain version: at the serving batch with the main path's
+    (k, stride), and at the pretraining shape with it and, through the
+    generic instantiation, with (8, 4). y1 within one bf16 ulp at its scale;
+    the sums, fp32 over t1 rows in two orders (per-lane rows, shuffles and
+    per-block atomics vs the library reduction), within 1e-4 of the sum of
+    |terms|; one launch per call, no sums without them. Returns y1's max abs
+    error with and without the sums."""
+    from unispeech_tpu_torch.ops.kernels import l1_frontend
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    C = w1.shape[2]
+    wav_t = (torch.randn(TRAIN_B, TRAIN_NS, generator=gen) * 0.1).to(dev)
+    w8 = (torch.randn(8, 1, C, generator=gen) * 0.5).to(dev)
+    err = {True: 0.0, False: 0.0}
+    for tag, x, w, s in (("serving", wav, w1, s0), ("pretraining", wav_t, w1, s0),
+                         ("pretraining.k8s4", wav_t, w8, 4)):
+        py, ps1, ps2, pt1 = l1_frontend.l1_conv_with_stats_plain(x, w, s)
+        for stats in (True, False):
+            name = f"l1_conv_with_stats.{tag}" + ("" if stats else ".no_sums")
+            before = l1_frontend.launches
+            y, s1, s2, t1 = l1_frontend.l1_conv_with_stats(x, w, s, with_stats=stats)
+            torch.cuda.synchronize()
+            if l1_frontend.launches != before + 1 or t1 != pt1:
+                fail(f"{name}: {l1_frontend.launches - before} launches, t1 {t1} != {pt1}")
+            err[stats] = max(err[stats], compare(f"{name}.y1", y, py))
+            if not stats:
+                if s1 is not None or s2 is not None:
+                    fail(f"{name}: sums returned")
+                continue
+            for nm, got, want, mag in (("s1", s1, ps1, py.float().abs().sum(1)),
+                                       ("s2", s2, ps2, py.float().square().sum(1))):
+                e = float(((got - want).abs() / mag).max())
+                phase("parity", kernel=f"{name}.{nm}", max_rel_to_sum_abs=f"{e:.3g}",
+                      tol="1e-4")
+                if not e <= 1e-4:
+                    fail(f"{name}.{nm}: {e}")
+            del y, s1, s2
+        del py, ps1, ps2
+    return err[True], err[False]
+
+
+def large_phase(dev, wav, lengths, card):
+    """Phase 5: WavLM-Large feature extraction on the card. Returns the
+    launch counts of one forward and the conv blocks' max abs error."""
+    from unispeech_tpu_torch.configs import WavLMModelConfig, large_encoder_config
+    from unispeech_tpu_torch.models.wavlm import WavLM
+    from unispeech_tpu_torch.ops.kernels import conv_stack, flash_attention, l1_frontend
+
+    # the config dump-features --arch large builds
+    cfg = large_encoder_config(relative_position_embedding=True, gru_rel_pos=True, dropout=0.0,
+                               attention_dropout=0.0, encoder_layerdrop=0.0)
+    B, NS = wav.shape
+    gen = torch.Generator().manual_seed(SEED + 7)
+    C, k0, s0 = cfg.conv_layers[0]
+    # each block as the layer_norm extractor runs it (input GELU, no affine,
+    # no output GELU), at the serving shapes, a LayerNorm between blocks
+    x = torch.randn(B, (NS - k0) // s0 + 1, C, generator=gen).to(dev, torch.bfloat16)
+    err_conv = 0.0
+    for i, (dim, k, _) in enumerate(cfg.conv_layers[1:], start=2):
+        w = (torch.randn(k, C, dim, generator=gen) * (2.0 / (k * C)) ** 0.5).to(
+            dev, torch.bfloat16)
+        y, _ = conv_stack.conv_gelu_block(x, w, x.shape[1], True, False, None)
+        py, _ = conv_stack.conv_gelu_block_plain(x, w, x.shape[1], True, False, None)
+        torch.cuda.synchronize()
+        err_conv = max(err_conv, compare(f"conv_gelu_block.layer_norm_form.L{i}", y, py))
+        x = F.layer_norm(py.float(), (dim,)).to(torch.bfloat16)
+    del x, y, py
+
+    model = WavLM(WavLMModelConfig(encoder=cfg), dtype=torch.bfloat16,
+                  generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
+    nparams = sum(p.numel() for p in model.parameters())
+    counters = (l1_frontend, conv_stack, flash_attention)
+    for c in counters:
+        c.launches = 0
+    out = model.extract_features(wav, lengths=lengths).x
+    torch.cuda.synchronize()
+    launches = tuple(c.launches for c in counters)
+    # L1 without the sums; every conv block has the input GELU: its H pass
+    # and its GEMM; one attention call per layer
+    want = (1, 2 * (len(cfg.conv_layers) - 1), cfg.encoder_layers)
+    n_frames, D = cfg.num_frames(NS), cfg.encoder_embed_dim
+    if out.shape != (B, n_frames, D) or not torch.isfinite(out).all():
+        fail(f"large: output {tuple(out.shape)} not finite (B, {n_frames}, {D})")
+    if launches != want:
+        fail(f"large: launches (l1, conv, attention) {launches} != {want}")
+    with plain_ops():
+        plain_x = model.extract_features(wav, lengths=lengths).x
+    # bf16 rounding differences of the two paths through 24 layers
+    e = rel_l2(out, plain_x)
+    del out, plain_x
+
+    fwd_ms = cuda_ms(lambda: model.extract_features(wav, lengths=lengths), iters=5, warmup=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.extract_features(wav, lengths=lengths)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model.extract_features(wav, lengths=lengths)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    busy_ms, wall_ms, _ = profile_once(lambda: model.extract_features(wav, lengths=lengths),
+                                       "large_profile")
+    audio_s = float(lengths.sum()) / SAMPLE_RATE
+    phase("large", params=nparams, shape=(B, n_frames, D), launches=launches,
+          rel_l2_vs_plain=f"{e:.3g}", tol="5e-2", forward_ms=f"{fwd_ms:.3f}",
+          host_enqueue_ms=f"{host_ms:.3f}", audio_seconds=audio_s,
+          audio_sec_per_s=f"{audio_s / (fwd_ms / 1e3):.1f}", peak_memory_gb=f"{peak_gb:.2f}",
+          profiled_busy_ms=f"{busy_ms:.3f}", profiled_wall_ms=f"{wall_ms:.3f}",
+          card=card.replace(" ", "_"))
+    if not e <= 5e-2:
+        fail("large: kernel path disagrees with the plain path")
+    return dict(launches=launches, err_conv=err_conv)
+
+
 def backward_parity(dev, cfg):
-    """Phase 6: each backward kernel (and the attention forward with dropout)
+    """Phase 7: each backward kernel (and the attention forward with dropout)
     against its plain version at the pretraining shapes. Returns the inputs
     the times phase reuses and the max abs errors."""
     from unispeech_tpu_torch.ops.kernels import conv_stack, flash_attention, l1_frontend
@@ -325,7 +451,7 @@ def backward_parity(dev, cfg):
 
 
 def train_phase(dev, counters, train_counts):
-    """Phase 7: WavLM-Base pretraining steps on the card. Fills
+    """Phase 8: WavLM-Base pretraining steps on the card. Fills
     ``train_counts`` with the launch counts of the first step; returns the
     end-to-end numbers."""
     import dataclasses
@@ -623,7 +749,7 @@ VPU_ITERS = 50
 
 
 def vpu_phase(dev):
-    """Phase 8: the micro-benchmark's entry point at its full shape with the
+    """Phase 9: the micro-benchmark's entry point at its full shape with the
     launch count read around it, then each variant against its plain
     version on the same input. Returns the kernels row."""
     from unispeech_tpu_torch.ops.kernels import vpu_micro
@@ -727,21 +853,8 @@ def main() -> int:
     C = cfg.conv_layers[0][0]
     k0, s0 = cfg.conv_layers[0][1:]
     w1 = (torch.randn(k0, 1, C, generator=gen) * (2.0 / k0) ** 0.5).to(dev)
-    y1, s1, s2, t1 = l1_frontend.l1_conv_with_stats(wav, w1, s0)
-    py1, ps1, ps2, pt1 = l1_frontend.l1_conv_with_stats_plain(wav, w1, s0)
-    torch.cuda.synchronize()
-    if t1 != pt1:
-        fail(f"l1 t1 {t1} != {pt1}")
-    err_l1 = compare("l1_conv_with_stats.y1", y1, py1)
-    # the sums: fp32 over t1 rows in two orders (thread rows + cross-tile
-    # atomics vs the library reduction); bound 1e-4 of the sum of |terms|
-    for nm, got, want, mag in (("s1", s1, ps1, py1.float().abs().sum(1)),
-                               ("s2", s2, ps2, py1.float().square().sum(1))):
-        e = float(((got - want).abs() / mag).max())
-        phase("parity", kernel=f"l1_conv_with_stats.{nm}", max_rel_to_sum_abs=f"{e:.3g}",
-              tol="1e-4")
-        if not e <= 1e-4:
-            fail(f"l1 {nm}: {e}")
+    t1 = (NS - k0) // s0 + 1
+    err_l1, err_l1_nosums = l1_forward_parity(dev, wav, w1, s0)
 
     conv_inputs = []  # (x, kernel, affine, gelu_in) per block, as the main path calls them
     x = torch.randn(B, t1, C, generator=gen).to(dev, torch.bfloat16)
@@ -828,7 +941,11 @@ def main() -> int:
         fail("kernel path disagrees with the plain path")
     clock.done("main")
 
-    # 5 the dump-features CLI on the card
+    # 5 WavLM-Large feature extraction through the layer_norm extractor
+    large = large_phase(dev, wav, lengths, smi)
+    clock.done("large")
+
+    # 6 the dump-features CLI on the card
     tmp = _build.BUILD_DIR / "smoke_cli"
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir(parents=True)
@@ -865,12 +982,12 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     clock.done("cli")
 
-    # 6 backward kernels at the pretraining shapes
+    # 7 backward kernels at the pretraining shapes
     bw = backward_parity(dev, base_encoder_config(relative_position_embedding=True,
                                                   gru_rel_pos=True))
     clock.done("bwd")
 
-    # 7 pretraining steps; the counts are read per step inside
+    # 8 pretraining steps; the counts are read per step inside
     train_counts = {}
     counters = [(l1_frontend, "launches"), (l1_frontend, "backward_launches"),
                 (conv_stack, "launches"), (conv_stack, "backward_launches"),
@@ -878,16 +995,17 @@ def main() -> int:
     train = train_phase(dev, counters, train_counts)
     clock.done("train")
 
-    # 8 the elementwise micro-benchmark at its full shape
+    # 9 the elementwise micro-benchmark at its full shape
     vpu_row = vpu_phase(dev)
     clock.done("vpu")
 
-    # 9 times: forward kernels at the serving shapes (per forward: all
+    # 10 times: forward kernels at the serving shapes (per forward: all
     # launches of a kernel), backward kernels at the pretraining shapes (per
     # train step)
     wav_bf = wav.to(torch.bfloat16)[:, None, :]
     w1_lib = w1.permute(2, 1, 0).to(torch.bfloat16).contiguous()
     l1_bytes = B * NS * 4 + B * t1 * C * 2 + 2 * B * C * 4
+    l1_nosums_bytes = B * NS * 4 + B * t1 * C * 2
     l1_flops = 2 * B * t1 * C * k0
     rows = [dict(
         name="l1_conv_with_stats", route="cuda", source="unispeech_tpu_torch/csrc/l1_frontend.cu",
@@ -898,6 +1016,21 @@ def main() -> int:
         plain_ms=cuda_ms(lambda: l1_frontend.l1_conv_with_stats_plain(wav, w1, s0), iters=5),
         bound_ms=1e3 * max(l1_bytes / HBM_BYTES_PER_S, l1_flops / FP32_FLOPS),
         bound_by="bytes" if l1_bytes / HBM_BYTES_PER_S >= l1_flops / FP32_FLOPS
+        else "operations",
+        **library_row(lambda: F.conv1d(wav_bf, w1_lib, stride=s0)),
+    ), dict(
+        name="l1_conv_with_stats.no_sums", route="cuda",
+        source="unispeech_tpu_torch/csrc/l1_frontend.cu",
+        replaces="unispeech_tpu/ops/pallas/l1_frontend.py:164",
+        launches=large["launches"][0], max_abs_err=err_l1_nosums,
+        ms=cuda_ms(lambda: l1_frontend.l1_conv_with_stats(wav, w1, s0, with_stats=False)),
+        device_ms=device_ms(lambda: l1_frontend.l1_conv_with_stats(wav, w1, s0,
+                                                                   with_stats=False)),
+        plain_ms=cuda_ms(lambda: l1_frontend.l1_conv_with_stats_plain(wav, w1, s0,
+                                                                      with_stats=False),
+                         iters=5),
+        bound_ms=1e3 * max(l1_nosums_bytes / HBM_BYTES_PER_S, l1_flops / FP32_FLOPS),
+        bound_by="bytes" if l1_nosums_bytes / HBM_BYTES_PER_S >= l1_flops / FP32_FLOPS
         else "operations",
         **library_row(lambda: F.conv1d(wav_bf, w1_lib, stride=s0)),
     )]
@@ -930,7 +1063,8 @@ def main() -> int:
     rows.append(dict(
         name="conv_gelu_block", route="cuda", source="unispeech_tpu_torch/csrc/conv_stack.cu",
         replaces="unispeech_tpu/ops/pallas/conv_stack.py:156",
-        launches=main_launches[1], max_abs_err=err_conv, ms=conv_ms, device_ms=conv_dev,
+        launches=main_launches[1], max_abs_err=max(err_conv, large["err_conv"]), ms=conv_ms,
+        device_ms=conv_dev,
         plain_ms=conv_plain,
         bound_ms=conv_bound, bound_by="operations" if "operations" in conv_by else "bytes",
         library_ms=conv_lib, library_device_ms=conv_lib_dev,
@@ -979,7 +1113,7 @@ def main() -> int:
           audio_seconds=audio_s,
           padded_seconds=B * NS / SAMPLE_RATE,
           audio_sec_per_s=f"{audio_s / (fwd_ms / 1e3):.1f}",
-          kernel_share=f"{sum(r['ms'] for r in rows[:3]) / fwd_ms:.3f}")
+          kernel_share=f"{(rows[0]['ms'] + rows[2]['ms'] + rows[3]['ms']) / fwd_ms:.3f}")
     phase("e2e_train", step_ms=f"{train['step_ms']:.3f}",
           host_enqueue_ms=f"{train['host_ms']:.3f}",
           audio_seconds_per_step=train["audio_s"],

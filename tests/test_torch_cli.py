@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from unispeech_tpu.configs import WavLMModelConfig as JaxWavLMConfig
-from unispeech_tpu.configs import base_encoder_config
+from unispeech_tpu.configs import base_encoder_config, large_encoder_config
 from unispeech_tpu.models.wavlm import WavLM as JaxWavLM
 from unispeech_tpu.tools.__main__ import main as jax_main
 from unispeech_tpu.train.checkpoint import save_params_npz
@@ -53,10 +53,9 @@ def wavs(tmp_path):
     return tmp_path
 
 
-@pytest.fixture
-def setup(wavs):
-    tmp_path = wavs
-    enc = base_encoder_config(
+def _export(tmp_path, enc_fn):
+    """A JAX checkpoint of the tiny model that ``--arch`` with TINY builds."""
+    enc = enc_fn(
         relative_position_embedding=True, gru_rel_pos=True, dropout=0.0,
         attention_dropout=0.0, encoder_layerdrop=0.0,
         **{k: tuple(map(tuple, v)) if k == "conv_layers" else v for k, v in TINY.items()})
@@ -64,6 +63,11 @@ def setup(wavs):
     params = model.init({"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 4000)))["params"]
     save_params_npz(str(tmp_path / "params.npz"), params)
     return tmp_path
+
+
+@pytest.fixture
+def setup(wavs):
+    return _export(wavs, base_encoder_config)
 
 
 def _args(d, feat_dir, *extra):
@@ -74,9 +78,19 @@ def _args(d, feat_dir, *extra):
 
 
 def test_dump_features_matches_jax(setup):
-    d = setup
-    jax_main(_args(d, "jax"))
-    torch_main(_args(d, "torch", "--device", "cpu"))
+    _dump_and_compare(setup)
+
+
+def test_dump_features_matches_jax_large(wavs):
+    """``--arch large``: WavLM-Large's config (layer_norm extractor, pre-LN,
+    normalized input) made tiny by ``--encoder-json``, on a checkpoint the
+    JAX package exported."""
+    _dump_and_compare(_export(wavs, large_encoder_config), "--arch", "large")
+
+
+def _dump_and_compare(d, *extra):
+    jax_main(_args(d, "jax", *extra))
+    torch_main(_args(d, "torch", *extra, "--device", "cpu"))
     assert (d / "jax" / "train_0_1.len").read_text() == (
         d / "torch" / "train_0_1.len").read_text()
     want = np.load(d / "jax" / "train_0_1.npy")

@@ -48,18 +48,53 @@ def _rel(got, want, tol=1e-3):
     assert diff <= tol * want.float().norm().item(), diff
 
 
-@pytest.mark.parametrize("B,ns,C", [(1, 400, 512), (3, 5003, 64), (2, 16000 * 3 + 7, 512)])
-def test_l1_edges(dev, B, ns, C):
-    g = torch.Generator().manual_seed(ns)
+# (B, t1, C) for the forward: the earlier cases' t1 (79, 999 and 9600 from
+# 400, 5003 and 48,007 samples) and 9599; t1 one row either side of a
+# tile's rows (32 and 64 at C = 512, 256 and 512 at C = 64, 32 above
+# C = 1024); C = 192 (15 warps), 1024 and 2048 (two 64-channel blocks per
+# warp); more tiles than SMs with several utterances (9600 x 2 at C = 512,
+# 4097 x 5 at C = 1024), so a persistent block's warps flush their sums
+# where they cross from one utterance to the next
+L1_FWD_SHAPES = [(1, 79, 512), (3, 999, 64), (2, 9600, 512), (2, 9599, 512), (2, 31, 512),
+                 (2, 33, 512), (2, 63, 512), (2, 65, 512), (1, 255, 64), (1, 257, 64),
+                 (1, 511, 64), (1, 513, 64), (2, 333, 192), (5, 4097, 1024), (1, 15, 2048),
+                 (2, 17, 2048), (3, 1001, 2048)]
+
+
+@pytest.mark.parametrize("B,t1,C", L1_FWD_SHAPES)
+@pytest.mark.parametrize("k,stride", [(10, 5), (8, 4), (16, 8)])
+@pytest.mark.parametrize("stats", [True, False])
+def test_l1_edges(dev, B, t1, C, k, stride, stats):
+    """Both instantiations of the forward (with and without the sums) at
+    WavLM's (10, 5) and, through the generic one, at (8, 4) and (16, 8): y1
+    within one bf16 ulp, one launch, no sums without them. The sums: those
+    of the y1 the kernel wrote within 1e-4 of the sum of |terms| (fp32 over
+    t1 rows in two orders); the plain version's within 1e-4 of it at WavLM's
+    (10, 5) from t1 = 79 on (the earlier cases), elsewhere within 1e-4 plus
+    the sum of |y1 - y1_plain|: where the plain fp32 conv rounds y1 to the
+    neighbouring bf16 value, its sums move by that much (a one-ulp flip is
+    ~2^-8 / t1 of the sum, over 1e-4 of it at the shortest t1)."""
+    g = torch.Generator().manual_seed(t1 * 3 + k + C)
+    ns = (t1 - 1) * stride + k + t1 % stride  # a ragged tail of samples past the last window
     wav = (torch.randn(B, ns, generator=g) * 0.1).to(dev)
-    w = (torch.randn(10, 1, C, generator=g) * 0.4).to(dev)
-    y, s1, s2, t1 = l1_frontend.l1_conv_with_stats(wav, w, 5)
-    py, ps1, ps2, pt1 = l1_frontend.l1_conv_with_stats_plain(wav, w, 5)
-    assert t1 == pt1 == (ns - 10) // 5 + 1
+    w = (torch.randn(k, 1, C, generator=g) * 0.4).to(dev)
+    before = l1_frontend.launches
+    y, s1, s2, got_t1 = l1_frontend.l1_conv_with_stats(wav, w, stride, with_stats=stats)
+    assert l1_frontend.launches == before + 1
+    py, ps1, ps2, pt1 = l1_frontend.l1_conv_with_stats_plain(wav, w, stride)
+    assert got_t1 == pt1 == t1
     _close(y, py)
-    mag = py.float().abs().sum(1)
-    assert ((s1 - ps1).abs() / mag).max() <= 1e-4
-    assert ((s2 - ps2).abs() / py.float().square().sum(1)).max() <= 1e-4
+    if not stats:
+        assert s1 is None and s2 is None
+        return
+    yf, pyf = y.float(), py.float()
+    for got, own, want, terms, flips in (
+            (s1, yf.sum(1), ps1, yf.abs().sum(1), (yf - pyf).abs().sum(1)),
+            (s2, yf.square().sum(1), ps2, yf.square().sum(1),
+             (yf.square() - pyf.square()).abs().sum(1))):
+        assert ((got - own).abs() <= 1e-4 * terms).all()
+        strict = (k, stride) == (10, 5) and t1 >= 79
+        assert ((got - want).abs() <= 1e-4 * terms + (0.0 if strict else flips)).all()
 
 
 @pytest.mark.parametrize("k", [2, 3])
@@ -209,6 +244,12 @@ def test_wrappers_reject(dev):
     with pytest.raises(ValueError):  # the L1 kernel takes an fp32 waveform
         l1_frontend.l1_conv_with_stats(torch.zeros(1, 400, device=dev, dtype=torch.bfloat16),
                                        torch.zeros(10, 1, 64, device=dev), 5)
+    for C in (96, 2112):  # not a multiple of 64; more than 2048 channels
+        for stats in (True, False):
+            with pytest.raises(ValueError):
+                l1_frontend.l1_conv_with_stats(torch.zeros(1, 400, device=dev),
+                                               torch.zeros(10, 1, C, device=dev), 5,
+                                               with_stats=stats)
 
 
 @pytest.mark.parametrize("over", [{}, {"use_fused_l1": False}], ids=["fused", "plain_l1"])
@@ -240,6 +281,69 @@ def test_small_model_kernel_path_matches_plain(dev, monkeypatch, over):
     monkeypatch.setattr(encoder, "fused_attention", flash_attention.fused_attention_plain)
     want = model.extract_features(wav, lengths=lengths).x
     assert torch.isfinite(got).all()
+    assert ((got.float() - want.float()).norm() / want.float().norm()).item() <= 2e-2
+
+
+@pytest.mark.parametrize("B,T,valid", [(2, 4001, 4001), (3, 1001, 998)])
+@pytest.mark.parametrize("k", [2, 3])
+def test_conv_block_layer_norm_form(dev, B, T, valid, k):
+    """The block as the layer_norm extractor runs it (input GELU, no affine,
+    no output GELU) through its autograd function: y within one bf16 ulp of
+    the plain version; dx within 2 ulps and dW within relative L2 1e-3 of
+    the plain backward; launches: the H pass and the GEMM forward, the H
+    pass, dx and dW backward (no g pass without the output GELU)."""
+    g = torch.Generator().manual_seed(T + k)
+    C = 512
+    x = torch.randn(B, T, C, generator=g).to(dev, torch.bfloat16).requires_grad_()
+    # fp32 like the model's parameters: the gradient then comes back in fp32
+    w = (torch.randn(k, C, C, generator=g) * (2.0 / (k * C)) ** 0.5).to(dev).requires_grad_()
+    f0, b0 = conv_stack.launches, conv_stack.backward_launches
+    y, t_out = conv_stack.conv_gelu_block(x, w, valid, gelu_in=True, gelu_out=False)
+    assert conv_stack.launches == f0 + 2
+    with torch.no_grad():
+        py, _ = conv_stack.conv_gelu_block_plain(x, w, valid, True, False, None)
+    _close(y, py)
+    dy = torch.randn(B, t_out, C, generator=g).to(dev, torch.bfloat16)
+    y.backward(dy)
+    assert conv_stack.backward_launches == b0 + 3
+    with torch.no_grad():
+        pdx, pdw, _, _ = conv_stack.conv_gelu_block_backward_plain(
+            x, w, valid, True, False, None, dy, None)
+    _close(x.grad, pdx, ulps=2.0)
+    _rel(w.grad, pdw)
+
+
+def test_small_large_style_model_kernel_path_matches_plain(dev, monkeypatch):
+    """A small WavLM-Large-style model (layer_norm extractor, pre-LN,
+    normalized input; head dim 64) on the card: launches per forward (L1
+    without the sums 1; conv 2 per block: each block has the input GELU, so
+    its H pass and its GEMM; attention 1 per layer) and the kernel path
+    against the plain path (relative L2 well under 2e-2, as the Base-style
+    test)."""
+    from unispeech_tpu_torch.configs import WavLMModelConfig, large_encoder_config
+    from unispeech_tpu_torch.models import encoder
+    from unispeech_tpu_torch.models.wavlm import WavLM
+
+    enc = large_encoder_config(
+        encoder_layers=2, encoder_embed_dim=128, encoder_ffn_embed_dim=256,
+        encoder_attention_heads=2, conv_layers=((128, 10, 5),) + ((128, 3, 2),) * 2,
+        conv_pos=16, conv_pos_groups=4, relative_position_embedding=True,
+        gru_rel_pos=True, num_buckets=32, max_distance=64, dropout=0.0,
+        attention_dropout=0.0)
+    model = WavLM(WavLMModelConfig(encoder=enc), dtype=torch.bfloat16,
+                  generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    g = torch.Generator().manual_seed(2)
+    wav = (torch.randn(3, 6000, generator=g) * 0.1).to(dev)
+    lengths = torch.tensor([6000, 4100, 2500], device=dev)
+    mods = (l1_frontend, conv_stack, flash_attention)
+    counts = [m.launches for m in mods]
+    got = model.extract_features(wav, lengths=lengths).x
+    assert [m.launches - c for m, c in zip(mods, counts)] == [1, 4, 2]
+    monkeypatch.setattr(encoder, "l1_conv_with_stats", l1_frontend.l1_conv_with_stats_plain)
+    monkeypatch.setattr(encoder, "conv_gelu_block", conv_stack.conv_gelu_block_plain)
+    monkeypatch.setattr(encoder, "fused_attention", flash_attention.fused_attention_plain)
+    want = model.extract_features(wav, lengths=lengths).x
+    assert got.shape == want.shape and torch.isfinite(got).all()
     assert ((got.float() - want.float()).norm() / want.float().norm()).item() <= 2e-2
 
 

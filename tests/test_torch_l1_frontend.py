@@ -119,3 +119,34 @@ def test_l1_backward_matches_pallas(ns, stats, k, stride):
     np.testing.assert_allclose(k_op.grad.numpy(), k_ref.grad.numpy(), rtol=1e-4,
                                atol=1e-4 * scale)
     np.testing.assert_allclose(k_op.grad.numpy(), want, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("ns", [2565, 3001, 700], ids=["aligned", "ragged", "short"])
+@pytest.mark.parametrize("k,stride", [(K, STRIDE), (8, 4)])
+def test_l1_no_sums_matches_pallas(ns, k, stride):
+    """with_stats=False (the layer_norm extractor's call) against the Pallas
+    op's no-sums form in interpret mode, bf16: y1 within one bf16 ulp (as in
+    test_l1_matches_pallas), no sums on either side, and y1 bit-equal to the
+    with-sums form's. Its gradient (the backward without the sums'
+    cotangents) against jax.grad, fp32: rtol 1e-4 / atol 1e-4 of its scale."""
+    wav, kern = _inputs(ns, k=k)
+    jy, js1, js2, jt1 = jax_l1(jnp.asarray(wav), jnp.asarray(kern), stride, dtype=jnp.bfloat16,
+                               tile=256, interpret=True, with_stats=False)
+    tw, tk = torch.from_numpy(wav), torch.from_numpy(kern)
+    y, s1, s2, t1 = l1_conv_with_stats(tw, tk, stride, with_stats=False)
+    assert js1 is None and js2 is None and s1 is None and s2 is None
+    assert t1 == jt1 and y.shape == (2, t1, C) and y.dtype == torch.bfloat16
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(jy[:, :t1], np.float32),
+                               rtol=2.0**-7, atol=1e-6)
+    assert torch.equal(y, l1_conv_with_stats(tw, tk, stride)[0])
+
+    dy = _cotangents(2, t1)[0]
+    want = np.asarray(jax.grad(lambda kk: jnp.sum(jax_l1(
+        jnp.asarray(wav), kk, stride, dtype=jnp.float32, tile=256, interpret=True,
+        with_stats=False)[0][:, :t1] * dy))(jnp.asarray(kern)))
+    kk = tk.clone().requires_grad_()
+    y, s1, s2, _ = l1_conv_with_stats(tw, kk, stride, dtype=torch.float32, with_stats=False)
+    assert s1 is None and s2 is None
+    (y * torch.from_numpy(dy)).sum().backward()
+    np.testing.assert_allclose(kk.grad.numpy(), want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())

@@ -160,10 +160,9 @@ def test_params_round_trip():
 
 
 def test_not_in_slice_raises():
-    """The layer_norm extractor (WavLM-Large) is still not ported. Masking
-    and dropout are: they draw from an explicit generator and refuse to run
-    without one."""
-    cfg = WavLMModelConfig.from_reference_dict(small_cfg_dict(extractor_mode="layer_norm"))
+    """The GLU feed-forward is still not ported. Masking and dropout are:
+    they draw from an explicit generator and refuse to run without one."""
+    cfg = WavLMModelConfig.from_reference_dict(small_cfg_dict(activation_fn="glu"))
     with pytest.raises(NotImplementedError):
         WavLM(cfg)
     model = WavLM(WavLMModelConfig.from_reference_dict(small_cfg_dict()))
@@ -213,3 +212,155 @@ def test_training_forward_draws_from_the_generator():
     a, b, c = run(0), run(0), run(1)
     assert torch.equal(a, b) and not torch.equal(a, c) and torch.isfinite(a).all()
     assert not torch.allclose(a, model(wav).x)
+
+
+def test_quant_noise_raises_in_training_only():
+    """iPQ quantization noise is not ported: an encoder that trains with
+    quant_noise_pq > 0 raises instead of training without the noise. Serving
+    is exact (the noise acts in training only): the same weights give the
+    same features as without the field."""
+    wav = torch.from_numpy(np.random.RandomState(6).randn(2, 4000).astype(np.float32))
+    plain = WavLM(WavLMModelConfig.from_reference_dict(small_cfg_dict()),
+                  generator=torch.Generator().manual_seed(0))
+    noisy = WavLM(WavLMModelConfig.from_reference_dict(small_cfg_dict(quant_noise_pq=0.1)))
+    noisy.load_state_dict(plain.state_dict(), strict=True)
+    with pytest.raises(NotImplementedError, match="quant_noise_pq"):
+        noisy(wav, deterministic=False, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="quant_noise_pq"):
+        noisy(wav, mask=True, deterministic=False, generator=torch.Generator().manual_seed(0))
+    torch.testing.assert_close(noisy.extract_features(wav).x, plain.extract_features(wav).x,
+                               rtol=0, atol=0)
+
+
+# WavLM-Large's frontend ("layer_norm" extractor: conv, fp32 LayerNorm, GELU
+# in every layer) at small widths. On the CPU the JAX package runs it
+# unfused; the port takes its fused structure (the L1 op without the sums,
+# norm-free conv blocks with the post-LN GELU deferred into the next block's
+# input pass) unless the config turns fusion off.
+LN_CONV = "[(48,10,5)] + [(48,3,2)] * 2 + [(48,2,2)]"
+LN_VARIANTS = {"fused": {}, "plain_l1": {"use_fused_l1": False},
+               "unfused": {"use_fused_conv": False}}
+
+
+def _randomize_norms(params, seed=7):
+    """Non-trivial LayerNorm scales and biases (init gives ones and zeros),
+    so the carried keys are tested."""
+    rng = np.random.RandomState(seed)
+    fe = params["feature_extractor"] if "feature_extractor" in params else params
+    for name in [n for n in fe if n.startswith("ln_")]:
+        dim = fe[name]["scale"].shape
+        fe[name] = {"scale": (1.0 + 0.2 * rng.randn(*dim)).astype(np.float32),
+                    "bias": (0.1 * rng.randn(*dim)).astype(np.float32)}
+    return params
+
+
+def _extractor_pair(over, seed=0):
+    """The JAX ConvFeatureExtractor (fp32) and the port's, with the JAX
+    params carried over by the converter's key layout."""
+    from unispeech_tpu.models.encoder import ConvFeatureExtractor as JaxExtractor
+    from unispeech_tpu_torch.models.encoder import ConvFeatureExtractor
+
+    jenc = JaxWavLMConfig.from_reference_dict(
+        small_cfg_dict(extractor_mode="layer_norm", conv_feature_layers=LN_CONV, **over)).encoder
+    jext = JaxExtractor(jenc)
+    params = to_numpy_tree(jext.init(jax.random.PRNGKey(seed), jnp.zeros((1, 4000)))["params"])
+    params = _randomize_norms(params)
+    enc = WavLMModelConfig.from_reference_dict(
+        small_cfg_dict(extractor_mode="layer_norm", conv_feature_layers=LN_CONV, **over)).encoder
+    ext = ConvFeatureExtractor(enc, torch.float32)
+    sd = {}  # the converter's frontend keys, without the "feature_extractor." prefix
+    for i in range(len(enc.conv_layers)):
+        sd[f"conv_layers.{i}.0.weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.transpose(params[f"conv_{i}"]["kernel"], (2, 1, 0))))
+        sd[f"conv_layers.{i}.2.1.weight"] = torch.from_numpy(params[f"ln_{i}"]["scale"])
+        sd[f"conv_layers.{i}.2.1.bias"] = torch.from_numpy(params[f"ln_{i}"]["bias"])
+    ext.load_state_dict(sd, strict=True)
+    return jext, params, ext
+
+
+@pytest.mark.parametrize("name", list(LN_VARIANTS))
+def test_layer_norm_extractor_matches_jax(name):
+    """The layer_norm frontend alone, fp32, against the JAX module: rtol
+    2e-4 / atol 2e-5 (the same products summed in other orders)."""
+    jext, params, ext = _extractor_pair(LN_VARIANTS[name])
+    wav = np.random.RandomState(8).randn(3, 4001).astype(np.float32)
+    want = jext.apply({"params": params}, jnp.asarray(wav))
+    got = ext(torch.from_numpy(wav))
+    assert got.shape == want.shape
+    close(got.detach(), want)
+
+
+def test_layer_norm_extractor_grads_match_jax():
+    """Gradients of every frontend weight (the L1 kernel through the no-sums
+    op's backward, the conv blocks, the LayerNorms) against jax.grad of the
+    JAX module, fp32: rtol 1e-4 / atol 1e-4 of each gradient's scale (sums
+    over time in other orders)."""
+    jext, params, ext = _extractor_pair({})
+    rng = np.random.RandomState(9)
+    wav = rng.randn(2, 4001).astype(np.float32)
+    want_out = jext.apply({"params": params}, jnp.asarray(wav))
+    cot = rng.randn(*want_out.shape).astype(np.float32)
+    jgrads = jax.grad(lambda p: jnp.sum(jext.apply({"params": p}, jnp.asarray(wav)) * cot))(
+        params)
+    (ext(torch.from_numpy(wav)) * torch.from_numpy(cot)).sum().backward()
+    for i in range(len(ext.conv_layers)):
+        pairs = [(ext.conv_layers[i].conv.weight.grad.permute(2, 1, 0),
+                  jgrads[f"conv_{i}"]["kernel"]),
+                 (ext.conv_layers[i].norm._modules["1"].weight.grad, jgrads[f"ln_{i}"]["scale"]),
+                 (ext.conv_layers[i].norm._modules["1"].bias.grad, jgrads[f"ln_{i}"]["bias"])]
+        for got, want in pairs:
+            want = np.asarray(want)
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
+                                       atol=1e-4 * np.abs(want).max())
+
+
+LARGE_STYLE = dict(extractor_mode="layer_norm", layer_norm_first=True, normalize=True,
+                   encoder_layers=2, encoder_embed_dim=64, encoder_ffn_embed_dim=128,
+                   encoder_attention_heads=4, conv_feature_layers=LN_CONV)
+
+
+def test_large_style_extract_features_match_jax():
+    """A tiny WavLM-Large-style model (layer_norm extractor, pre-LN,
+    normalized input, a projection from 48 conv channels to width 64) with
+    padded utterances: conv features, every layer's input and the output
+    against JAX extract_features, params carried by from_jax."""
+    jmodel, params, model = build_pair(small_cfg_dict(**LARGE_STYLE))
+    params = _randomize_norms(params)
+    enc = WavLMModelConfig.from_reference_dict(small_cfg_dict(**LARGE_STYLE)).encoder
+    model.load_state_dict(wavlm_state_dict_from_jax(params, enc), strict=True)
+    rng = np.random.RandomState(10)
+    wav = rng.randn(3, 4000).astype(np.float32)
+    lengths = np.asarray([4000, 2900, 1650], np.int32)
+    jout = jax_extract(jmodel, params, wav, lengths, collect_layer_outputs=True)
+    out = model.extract_features(torch.from_numpy(wav), lengths=torch.from_numpy(lengths),
+                                 collect_layer_outputs=True)
+    assert out.x.shape == jout.x.shape == (3, 99, 64)
+    close(out.conv_features, jout.conv_features)
+    close(out.layer_outputs, jout.layer_outputs)
+    close(out.x, jout.x)
+    jmid = jax_extract(jmodel, params, wav, lengths, output_layer=1)
+    close(model.extract_features(torch.from_numpy(wav), lengths=torch.from_numpy(lengths),
+                                 output_layer=1).x, jmid.x)
+
+
+def test_layer_norm_params_round_trip():
+    """The ln_{i} keys: JAX params load into the port strictly (every
+    feature_extractor.conv_layers.{i}.2.1.* key present, no gn_0), and the
+    inverse carry gives back the JAX tree."""
+    cfg_dict = small_cfg_dict(**LARGE_STYLE)
+    _, params, model = build_pair(cfg_dict)
+    enc = WavLMModelConfig.from_reference_dict(cfg_dict).encoder
+    params = _randomize_norms(params)
+    model.load_state_dict(wavlm_state_dict_from_jax(params, enc), strict=True)
+    norm_keys = [k for k in model.state_dict()
+                 if k.startswith("feature_extractor.") and k.split(".")[3] == "2"]
+    assert sorted(norm_keys) == sorted(
+        f"feature_extractor.conv_layers.{i}.2.1.{p}" for i in range(4)
+        for p in ("weight", "bias"))
+    back = jax_params_from_state_dict(model.state_dict(), enc)
+    assert "gn_0" not in back["feature_extractor"]
+    flat_a = jax.tree_util.tree_leaves_with_path(params)
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_a) == len(flat_b)
+    for path, leaf in flat_a:
+        np.testing.assert_array_equal(flat_b[path], leaf)

@@ -55,6 +55,17 @@ def _leading_dim(tree: Mapping) -> int:
     raise ValueError("empty layer tree")
 
 
+def _norm_keys(enc: EncoderConfig, i: int):
+    """(JAX module name, port key prefix) of frontend layer i's norm: the
+    GroupNorm ``gn_0`` of the first layer in "default" mode, a LayerNorm
+    ``ln_{i}`` in every layer in "layer_norm" mode."""
+    if enc.extractor_mode == "layer_norm":
+        return [(f"ln_{i}", f"feature_extractor.conv_layers.{i}.2.1")]
+    if i == 0:
+        return [("gn_0", "feature_extractor.conv_layers.0.2")]
+    return []
+
+
 def wavlm_state_dict_from_jax(params: Mapping, enc: EncoderConfig) -> Dict[str, torch.Tensor]:
     """Port state dict (fp32 tensors) from the JAX WavLM params (nested
     numpy dicts; a pretrain wrapper's params may nest them under "wavlm")."""
@@ -67,8 +78,9 @@ def wavlm_state_dict_from_jax(params: Mapping, enc: EncoderConfig) -> Dict[str, 
         sd[f"feature_extractor.conv_layers.{i}.0.weight"] = _conv_kernel_out(layer["kernel"])
         if "bias" in layer:
             sd[f"feature_extractor.conv_layers.{i}.0.bias"] = _np(layer["bias"])
-    sd["feature_extractor.conv_layers.0.2.weight"] = _np(fe["gn_0"]["scale"])
-    sd["feature_extractor.conv_layers.0.2.bias"] = _np(fe["gn_0"]["bias"])
+        for jax_name, key in _norm_keys(enc, i):
+            sd[key + ".weight"] = _np(fe[jax_name]["scale"])
+            sd[key + ".bias"] = _np(fe[jax_name]["bias"])
 
     sd["layer_norm.weight"] = _np(params["layer_norm"]["scale"])
     sd["layer_norm.bias"] = _np(params["layer_norm"]["bias"])
@@ -121,8 +133,8 @@ def jax_params_from_state_dict(sd: Mapping[str, torch.Tensor], enc: EncoderConfi
         fe[f"conv_{i}"] = {"kernel": _conv_kernel_out(s[f"feature_extractor.conv_layers.{i}.0.weight"])}
         if f"feature_extractor.conv_layers.{i}.0.bias" in s:
             fe[f"conv_{i}"]["bias"] = s[f"feature_extractor.conv_layers.{i}.0.bias"]
-    fe["gn_0"] = {"scale": s["feature_extractor.conv_layers.0.2.weight"],
-                  "bias": s["feature_extractor.conv_layers.0.2.bias"]}
+        for jax_name, key in _norm_keys(enc, i):
+            fe[jax_name] = {"scale": s[key + ".weight"], "bias": s[key + ".bias"]}
     params = {
         "feature_extractor": fe,
         "layer_norm": {"scale": s["layer_norm.weight"], "bias": s["layer_norm.bias"]},

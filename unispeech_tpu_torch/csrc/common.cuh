@@ -20,6 +20,12 @@ __device__ __forceinline__ float ex2(float x) {
     return y;
 }
 
+// a 16-byte store that streams past the caches (written once, not re-read soon)
+__device__ __forceinline__ void st_stream(void* p, uint4 v) {
+    asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};"
+                 :: "l"(p), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+
 // the current device's SM count (host), for persistent grids
 inline int sm_count() {
     static int n = 0;

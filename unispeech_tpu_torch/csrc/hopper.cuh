@@ -268,6 +268,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
 }
 
+// four 8 x 8 bf16 matrices to shared memory, transposed: lane l holds
+// elements (l / 4, 2 (l % 4) + {0, 1}) of matrix i in r[i], which land in
+// row 2 (l % 4) + {0, 1}, column l / 4; lanes 8i..8i+7 give the row
+// addresses (16 bytes each) of matrix i
+__device__ __forceinline__ void stmatrix_x4_trans(void* p, const uint32_t (&r)[4]) {
+    asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n"
+                 :: "r"(smem_u32(p)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3]) : "memory");
+}
+
 // D (16 x 8 fp32) += A (16 x 16 bf16, row) . B (16 x 8 bf16, col), one warp:
 // the fragments of mma.sync.m16n8k16
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,

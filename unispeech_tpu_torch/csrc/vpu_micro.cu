@@ -124,11 +124,6 @@ __device__ __forceinline__ uint4 ld_stream(const uint4* p) {
     return v;
 }
 
-__device__ __forceinline__ void st_stream(uint4* p, uint4 v) {
-    asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};"
-                 :: "l"(p), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
-}
-
 template <int V>
 __global__ void __launch_bounds__(kThreads) vpu_micro_kernel(
     const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ y, size_t n) {
@@ -148,7 +143,7 @@ __global__ void __launch_bounds__(kThreads) vpu_micro_kernel(
 #pragma unroll
         for (int q = 0; q < 8; ++q) e[q] = usk::f2bf(apply<V>(usk::bf2f(e[q])));
         const size_t i = i0 + (size_t)u * kThreads;
-        if (i < n_vec) st_stream(yv + i, v[u]);
+        if (i < n_vec) usk::st_stream(yv + i, v[u]);
     }
     // the last n % 8 elements
     const size_t t = n_vec * 8 + threadIdx.x;

@@ -10,7 +10,10 @@ layout throughout.
 The frontend keeps the fused structure of the JAX TPU path wherever the
 config allows it: the first conv and its GroupNorm statistics in one op, the
 GroupNorm folded into the next block as a (B, C) affine, and each
-(k in {2,3}, s=2) layer as one conv+GELU block. Those three ops launch their
+(k in {2,3}, s=2) layer as one conv+GELU block. In ``layer_norm`` mode
+(WavLM-Large) the first conv runs without the sums and the blocks without
+their output GELU; each layer's fp32 LayerNorm follows in plain code and its
+GELU moves into the next block's input pass. Those three ops launch their
 CUDA kernels for CUDA tensors and take their plain versions for CPU tensors,
 in both directions.
 
@@ -196,14 +199,29 @@ class ConvBlock(nn.Module):
         return self._modules.get("2")
 
 
+class LayerNormSlot(nn.Module):
+    """The reference's Sequential(TransposeLast, Fp32LayerNorm, TransposeLast)
+    of a ``layer_norm``-mode frontend layer: the norm is child "1", so its
+    keys read ``conv_layers.{i}.2.1.weight``. (B, T, C) needs no transposes."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.add_module("1", Fp32LayerNorm(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._modules["1"](x)
+
+
 class ConvFeatureExtractor(nn.Module):
-    """Strided conv1d stack turning a waveform (B, NS) into frames (B, T, C)
-    ("default" mode: GroupNorm after the first conv, GELU after each)."""
+    """Strided conv1d stack turning a waveform (B, NS) into frames (B, T, C).
+    "default" mode: GroupNorm after the first conv, GELU after each;
+    "layer_norm" mode (WavLM-Large): conv, fp32 LayerNorm, GELU in each."""
 
     def __init__(self, cfg: EncoderConfig, dtype: torch.dtype):
         super().__init__()
-        if cfg.extractor_mode != "default":
-            raise not_in_slice(f"extractor_mode={cfg.extractor_mode!r}")
+        if cfg.extractor_mode not in ("default", "layer_norm"):
+            raise ValueError(f"unknown extractor_mode {cfg.extractor_mode!r}")
+        self.layer_norm = cfg.extractor_mode == "layer_norm"
         self.dtype = dtype
         layers = cfg.conv_layers
         # the fusion conditions of the JAX TPU path; the L1 guard is
@@ -224,7 +242,9 @@ class ConvFeatureExtractor(nn.Module):
         for i, (dim, k, s) in enumerate(layers):
             conv = Conv1dMM(cin, dim, k, s, cfg.conv_bias, dtype)
             norm = None
-            if i == 0:
+            if self.layer_norm:
+                norm = LayerNormSlot(dim)
+            elif i == 0:
                 folded = len(layers) > 1 and self.fuse[1]
                 norm = (Fp32GroupNormAffine if folded else Fp32GroupNorm)(dim, dim)
             self.conv_layers.append(ConvBlock(conv, norm))
@@ -235,28 +255,45 @@ class ConvFeatureExtractor(nn.Module):
             raise ValueError("expect a raw waveform (B, T_samples)")
         n = len(self.conv_layers)
         h = x[:, :, None].to(self.dtype)
+        ln = self.layer_norm
         pending_gelu = False  # the previous layer's GELU, applied in-block
         pending_affine = None  # the first layer's GroupNorm, applied in-block
         for i, block in enumerate(self.conv_layers):
             conv = block.conv
+            nxt_fused = i + 1 < n and self.fuse[i + 1]
             if i == 0 and self.fuse_l1:
                 h, s1, s2, t = l1_conv_with_stats(
-                    x.float().contiguous(), conv.kernel(), conv.stride, dtype=self.dtype)
-                mean = s1 / t
-                var = torch.clamp(s2 / t - mean * mean, min=0.0)
-                pending_affine = block.norm(stats=(mean, var))
+                    x.float().contiguous(), conv.kernel(), conv.stride, dtype=self.dtype,
+                    with_stats=not ln)
+                if ln:  # per-layer LayerNorm: the GroupNorm sums are not needed
+                    h = block.norm(h)
+                else:
+                    mean = s1 / t
+                    var = torch.clamp(s2 / t - mean * mean, min=0.0)
+                    pending_affine = block.norm(stats=(mean, var))
                 pending_gelu = True
                 continue
             if self.fuse[i]:
                 h, _ = conv_gelu_block(  # a plain conv's output is a transposed view
                     h.contiguous(), conv.kernel(), valid_len=h.shape[1],
-                    gelu_in=pending_gelu, gelu_out=True, affine=pending_affine)
+                    gelu_in=pending_gelu, gelu_out=not ln, affine=pending_affine)
                 pending_gelu = False
                 pending_affine = None
+                if ln:
+                    # the block returns exactly t_out rows (the JAX chain keeps
+                    # padded storage rows and normalises them too), so the
+                    # LayerNorm sees valid rows only; its GELU goes into the
+                    # next block's input pass where there is one
+                    h = block.norm(h)
+                    if nxt_fused:
+                        pending_gelu = True
+                    else:
+                        h = gelu_fp32(h)
                 continue
             h = conv(h)
-            nxt_fused = i + 1 < n and self.fuse[i + 1]
-            if i == 0:
+            if ln:
+                h = block.norm(h)
+            elif i == 0:
                 if nxt_fused:
                     pending_affine = block.norm(h)
                 else:
@@ -447,6 +484,8 @@ class TransformerEncoder(nn.Module):
         """With ``generator`` (a CPU torch.Generator) the encoder trains:
         dropout and layerdrop draw from it; without, it is deterministic."""
         cfg = self.cfg
+        if generator is not None and cfg.quant_noise_pq > 0.0:
+            raise not_in_slice("iPQ quantization noise (quant_noise_pq > 0) in training")
         if padding_mask is not None:
             x = x.masked_fill(padding_mask[..., None], 0.0)
         x = x + self.pos_conv(x)

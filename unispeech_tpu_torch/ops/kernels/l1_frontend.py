@@ -4,10 +4,12 @@ Counterpart of the JAX package's ``ops/pallas/l1_frontend.py``: one pass
 from the raw waveform writes the (B, t1, C) conv output and the per-(batch,
 channel) fp32 sum and sum of squares of its bf16-rounded values, so the
 GroupNorm mean/variance need no second pass over the largest tensor of the
-model. CUDA tensors go to the kernels in ``csrc/l1_frontend.cu`` (the
-backward: one launch, y1 recomputed and dW summed on tensor cores from the
-JAX kernel's collapsed waveform layout, dy by TMA); CPU tensors to the plain
-versions below.
+model; ``with_stats=False`` (the ``layer_norm`` extractor) writes y1 alone.
+CUDA tensors go to the kernels in ``csrc/l1_frontend.cu`` (both directions
+one launch, y1 computed on tensor cores from the JAX kernel's collapsed
+waveform layout by persistent blocks; the forward writes y1 with streaming
+stores, the backward reads dy by TMA); CPU tensors to the plain versions
+below.
 """
 
 from __future__ import annotations
@@ -35,15 +37,19 @@ def check_geometry(kernel_size: int, stride: int) -> None:
             f"got k={kernel_size}, stride={stride}")
 
 
-def l1_conv_with_stats_plain(wav, kernel, stride: int, dtype=torch.bfloat16):
+def l1_conv_with_stats_plain(wav, kernel, stride: int, dtype=torch.bfloat16,
+                             with_stats: bool = True):
     """Plain version: conv1d of the dtype-rounded waveform with the
     dtype-rounded (k, 1, C) kernel, fp32 accumulation, output rounded to
-    dtype; fp32 sums over time of the rounded output and its square."""
+    dtype; fp32 sums over time of the rounded output and its square (None
+    without ``with_stats``)."""
     k, cin, C = kernel.shape
     check_geometry(k, stride)
     x = wav.to(dtype).float()[:, None, :]
     w = kernel.to(dtype).float().permute(2, 1, 0)  # (C, 1, k)
     y = F.conv1d(x, w, stride=stride).transpose(1, 2).to(dtype).contiguous()
+    if not with_stats:
+        return y, None, None, y.shape[1]
     yf = y.float()
     return y, yf.sum(1), (yf * yf).sum(1), y.shape[1]
 
@@ -85,17 +91,20 @@ def _geometry_cuda(wav, kernel, stride, dtype):
     return B, NS, t1, k, C, kernel[:, 0, :].to(torch.bfloat16).contiguous()
 
 
-def _forward(wav, kernel, stride, dtype):
+def _forward(wav, kernel, stride, dtype, with_stats):
     global launches
     if not wav.is_cuda:
-        return l1_conv_with_stats_plain(wav, kernel, stride, dtype)
+        return l1_conv_with_stats_plain(wav, kernel, stride, dtype, with_stats)
     B, NS, t1, k, C, w = _geometry_cuda(wav, kernel, stride, dtype)
     y = torch.empty((B, t1, C), dtype=torch.bfloat16, device=wav.device)
-    s1 = torch.zeros((B, C), dtype=torch.float32, device=wav.device)
-    s2 = torch.zeros((B, C), dtype=torch.float32, device=wav.device)
-    fn = _build.function("usk_l1_conv_stats", _SIGNATURE)
+    s1 = s2 = None
+    if with_stats:
+        s1 = torch.zeros((B, C), dtype=torch.float32, device=wav.device)
+        s2 = torch.zeros((B, C), dtype=torch.float32, device=wav.device)
+    fn = _build.function("usk_l1_conv_fwd", _SIGNATURE)
     _build.launch(fn, "l1_conv_with_stats", wav.device, wav.data_ptr(), w.data_ptr(),
-                  y.data_ptr(), s1.data_ptr(), s2.data_ptr(), B, NS, t1, C, k, stride,
+                  y.data_ptr(), None if s1 is None else s1.data_ptr(),
+                  None if s2 is None else s2.data_ptr(), B, NS, t1, C, k, stride,
                   _build.stream(wav))
     launches += 1
     return y, s1, s2, t1
@@ -137,32 +146,34 @@ def l1_conv_backward(wav, kernel, stride: int, dy, ds1=None, ds2=None,
 
 class _L1WithStats(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, wav, kernel, stride, dtype):
-        y, s1, s2, t1 = _forward(wav, kernel, stride, dtype)
+    def forward(ctx, wav, kernel, stride, dtype, with_stats):
+        y, s1, s2, t1 = _forward(wav, kernel, stride, dtype, with_stats)
         ctx.stride, ctx.dtype = stride, dtype
         ctx.save_for_backward(wav, kernel)
-        return y, s1, s2
+        return (y, s1, s2) if with_stats else y
 
     @staticmethod
-    def backward(ctx, dy, ds1, ds2):
+    def backward(ctx, dy, ds1=None, ds2=None):
         wav, kernel = ctx.saved_tensors
         dw = l1_conv_backward(wav, kernel, ctx.stride, dy.to(ctx.dtype), ds1, ds2, ctx.dtype)
         dwav = torch.zeros_like(wav) if ctx.needs_input_grad[0] else None
-        return dwav, dw.to(kernel.dtype), None, None
+        return dwav, dw.to(kernel.dtype), None, None, None
 
 
 def l1_conv_with_stats(wav: torch.Tensor, kernel: torch.Tensor, stride: int,
-                       dtype=torch.bfloat16):
+                       dtype=torch.bfloat16, with_stats: bool = True):
     """Fused first-layer conv + GroupNorm statistics.
 
     wav (B, NS) waveform; kernel (k, 1, C) in the JAX (k, in, out) layout
     with stride <= k <= 2*stride. Returns (y1, s1, s2, t1): y1 (B, t1, C) in
     ``dtype`` with exactly t1 = (NS - k)//stride + 1 rows, s1/s2 (B, C) fp32
-    sums of y1 and y1**2 over time. Differentiable in ``kernel``. CPU
-    tensors take the plain versions; a CUDA tensor launches the kernels
-    (bf16 only) or raises.
+    sums of y1 and y1**2 over time, both None without ``with_stats`` (the
+    kernel then writes y1 alone). Differentiable in ``kernel``. CPU tensors
+    take the plain versions; a CUDA tensor launches the kernels (bf16 only)
+    or raises.
     """
     if torch.is_grad_enabled() and kernel.requires_grad:
-        y, s1, s2 = _L1WithStats.apply(wav, kernel, stride, dtype)
+        out = _L1WithStats.apply(wav, kernel, stride, dtype, with_stats)
+        y, s1, s2 = out if with_stats else (out, None, None)
         return y, s1, s2, y.shape[1]
-    return _forward(wav, kernel, stride, dtype)
+    return _forward(wav, kernel, stride, dtype, with_stats)

@@ -72,7 +72,7 @@ def main() -> Dict[str, float]:
         if name == "k10s5":
             fwd = lambda: l1_frontend.l1_conv_with_stats(wav, w, s)  # noqa: E731
             call = queued_ms(fwd, ITERS)
-            kern = kernel_ms(fwd, ITERS, "l1_conv_stats_kernel")
+            kern = kernel_ms(fwd, ITERS, "l1_conv_fwd_kernel")
             print(f"forward.{name} t1={t1} call_ms={call:.4f} kernel_ms={kern:.4f} "
                   f"bound_ms={forward_bound_ms(t1):.4f} {card}", flush=True)
             res[f"forward.{name}"] = call

@@ -3,7 +3,10 @@
   dump-features --feature model   transformer-layer features of a WavLM
                                   params .npz (the JAX package's checkpoint
                                   format), sharded over (nshard, rank) workers
-                                  writing {split}_{rank}_{nshard}.npy/.len
+                                  writing {split}_{rank}_{nshard}.npy/.len;
+                                  --arch base|large picks WavLM-Base(+) or
+                                  WavLM-Large's config, --encoder-json
+                                  overrides its fields
 
 Runs on the card unless ``--device cpu`` is given. MFCC features,
 ``learn-kmeans`` and ``dump-labels`` are not ported yet.
