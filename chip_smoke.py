@@ -25,12 +25,27 @@ Phases, one line each (any failure raises and exits non-zero):
              on a manifest of wav files and a params .npz in the JAX layout
   7 bwd      each backward kernel, and the attention forward with dropout,
              against its plain version at the pretraining shapes (6 crops of
-             245,840 samples, 768 frames, two rows padded for attention)
+             245,840 samples, 768 frames, two rows padded for attention);
+             then in WavLM-Large's forms at its shapes (3 crops, width 1024,
+             16 heads): the L1 backward without the sums' cotangents, the
+             conv blocks' backward in the layer_norm extractor's form (input
+             GELU, no affine, no output GELU), attention forward with
+             dropout and backward, one of its rows of length 0
   8 train    WavLM-Base masked-prediction pretraining (the bench's config,
              full width and depth, random weights from a seed) on 6 crops of
              245,840 samples: 3 steps of make_train_step with launch counts
              per step; one step's gradients, kernel path against plain path;
              20 steps on one batch, the loss must fall
+    large_train  the same for WavLM-Large (the bench's Large config: 24
+             layers, width 1024, final_dim 768) on 3 crops of 245,840 samples
+    pipeline HuBERT-style pretraining from raw audio through the CLIs, called
+             in-process: 12 wav files of 3-12 s, data manifest, tools
+             dump-features --feature mfcc, learn-kmeans (100 clusters),
+             dump-labels, train pretrain-hubert --arch large (4 updates,
+             checkpoints every 2, params export), the same resumed to 6
+             updates, then model features of the export at layer 12,
+             k-means and labels; launch counts of the training runs, label
+             frame counts, finite losses, the resume at update 4
   9 vpu      the elementwise micro-benchmark's entry point
              (python -m unispeech_tpu_torch.scripts.exp_vpu_micro) at
              (6, 49152, 512) bf16 with launch counts; each of its seven
@@ -51,6 +66,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pathlib
 import shutil
 import subprocess
@@ -70,6 +86,7 @@ UTTERANCE_SECONDS = (16, 12, 7, 3)
 SEED = 0
 # pretraining batch: the bench's crop (768 frames) x the reference's per-GPU batch
 TRAIN_B, TRAIN_NS, N_CLASSES = 6, 245_840, 504
+LARGE_B = 3  # the bench's Large batch (bench.py, B = 3)
 
 # one bf16 ulp at a tensor's scale: two fp32 accumulation orders may round
 # a value to neighbouring bf16 numbers (8 significant bits)
@@ -350,37 +367,46 @@ def large_phase(dev, wav, lengths, card):
     return dict(launches=launches, err_conv=err_conv)
 
 
-def backward_parity(dev, cfg):
+def backward_parity(dev, cfg, B=TRAIN_B, ln_form=False):
     """Phase 7: each backward kernel (and the attention forward with dropout)
-    against its plain version at the pretraining shapes. Returns the inputs
-    the times phase reuses and the max abs errors."""
+    against its plain version at the pretraining shapes of ``cfg`` with B
+    crops. ``ln_form``: the forms WavLM-Large's layer_norm extractor runs
+    (the L1 backward without the sums' cotangents; every conv block with
+    the input GELU, no affine and no output GELU). Returns the inputs the
+    times phase reuses and the max abs errors."""
     from unispeech_tpu_torch.ops.kernels import conv_stack, flash_attention, l1_frontend
     from unispeech_tpu_torch.ops.rel_pos import compute_rel_pos_bias
 
-    gen = torch.Generator().manual_seed(SEED + 2)
-    B, NS = TRAIN_B, TRAIN_NS
+    gen = torch.Generator().manual_seed(SEED + 2 + 10 * ln_form)
+    NS = TRAIN_NS
+    sfx = ".ln_form" if ln_form else ""
     C = cfg.conv_layers[0][0]
     k0, s0 = cfg.conv_layers[0][1:]
     t1 = (NS - k0) // s0 + 1
     wav = (torch.randn(B, NS, generator=gen) * 0.1).to(dev)
     w1 = (torch.randn(k0, 1, C, generator=gen) * (2.0 / k0) ** 0.5).to(dev)
     dy1 = (torch.randn(B, t1, C, generator=gen) * 1e-3).to(dev, torch.bfloat16)
-    ds1 = (torch.randn(B, C, generator=gen) * 1e-4).to(dev)
-    ds2 = (torch.randn(B, C, generator=gen) * 1e-4).to(dev)
+    ds1 = ds2 = None
+    if not ln_form:
+        ds1 = (torch.randn(B, C, generator=gen) * 1e-4).to(dev)
+        ds2 = (torch.randn(B, C, generator=gen) * 1e-4).to(dev)
     l1_args = (wav, w1, s0, dy1, ds1, ds2)
-    # fp32 sums over B * t1 = 295,002 rows in two orders (per-thread rows and
-    # cross-tile atomics vs one einsum): relative L2 1e-3
-    err_l1 = rel_check("l1_conv_backward.dw", l1_frontend.l1_conv_backward(*l1_args),
+    # fp32 sums over B * t1 rows (295,002 at B = 6) in two orders (per-thread
+    # rows and cross-tile atomics vs one einsum): relative L2 1e-3
+    err_l1 = rel_check("l1_conv_backward.dw" + (".no_sums" if ln_form else ""),
+                       l1_frontend.l1_conv_backward(*l1_args),
                        l1_frontend.l1_conv_backward_plain(*l1_args), 1e-3)
-    # a second geometry, (k, stride) = (8, 4), through the kernel's generic
-    # instantiation at a pretraining-sized t1 (61,459 rows)
-    t8 = (NS - 8) // 4 + 1
-    gen8 = torch.Generator().manual_seed(SEED + 5)
-    args8 = (wav, (torch.randn(8, 1, C, generator=gen8) * 0.5).to(dev), 4,
-             (torch.randn(B, t8, C, generator=gen8) * 1e-3).to(dev, torch.bfloat16), ds1, ds2)
-    rel_check("l1_conv_backward.dw.k8s4", l1_frontend.l1_conv_backward(*args8),
-              l1_frontend.l1_conv_backward_plain(*args8), 1e-3)
-    del args8
+    if not ln_form:
+        # a second geometry, (k, stride) = (8, 4), through the kernel's
+        # generic instantiation at a pretraining-sized t1 (61,459 rows)
+        t8 = (NS - 8) // 4 + 1
+        gen8 = torch.Generator().manual_seed(SEED + 5)
+        args8 = (wav, (torch.randn(8, 1, C, generator=gen8) * 0.5).to(dev), 4,
+                 (torch.randn(B, t8, C, generator=gen8) * 1e-3).to(dev, torch.bfloat16),
+                 ds1, ds2)
+        rel_check("l1_conv_backward.dw.k8s4", l1_frontend.l1_conv_backward(*args8),
+                  l1_frontend.l1_conv_backward_plain(*args8), 1e-3)
+        del args8
 
     conv_args = []  # (x, w, valid, gelu_in, gelu_out, affine, dy, pre) per block
     x = torch.randn(B, t1, C, generator=gen).to(dev, torch.bfloat16)
@@ -390,35 +416,45 @@ def backward_parity(dev, cfg):
     for i, (dim, k, _) in enumerate(cfg.conv_layers[1:], start=2):
         w = (torch.randn(k, C, dim, generator=gen) * (2.0 / (k * C)) ** 0.5).to(
             dev, torch.bfloat16)
-        first = i == 2
-        ab = affine if first else None
-        y, t_out, pre = conv_stack._forward(x, w, x.shape[1], first, True, ab, want_pre=True)
-        _, _, ppre = conv_stack.conv_gelu_block_plain(x, w, x.shape[1], first, True, ab,
-                                                      return_pre=True)
-        compare(f"conv_gelu_block.L{i}.pre", pre, ppre)
+        # the default extractor: the first block takes the GroupNorm affine
+        # and the first GELU; every block ends in a GELU. The layer_norm
+        # extractor: every block takes the previous LayerNorm's GELU
+        gelu_in, gelu_out = (True, False) if ln_form else (i == 2, True)
+        ab = affine if (i == 2 and not ln_form) else None
+        y, t_out, pre = conv_stack._forward(x, w, x.shape[1], gelu_in, gelu_out, ab,
+                                            want_pre=gelu_out)
+        if gelu_out:
+            _, _, ppre = conv_stack.conv_gelu_block_plain(x, w, x.shape[1], gelu_in, gelu_out,
+                                                          ab, return_pre=True)
+            compare(f"conv_gelu_block.L{i}.pre", pre, ppre)
         dy = (torch.randn(B, t_out, C, generator=gen) * 1e-2).to(dev, torch.bfloat16)
-        args = (x, w, x.shape[1], first, True, ab, dy, pre)
+        args = (x, w, x.shape[1], gelu_in, gelu_out, ab, dy, pre)
         conv_args.append(args)
         got = conv_stack.conv_gelu_block_backward(*args)
         want = conv_stack.conv_gelu_block_backward_plain(*args)
         torch.cuda.synchronize()
-        err_conv = max(err_conv, compare(f"conv_gelu_block_backward.L{i}.dx", got[0], want[0],
-                                         tol_ulps=2.0))
-        rel_check(f"conv_gelu_block_backward.L{i}.dw", got[1], want[1], 1e-3)
-        if first:
+        err_conv = max(err_conv, compare(f"conv_gelu_block_backward{sfx}.L{i}.dx", got[0],
+                                         want[0], tol_ulps=2.0))
+        rel_check(f"conv_gelu_block_backward{sfx}.L{i}.dw", got[1], want[1], 1e-3)
+        if ab is not None:
             rel_check("conv_gelu_block_backward.L2.da", got[2], want[2], 1e-3)
             rel_check("conv_gelu_block_backward.L2.db", got[3], want[3], 1e-3)
-        x = y
+        # the next block's input: the LayerNorm of y in the layer_norm form
+        x = F.layer_norm(y.float(), (dim,)).to(torch.bfloat16) if ln_form else y
 
     T = x.shape[1]
     H, D = cfg.encoder_attention_heads, cfg.encoder_embed_dim
+    sfx = f".h{H}" if ln_form else ""
     q, kk, v = (torch.randn(B, T, H, D // H, generator=gen).to(dev, torch.bfloat16)
                 for _ in range(3))
     table = (torch.randn(cfg.num_buckets, H, generator=gen) * 0.5).to(dev)
     bias = compute_rel_pos_bias(table, T, T, cfg.num_buckets, cfg.max_distance,
                                 dtype=torch.bfloat16)
     gate = (torch.rand(B, H, T, generator=gen) * 2 + 1).to(dev)
-    frames = torch.tensor([T] * (B - 2) + [T - 68, T - 168], device=dev)  # two rows padded
+    # two rows padded; in the layer_norm form one of them has length 0, as the
+    # fixed-shape batches' padding rows do
+    frames = torch.tensor([T] * (B - 2) + ([T - 168, 0] if ln_form else [T - 68, T - 168]),
+                          device=dev)
     kpm = torch.arange(T, device=dev)[None, :] >= frames[:, None]
     seed = torch.randint(0, 2**62, (1,), generator=gen, dtype=torch.int64).to(dev)
     rate = cfg.attention_dropout
@@ -429,48 +465,63 @@ def backward_parity(dev, cfg):
     torch.cuda.synchronize()
     # the keep masks are bit-identical; the online softmax rounds P against
     # a running max: 2 bf16 ulps
-    err_drop = compare("fused_attention.dropout", out, pout, tol_ulps=2.0)
-    e_lse = float((lse - plse).abs().max())
-    phase("parity", kernel="fused_attention.dropout.lse", max_abs_err=f"{e_lse:.3g}", tol="1e-3")
+    err_drop = compare(f"fused_attention.dropout{sfx}", out, pout, tol_ulps=2.0)
+    # a row of length 0 has the mask value as its lse (-2^100 in the kernel,
+    # -1e30 in the plain version): lse is held on the rows with a key
+    e_lse = float((lse - plse)[frames > 0].abs().max())
+    phase("parity", kernel=f"fused_attention.dropout{sfx}.lse", max_abs_err=f"{e_lse:.3g}",
+          tol="1e-3")
     if not e_lse <= 1e-3:
-        fail(f"lse with dropout: {e_lse}")
-    dout = (torch.randn(B, T, H, D // H, generator=gen) * 1e-2).to(dev, torch.bfloat16)
+        fail(f"lse with dropout{sfx}: {e_lse}")
+    # no loss term reaches a row of length 0, so training's dO is 0 there
+    # (with p recomputed from the mask-valued lse, the backward of such a row
+    # is exact only then); both backwards take the plain forward's out and lse
+    dout = (torch.randn(B, T, H, D // H, generator=gen) * 1e-2
+            * (frames.cpu() > 0)[:, None, None, None]).to(dev, torch.bfloat16)
     attn_args = (q, kk, v, bias, gate, kpm, None, rate, seed, pout, plse, dout)
     got = flash_attention.fused_attention_backward(*attn_args)
     want = flash_attention.fused_attention_backward_plain(*attn_args)
     torch.cuda.synchronize()
     err_attn = 0.0
     for name, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
-        err_attn = max(err_attn, compare(f"fused_attention_backward.{name}", a, b,
+        err_attn = max(err_attn, compare(f"fused_attention_backward{sfx}.{name}", a, b,
                                          tol_ulps=2.0))
     # fp32 sums whose order varies (atomics over key tiles and the batch)
-    rel_check("fused_attention_backward.dbias", got[3], want[3], 2e-3)
-    rel_check("fused_attention_backward.dgate", got[4], want[4], 2e-3)
+    rel_check(f"fused_attention_backward{sfx}.dbias", got[3], want[3], 2e-3)
+    rel_check(f"fused_attention_backward{sfx}.dgate", got[4], want[4], 2e-3)
     return dict(l1=l1_args, conv=conv_args, attn=attn_args, fwd_drop=(q, kk, v, fwd),
-                err=(err_l1, err_conv, err_attn, err_drop))
+                err=(err_l1, err_conv, err_attn, err_drop), ln_form=ln_form)
 
 
-def train_phase(dev, counters, train_counts):
-    """Phase 8: WavLM-Base pretraining steps on the card. Fills
-    ``train_counts`` with the launch counts of the first step; returns the
-    end-to-end numbers."""
+def train_phase(dev, counters, train_counts, arch="base"):
+    """Phase 8 (arch "base") and large_train (arch "large"): masked-prediction
+    pretraining steps on the card. Fills ``train_counts`` with the launch
+    counts of the first step; returns the end-to-end numbers."""
     import dataclasses
 
-    from unispeech_tpu_torch.configs import HubertPretrainConfig, MaskConfig, base_encoder_config
+    from unispeech_tpu_torch.configs import (
+        HubertPretrainConfig,
+        MaskConfig,
+        base_encoder_config,
+        large_encoder_config,
+    )
     from unispeech_tpu_torch.models.hubert import HubertPretrainModel
     from unispeech_tpu_torch.train.losses import HubertCriterionConfig
     from unispeech_tpu_torch.train.optim import OptimConfig
     from unispeech_tpu_torch.train.state import create_train_state, make_train_step
     from unispeech_tpu_torch.train.tasks import make_hubert_loss_fn
 
-    # the bench's configuration (bench.py build_step, arch "base")
-    enc = base_encoder_config(relative_position_embedding=True, gru_rel_pos=True,
-                              encoder_layerdrop=0.05, dropout=0.1, attention_dropout=0.1,
-                              remat_ffn=True, remat_layers=False, scan_layers=False)
+    tag = "train" if arch == "base" else "large_train"
+    # the bench's configuration (bench.py build_step)
+    enc_fn = base_encoder_config if arch == "base" else large_encoder_config
+    enc = enc_fn(relative_position_embedding=True, gru_rel_pos=True,
+                 encoder_layerdrop=0.05, dropout=0.1, attention_dropout=0.1,
+                 remat_ffn=True, remat_layers=False, scan_layers=False)
     pcfg = HubertPretrainConfig(encoder=enc, time_mask=MaskConfig(mask_prob=0.8, mask_length=10),
-                                num_classes=(N_CLASSES,), final_dim=256)
+                                num_classes=(N_CLASSES,),
+                                final_dim=256 if arch == "base" else 768)
     crit = HubertCriterionConfig()
-    B, NS = TRAIN_B, TRAIN_NS
+    B, NS = (TRAIN_B if arch == "base" else LARGE_B), TRAIN_NS
     T = enc.num_frames(NS)
     gen = torch.Generator().manual_seed(SEED + 3)
     batch = {"source": torch.randn(B, NS, generator=gen).to(dev),
@@ -493,18 +544,22 @@ def train_phase(dev, counters, train_counts):
         torch.cuda.synchronize()
         counts = tuple(getattr(m, attr) for m, attr in counters)
         kept = L - met["layers_dropped"]
-        # kernels: the six conv blocks forward 6 GEMMs + the first block's H
-        # pass, backward 6 x (g pass, dx, dW) + the H pass; each attention
-        # backward its rows pre-pass and the backward kernel
-        want = (1, 1, 7, 19, kept, 2 * kept)
+        # conv kernels, the default extractor: the six blocks forward 6 GEMMs
+        # + the first block's H pass, backward 6 x (g pass, dx, dW) + that H
+        # pass; the layer_norm extractor: every block forward an H pass (its
+        # input GELU) and the GEMM, backward the H pass, dx and dW (no output
+        # GELU, so no g pass). Each attention backward: its rows pre-pass
+        # and the backward kernel
+        conv = (7, 19) if arch == "base" else (12, 18)
+        want = (1, 1) + conv + (kept, 2 * kept)
         loss, gnorm = float(met["loss_per_sample"]), float(met["grad_norm"])
-        phase("train", step=i, loss_per_sample=f"{loss:.4f}", grad_norm=f"{gnorm:.4f}",
+        phase(tag, step=i, loss_per_sample=f"{loss:.4f}", grad_norm=f"{gnorm:.4f}",
               sample_size=int(met["sample_size"]), layers_dropped=met["layers_dropped"],
               launches_l1_conv_attn_fwd_bwd=counts)
         if counts != want:
-            fail(f"train step {i}: launches {counts} != {want}")
+            fail(f"{tag} step {i}: launches {counts} != {want}")
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
-            fail(f"train step {i}: loss {loss}, grad_norm {gnorm}")
+            fail(f"{tag} step {i}: loss {loss}, grad_norm {gnorm}")
         if i == 0 and i not in train_counts:
             train_counts.update(zip(("l1", "l1_bwd", "conv", "conv_bwd", "attn", "attn_bwd"),
                                     counts))
@@ -539,11 +594,11 @@ def train_phase(dev, counters, train_counts):
         worst.append((diff / (GRAD_TOL * ref + GRAD_FLOOR * total), name, diff / max(ref, 1e-30)))
     worst.sort(reverse=True)
     for ratio, name, rel in worst[:5]:
-        phase("train", grad_vs_plain=name, rel_l2=f"{rel:.3g}", of_tolerance=f"{ratio:.3g}")
-    phase("train", grad_tol=f"{GRAD_TOL} * |g| + {GRAD_FLOOR} * |global|",
+        phase(tag, grad_vs_plain=name, rel_l2=f"{rel:.3g}", of_tolerance=f"{ratio:.3g}")
+    phase(tag, grad_tol=f"{GRAD_TOL} * |g| + {GRAD_FLOOR} * |global|",
           global_grad_norm=f"{total:.4g}", tensors=len(worst))
     if worst[0][0] > 1.0:
-        fail(f"gradient of {worst[0][1]}: kernel path disagrees with the plain path")
+        fail(f"{tag}: gradient of {worst[0][1]}: kernel path disagrees with the plain path")
     del model0, gk, gp
 
     # ms per step, host enqueue, audio-sec/s, peak memory; a profiled step
@@ -560,7 +615,7 @@ def train_phase(dev, counters, train_counts):
     step(state, batch, gen)
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    busy_ms, wall_ms, n_launch = profile_once(lambda: step(state, batch, gen), "train_profile")
+    busy_ms, wall_ms, n_launch = profile_once(lambda: step(state, batch, gen), f"{tag}_profile")
 
     # learning: 20 steps on one batch at a fixed learning rate
     state = create_train_state(model, OptimConfig(lr=5e-4, schedule="fixed"), device=dev)
@@ -568,10 +623,10 @@ def train_phase(dev, counters, train_counts):
     for _ in range(20):
         losses.append(step(state, batch, gen)["loss_per_sample"])
     losses = [float(x) for x in losses]
-    phase("train", learning_first=f"{losses[0]:.4f}", learning_last=f"{losses[-1]:.4f}",
+    phase(tag, learning_first=f"{losses[0]:.4f}", learning_last=f"{losses[-1]:.4f}",
           steps=len(losses))
     if not losses[-1] < losses[0]:
-        fail(f"20 steps on one batch: loss {losses[0]} -> {losses[-1]} did not fall")
+        fail(f"{tag}: 20 steps on one batch: loss {losses[0]} -> {losses[-1]} did not fall")
     audio_s = B * NS / SAMPLE_RATE
     return dict(step_ms=step_ms, host_ms=host_ms, peak_gb=peak_gb, audio_s=audio_s,
                 busy_ms=busy_ms, wall_ms=wall_ms, launches=n_launch)
@@ -622,11 +677,14 @@ def bound(nbytes: float, flops: float, peak: float):
 
 
 def backward_times(bw, train_counts):
-    """The kernels rows of the three backward kernels at the pretraining
-    shapes, per train step (all launches of a kernel in one step)."""
+    """The kernels rows of the three backward kernels, and of the attention
+    forward with dropout, at the pretraining shapes of ``bw`` (Base's, or
+    WavLM-Large's forms with ``bw["ln_form"]``), per train step (all launches
+    of a kernel in one step)."""
     from unispeech_tpu_torch.ops.kernels import conv_stack, flash_attention, l1_frontend
 
     err_l1, err_conv, err_attn, err_drop = bw["err"]
+    ln_form = bw["ln_form"]
     wav, w1, s0, dy1, ds1, ds2 = bw["l1"]
     B, NS = wav.shape
     k0, _, C = w1.shape
@@ -634,10 +692,15 @@ def backward_times(bw, train_counts):
     xb = wav.to(torch.bfloat16)[:, None, :]
     wl = w1.permute(2, 1, 0).to(torch.bfloat16).contiguous().requires_grad_()
     yl = F.conv1d(xb, wl, stride=s0)
-    l1_bound = bound(B * t1 * C * 2 + B * NS * 4 + 2 * B * C * 4 + k0 * C * 4,
-                     4 * B * t1 * C * k0, FP32_FLOPS)
+    # with the sums' cotangents the kernel recomputes y1 (2 B t1 C k more
+    # operations) and reads ds1, ds2; without them dW = wav-windows^T dy alone
+    l1_bound = bound(B * t1 * C * 2 + B * NS * 4 + k0 * C * 4
+                     + (0 if ds1 is None else 2 * B * C * 4),
+                     (2 if ds1 is None else 4) * B * t1 * C * k0, FP32_FLOPS)
+    H = bw["attn"][0].shape[2]
     rows = [dict(
-        name="l1_conv_backward", route="cuda", source="unispeech_tpu_torch/csrc/l1_frontend.cu",
+        name="l1_conv_backward" + (".no_sums" if ln_form else ""), route="cuda",
+        source="unispeech_tpu_torch/csrc/l1_frontend.cu",
         replaces="unispeech_tpu/ops/pallas/l1_frontend.py:203",
         launches=train_counts["l1_bwd"], max_abs_err=err_l1,
         ms=cuda_ms(lambda: l1_frontend.l1_conv_backward(*bw["l1"])),
@@ -665,7 +728,8 @@ def backward_times(bw, train_counts):
         if not min(split) > 0:
             fail(f"conv block L{i}: no device time of dx or dW ({split})")
         gemm_flops = 2 * B * t_out * C * k * C  # each of dx and dW
-        phase("times", kernel=f"conv_gelu_block_backward.L{i}", device_ms=f"{one_dev:.4f}",
+        phase("times", kernel=f"conv_gelu_block_backward{'.ln_form' if ln_form else ''}.L{i}",
+              device_ms=f"{one_dev:.4f}",
               tflops=f"{2 * gemm_flops / one_dev / 1e9:.1f}",
               dx_device_ms=f"{split[0]:.4f}", dx_tflops=f"{gemm_flops / split[0] / 1e9:.1f}",
               dw_device_ms=f"{split[1]:.4f}", dw_tflops=f"{gemm_flops / split[1] / 1e9:.1f}")
@@ -682,7 +746,7 @@ def backward_times(bw, train_counts):
         c_bound += b_ms
         c_by.add(by)
     rows.append(dict(
-        name="conv_gelu_block_backward", route="cuda",
+        name="conv_gelu_block_backward" + (".layer_norm_form" if ln_form else ""), route="cuda",
         source="unispeech_tpu_torch/csrc/conv_stack.cu",
         replaces="unispeech_tpu/ops/pallas/conv_stack.py:359",
         launches=train_counts["conv_bwd"], max_abs_err=err_conv, ms=c_ms, device_ms=c_dev,
@@ -699,7 +763,7 @@ def backward_times(bw, train_counts):
             + torch.where(kpm, -1e30, 0.0)[:, None, None, :]).to(torch.bfloat16).requires_grad_()
     ya = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
     rows.append(dict(
-        name="fused_attention_backward", route="cuda",
+        name="fused_attention_backward" + (f".h{H}" if ln_form else ""), route="cuda",
         source="unispeech_tpu_torch/csrc/flash_attention_bwd.cu",
         replaces="unispeech_tpu/ops/pallas/flash_attention.py:1159",
         launches=train_counts["attn_bwd"], max_abs_err=err_attn,
@@ -716,6 +780,8 @@ def backward_times(bw, train_counts):
     for tag, args in (("no_dropout", (q, kk, v, bias, gate, kpm, amask, 0.0, None)),
                       ("no_bias", (q, kk, v, None, None, kpm, amask, rate, seed)),
                       ("neither", (q, kk, v, None, None, kpm, amask, 0.0, None))):
+        if ln_form:
+            break
         one = cuda_ms(lambda: flash_attention.fused_attention_backward(*args, out, lse, dout))
         phase("times", kernel=f"fused_attention_backward.{tag}", ms_per_call=f"{one:.4f}")
     # the dropout forward at the pretraining shape, per train step; SDPA with
@@ -729,7 +795,7 @@ def backward_times(bw, train_counts):
              + torch.where(fwd["key_padding_mask"], -1e30, 0.0)[:, None, None, :]).to(
                  torch.bfloat16)
     rows.append(dict(
-        name="fused_attention.dropout", route="cuda",
+        name="fused_attention.dropout" + (f".h{H}" if ln_form else ""), route="cuda",
         source="unispeech_tpu_torch/csrc/flash_attention.cu",
         replaces="unispeech_tpu/ops/pallas/flash_attention.py:878",
         launches=train_counts["attn"], max_abs_err=err_drop,
@@ -811,11 +877,127 @@ def write_wav(path: pathlib.Path, samples: np.ndarray) -> None:
         w.writeframes(pcm.tobytes())
 
 
+PIPE_FILES, PIPE_SECONDS, PIPE_CLUSTERS, PIPE_LAYER = 12, (3.0, 12.0), 100, 12
+
+
+def pipeline_phase(counters):
+    """HuBERT-style pretraining from raw audio through the CLIs' main(argv),
+    in-process so the launch counters can be read: manifest -> MFCC ->
+    k-means -> labels -> pretrain-hubert --arch large (4 updates, then
+    resumed to 6) -> model features of the export -> k-means -> labels."""
+    import io
+
+    from unispeech_tpu_torch.configs import large_encoder_config
+    from unispeech_tpu_torch.data.__main__ import main as data_main
+    from unispeech_tpu_torch.ops.kernels import _build
+    from unispeech_tpu_torch.tools.__main__ import main as tools_main
+    from unispeech_tpu_torch.train.__main__ import main as train_main
+
+    tmp = _build.BUILD_DIR / "smoke_pipeline"
+    shutil.rmtree(tmp, ignore_errors=True)
+    (tmp / "wavs").mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 9)
+    sizes = [int(rng.uniform(*PIPE_SECONDS) * SAMPLE_RATE) for _ in range(PIPE_FILES)]
+    for i, n in enumerate(sizes):
+        # a tone that changes every 0.25 s over noise: frames k-means can tell apart
+        seg = np.repeat(rng.uniform(100, 3000, n // 4000 + 1), 4000)[:n]
+        t = np.arange(n) / SAMPLE_RATE
+        write_wav(tmp / "wavs" / f"utt{i:02d}.wav",
+                  0.3 * np.sin(2 * np.pi * seg * t) + 0.05 * rng.standard_normal(n))
+    man = str(tmp / "man" / "train.tsv")
+    lab = tmp / "lab"
+    ckpt, export = str(tmp / "ckpt"), str(tmp / "export.npz")
+    mfcc_frames = [1 + (n - 400) // 160 for n in sizes]
+    model_frames = [large_encoder_config().num_frames(n) for n in sizes]
+
+    def timed(name, fn, argv):
+        t0 = time.perf_counter()
+        fn(argv)
+        torch.cuda.synchronize()
+        phase("pipeline", step=name, seconds=f"{time.perf_counter() - t0:.2f}")
+
+    def check_labels(stem, want, what):
+        lines = (lab / f"{stem}.km").read_text().splitlines()
+        got = [len(line.split()) for line in lines]
+        phase("pipeline", labels=what, utterances=len(lines), frames=sum(got))
+        if got != want:
+            fail(f"pipeline: {what} label frames {got} != {want}")
+        if max(int(x) for line in lines for x in line.split()) >= PIPE_CLUSTERS:
+            fail(f"pipeline: {what} label out of range")
+
+    def train(max_updates):
+        argv = ["pretrain-hubert", "--manifest", man, "--labels", str(lab / "mfcc.km"),
+                "--arch", "large", "--num-classes", str(PIPE_CLUSTERS), "--label-rate", "100",
+                "--mixing-prob", "0.2", "--max-updates", str(max_updates),
+                "--save-interval-updates", "2", "--log-interval", "1",
+                "--checkpoint-dir", ckpt, "--export-params", export]
+        for m, attr in counters:
+            setattr(m, attr, 0)
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(log):
+            train_main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = tuple(getattr(m, attr) for m, attr in counters)
+        records = [json.loads(line) for line in log.getvalue().splitlines()
+                   if line.startswith('{"tag": "train"')]
+        for r in records:
+            phase("pipeline", update=r["step"], wall_s=r["elapsed_s"], loss=r["loss_avg"],
+                  sample_size=r["sample_size"], layers_dropped=r["layers_dropped"])
+        phase("pipeline", step=f"pretrain-hubert --max-updates {max_updates}",
+              seconds=f"{seconds:.2f}", launches_l1_conv_attn_fwd_bwd=counts)
+        if not all(counts):
+            fail(f"pipeline: a kernel family was not launched in training: {counts}")
+        if not all(np.isfinite(r["loss_avg"]) for r in records):
+            fail("pipeline: a non-finite loss")
+        return [r["step"] for r in records]
+
+    try:
+        timed("data manifest", data_main, ["manifest", str(tmp / "wavs"), "--ext", "wav",
+                                           "--valid-percent", "0", "--dest", str(tmp / "man")])
+        timed("dump-features mfcc", tools_main,
+              ["dump-features", "--feature", "mfcc", "--manifest", man,
+               "--feat-dir", str(tmp / "mfcc")])
+        timed("learn-kmeans mfcc", tools_main,
+              ["learn-kmeans", "--feat-dir", str(tmp / "mfcc"), "--n-clusters",
+               str(PIPE_CLUSTERS), "--km-path", str(tmp / "km_mfcc.npy")])
+        timed("dump-labels mfcc", tools_main,
+              ["dump-labels", "--manifest", man, "--km-path", str(tmp / "km_mfcc.npy"),
+               "--lab-dir", str(lab)])
+        (lab / "train_0_1.km").rename(lab / "mfcc.km")
+        check_labels("mfcc", mfcc_frames, "mfcc")
+        first = train(4)
+        second = train(6)
+        phase("pipeline", first_run_updates=first, resumed_run_updates=second,
+              checkpoints=sorted(int(n) for n in os.listdir(ckpt)))
+        if first != [1, 2, 3, 4] or second != [5, 6]:
+            fail(f"pipeline: the resumed run did not start at update 4: {first}, {second}")
+        model_args = ["--feature", "model", "--arch", "large", "--checkpoint", export,
+                      "--layer", str(PIPE_LAYER)]
+        timed("dump-features model", tools_main,
+              ["dump-features", "--manifest", man, "--feat-dir", str(tmp / "model"),
+               *model_args])
+        timed("learn-kmeans model", tools_main,
+              ["learn-kmeans", "--feat-dir", str(tmp / "model"), "--n-clusters",
+               str(PIPE_CLUSTERS), "--km-path", str(tmp / "km_model.npy")])
+        timed("dump-labels model", tools_main,
+              ["dump-labels", "--manifest", man, "--km-path", str(tmp / "km_model.npy"),
+               "--lab-dir", str(lab), *model_args])
+        check_labels("train_0_1", model_frames, "model")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from unispeech_tpu_torch.configs import WavLMModelConfig, base_encoder_config
+    from unispeech_tpu_torch.configs import (
+        WavLMModelConfig,
+        base_encoder_config,
+        large_encoder_config,
+    )
     from unispeech_tpu_torch.convert.from_jax import jax_params_from_state_dict, save_params_npz
     from unispeech_tpu_torch.data.manifest import load_audio
     from unispeech_tpu_torch.models.wavlm import WavLM
@@ -898,7 +1080,9 @@ def main() -> int:
                                                         return_lse=True)
     torch.cuda.synchronize()
     err_attn = max(err_attn, compare("fused_attention.attn_mask", out2, pout2))
-    e_lse = float((lse - plse).abs().max())
+    # a row of length 0 has the mask value as its lse (-2^100 in the kernel,
+    # -1e30 in the plain version): lse is held on the rows with a key
+    e_lse = float((lse - plse)[frames > 0].abs().max())
     phase("parity", kernel="fused_attention.lse", max_abs_err=f"{e_lse:.3g}", tol="1e-3")
     if not e_lse <= 1e-3:  # fp32 sums in two orders: far below 1e-3 in a log
         fail(f"lse: {e_lse}")
@@ -982,18 +1166,27 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     clock.done("cli")
 
-    # 7 backward kernels at the pretraining shapes
+    # 7 backward kernels at the pretraining shapes, Base's and Large's forms
     bw = backward_parity(dev, base_encoder_config(relative_position_embedding=True,
                                                   gru_rel_pos=True))
+    bw_large = backward_parity(dev, large_encoder_config(relative_position_embedding=True,
+                                                         gru_rel_pos=True),
+                               B=LARGE_B, ln_form=True)
     clock.done("bwd")
 
-    # 8 pretraining steps; the counts are read per step inside
-    train_counts = {}
+    # 8 pretraining steps, Base then Large; the counts are read per step inside
+    train_counts, large_counts = {}, {}
     counters = [(l1_frontend, "launches"), (l1_frontend, "backward_launches"),
                 (conv_stack, "launches"), (conv_stack, "backward_launches"),
                 (flash_attention, "launches"), (flash_attention, "backward_launches")]
     train = train_phase(dev, counters, train_counts)
     clock.done("train")
+    large_train = train_phase(dev, counters, large_counts, arch="large")
+    clock.done("large_train")
+
+    # HuBERT-style pretraining from raw audio through the CLIs
+    pipeline_phase(counters)
+    clock.done("pipeline")
 
     # 9 the elementwise micro-benchmark at its full shape
     vpu_row = vpu_phase(dev)
@@ -1090,8 +1283,9 @@ def main() -> int:
                       n_attn),
     ))
     rows += backward_times(bw, train_counts)
+    rows += backward_times(bw_large, large_counts)
     rows.append(vpu_row)
-    del bw
+    del bw, bw_large
     for r in rows:
         phase("times", **{k: (f"{v:.4f}" if isinstance(v, float) else
                               "null" if v is None else v)
@@ -1121,6 +1315,14 @@ def main() -> int:
           peak_memory_gb=f"{train['peak_gb']:.2f}",
           profiled_busy_ms=f"{train['busy_ms']:.3f}", profiled_wall_ms=f"{train['wall_ms']:.3f}",
           kernel_launches_per_step=train["launches"])
+    phase("e2e_large_train", step_ms=f"{large_train['step_ms']:.3f}",
+          host_enqueue_ms=f"{large_train['host_ms']:.3f}",
+          audio_seconds_per_step=large_train["audio_s"],
+          audio_sec_per_s=f"{large_train['audio_s'] / (large_train['step_ms'] / 1e3):.1f}",
+          peak_memory_gb=f"{large_train['peak_gb']:.2f}",
+          profiled_busy_ms=f"{large_train['busy_ms']:.3f}",
+          profiled_wall_ms=f"{large_train['wall_ms']:.3f}",
+          kernel_launches_per_step=large_train["launches"])
     clock.done("times")
 
     print(json.dumps({"kernels": rows}), flush=True)

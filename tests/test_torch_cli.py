@@ -107,22 +107,6 @@ def test_default_device_needs_cuda(setup):
         torch_main(_args(setup, "torch"))
 
 
-@pytest.mark.parametrize("argv", [
-    ["learn-kmeans", "--feat-dir", "x", "--km-path", "y"],
-    ["dump-labels", "--manifest", "x"],
-])
-def test_not_ported_subcommands(argv):
-    with pytest.raises(NotImplementedError):
-        torch_main(argv)
-
-
-def test_mfcc_not_ported(setup):
-    argv = _args(setup, "torch", "--device", "cpu")
-    argv[argv.index("model")] = "mfcc"
-    with pytest.raises(NotImplementedError):
-        torch_main(argv)
-
-
 def test_manifest_and_audio_match_jax(wavs):
     """The port's copy of the manifest reader and audio loader, on plain wav
     paths and on a "zip:offset:length" slice of a stored zip member."""

@@ -497,6 +497,43 @@ def test_attention_backward_edges(dev, B, T, H, case):
             _rel(a, b, tol=2e-3)
 
 
+@pytest.mark.parametrize("T", [63, 128, 200])
+@pytest.mark.parametrize("drop", [False, True])
+def test_attention_fully_padded_rows(dev, T, drop):
+    """Rows of length 0 (the fixed-shape batches' padding rows): every key
+    padded. The forward is finite and, as the plain softmax, uniform over
+    the S keys; the backward from each side's own forward is finite and
+    agrees with the plain one, dO nonzero on the padded rows too. lse is
+    compared on the rows with a valid key (a padded row's is the mask
+    value, -1e30 in the plain version, -2^100 in the kernels). Both
+    backwards are exact on a row of length 0 only when its dO is 0, as in
+    training: its lse rounds to the mask value in fp32, so both recompute
+    p = 1 there, not 1/S, and agree on dq, dk, dv S times too large."""
+    B, H = 3, 4
+    q, k, v, bias, gate, _ = _attn_inputs(dev, B, T, H, seed=T + 5)
+    lengths = torch.tensor([T, 0, T // 3], device=dev)
+    kpm = torch.arange(T, device=dev)[None, :] >= lengths[:, None]
+    kw = dict(bias=bias, gate=gate, key_padding_mask=kpm)
+    rate, seed = (0.1, torch.tensor([T * 31], dtype=torch.int64, device=dev)) if drop \
+        else (0.0, None)
+    out, lse = flash_attention.fused_attention(q, k, v, **kw, dropout_rate=rate,
+                                               dropout_seed=seed, return_lse=True)
+    pout, plse = flash_attention.fused_attention_plain(q, k, v, **kw, dropout_rate=rate,
+                                                       dropout_seed=seed, return_lse=True)
+    _close(out, pout, ulps=2.0)
+    valid = lengths > 0
+    assert (lse[valid] - plse[valid]).abs().max().item() <= 1e-3
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(T)).to(
+        dev, torch.bfloat16)
+    args = (q, k, v, bias, gate, kpm, None, rate, seed)
+    got = flash_attention.fused_attention_backward(*args, out, lse, dout)
+    want = flash_attention.fused_attention_backward_plain(*args, pout, plse, dout)
+    for a, b in zip(got[:3], want[:3]):
+        _close(a, b, ulps=2.0)
+    for a, b in zip(got[3:], want[3:]):
+        _rel(a, b, tol=2e-3)
+
+
 def test_attention_dropout_mask_is_bit_identical(dev):
     """q = k = 0 makes every probability 1/S; with v the identity over keys,
     out[t, s] = keep(t, s) / (S (1 - rate)), so the kernel's nonzero pattern

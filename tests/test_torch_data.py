@@ -1,0 +1,322 @@
+"""The port's data pipeline against the JAX package's (host numpy, CPU).
+
+Everything here is host code copied from the JAX package, so every
+comparison is exact: equal arrays, equal batches bit for bit, equal files.
+The JAX package's batch packer may run its native build; the port's Python
+scan must give the same batches.
+"""
+
+import io
+import struct
+import time
+import wave
+import zipfile
+
+import numpy as np
+import pytest
+
+from unispeech_tpu.data import batching as jbatching
+from unispeech_tpu.data import labels as jlabels
+from unispeech_tpu.data import prefetch as jprefetch
+from unispeech_tpu.data.__main__ import main as jax_data_cli
+from unispeech_tpu.data.dataset import DataConfig as JDataConfig
+from unispeech_tpu.data.dataset import PretrainIterator as JPretrainIterator
+from unispeech_tpu.data.labels import LabelFile as JLabelFile
+from unispeech_tpu.data.manifest import Manifest as JManifest
+from unispeech_tpu.data.manifest import create_manifest as jax_create_manifest
+from unispeech_tpu.data.mixing import MixingConfig as JMixingConfig
+from unispeech_tpu.data.mixing import NoiseStore as JNoiseStore
+from unispeech_tpu.data.mixing import mix_batch_host as jax_mix
+from unispeech_tpu_torch.data import batching, labels, prefetch
+from unispeech_tpu_torch.data.__main__ import main as data_cli
+from unispeech_tpu_torch.data.dataset import DataConfig, PretrainIterator
+from unispeech_tpu_torch.data.labels import LabelFile
+from unispeech_tpu_torch.data.manifest import Manifest, create_manifest
+from unispeech_tpu_torch.data.mixing import MixingConfig, NoiseStore, mix_batch_host
+
+FRAME_HOP = 320
+
+
+def frames(n):  # the default frontend's frame count
+    for k, s in ((10, 5),) + ((3, 2),) * 4 + ((2, 2),) * 2:
+        n = (n - k) // s + 1
+    return n
+
+
+def _wav_bytes(wav, rate=16000):
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(np.clip(wav * 32767, -32768, 32767).astype(np.int16).tobytes())
+    return buf.getvalue()
+
+
+def _corpus(tmp_path, n=11, lo=8000, hi=40000, seed=0, zipped=False):
+    """Wav files (or stored-zip slices in two archives) of random lengths,
+    a manifest and a 50 Hz label file with a few labels short."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    wavs = [rng.standard_normal(int(rng.integers(lo, hi))) * 0.1 for _ in range(n)]
+    if zipped:
+        for s, part in enumerate((wavs[: n // 2], wavs[n // 2:])):
+            path = tmp_path / f"s{s}.zip"
+            with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as z:
+                for i, w in enumerate(part):
+                    z.writestr(f"utt{i}.wav", _wav_bytes(w))
+            with zipfile.ZipFile(path) as z, open(path, "rb") as f:
+                for info, w in zip(z.infolist(), part):
+                    f.seek(info.header_offset + 26)
+                    n_name, n_extra = struct.unpack("<HH", f.read(4))
+                    off = info.header_offset + 30 + n_name + n_extra
+                    rows.append(f"s{s}.zip:{off}:{info.file_size}\t{len(w)}")
+    else:
+        for i, w in enumerate(wavs):
+            (tmp_path / f"u{i:02d}.wav").write_bytes(_wav_bytes(w))
+            rows.append(f"u{i:02d}.wav\t{len(w)}")
+    (tmp_path / "train.tsv").write_text(f"{tmp_path}\n" + "\n".join(rows) + "\n")
+    lab_lines = []
+    for i, w in enumerate(wavs):
+        n_lab = len(w) * 50 // 16000 - (3 if i % 4 == 1 else 0)
+        lab_lines.append(" ".join(str(x) for x in rng.integers(0, 100, n_lab)))
+    (tmp_path / "train.km").write_text("\n".join(lab_lines) + "\n")
+    return tmp_path
+
+
+def _assert_batches_equal(got, want):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+# ---------------------------------------------------------------- labels
+def test_label_file_and_alignment_match_jax(tmp_path, caplog):
+    d = _corpus(tmp_path)
+    lf, jlf = LabelFile(str(d / "train.km"), 50.0), JLabelFile(str(d / "train.km"), 50.0)
+    assert len(lf) == len(jlf) == 11 and lf.offsets == jlf.offsets
+    rng = np.random.default_rng(3)
+    for i in range(len(lf)):
+        lab = lf.get(i)
+        np.testing.assert_array_equal(lab, jlf.get(i))
+        start, n = int(rng.integers(0, 4000)), int(rng.integers(2000, 30000))
+        crop = labels.crop_labels(lab, start, n, 16000, 50.0)
+        np.testing.assert_array_equal(crop, jlabels.crop_labels(lab, start, n, 16000, 50.0))
+        for ratio, s0 in ((0.5, 0), (1.0, 3), (2.0, 1)):
+            got = labels.align_labels_to_frames(crop, frames(n), ratio, start_frame=s0)
+            want = jlabels.align_labels_to_frames(crop, frames(n), ratio, start_frame=s0)
+            np.testing.assert_array_equal(got[0], want[0])
+            assert got[1] == want[1]
+    sizes, lens = [16000, 32000, 8000], [50, 90, 25]
+    caplog.set_level("WARNING")
+    labels.verify_label_lengths(sizes, lens, 16000, 50.0)
+    ours = [r.getMessage() for r in caplog.records]
+    caplog.clear()
+    jlabels.verify_label_lengths(sizes, lens, 16000, 50.0)
+    assert ours == [r.getMessage() for r in caplog.records] and len(ours) == 2
+
+
+# -------------------------------------------------------------- batching
+@pytest.mark.parametrize("max_tokens,max_sentences,mult", [
+    (40_000, 0, 1), (40_000, 3, 1), (100_000, 0, 4), (0, 5, 2)])
+def test_batch_by_size_matches_jax(max_tokens, max_sentences, mult):
+    rng = np.random.default_rng(max_tokens + max_sentences + mult)
+    sizes = rng.integers(1000, 20000, 300)
+    idx = rng.permutation(300)
+    got = batching.batch_by_size(idx, sizes[idx], max_tokens, max_sentences, mult)
+    want = jbatching.batch_by_size(idx, sizes[idx], max_tokens, max_sentences, mult)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(AssertionError, match="exceeds max_tokens"):
+        batching.batch_by_size(idx, sizes[idx], max_tokens=999)
+
+
+def test_buckets_orders_and_shards_match_jax():
+    rng = np.random.default_rng(5)
+    sizes = rng.integers(16000, 250000, 200)
+    for args in ((250000,), (250000, 32000, 8, 320), (64000, 16000, 4, 160)):
+        np.testing.assert_array_equal(batching.length_buckets(*args),
+                                      jbatching.length_buckets(*args))
+    b = batching.length_buckets(250000, 32000, 8)
+    np.testing.assert_array_equal(batching.bucket_for(sizes, b), jbatching.bucket_for(sizes, b))
+    for kw in (dict(), dict(shuffle=False), dict(chunk_size=16)):
+        for epoch in (1, 2):
+            np.testing.assert_array_equal(batching.ordered_indices(sizes, 7, epoch, **kw),
+                                          jbatching.ordered_indices(sizes, 7, epoch, **kw))
+    cids = np.where(np.arange(200) % 17 == 0, -1, np.repeat(np.arange(14), 15)[:200])
+    for epoch in (1, 2):
+        np.testing.assert_array_equal(
+            batching.chunk_shuffled_indices(sizes, cids, 3, epoch, 100000, group=4),
+            jbatching.chunk_shuffled_indices(sizes, cids, 3, epoch, 100000, group=4))
+    batches = [np.arange(i, i + 2) for i in range(11)]
+    for n, s in ((1, 0), (3, 1), (4, 3)):
+        got, want = batching.shard_batches(batches, n, s), jbatching.shard_batches(batches, n, s)
+        assert [b.tolist() for b in got] == [b.tolist() for b in want]
+
+
+# -------------------------------------------------------------- prefetch
+@pytest.mark.parametrize("mod", [prefetch, jprefetch], ids=["port", "jax"])
+def test_prefetch_order_and_exceptions(mod):
+    assert list(mod.prefetch(iter(range(100)), depth=3)) == list(range(100))
+
+    def bad():
+        yield 1
+        yield 2
+        raise ValueError("boom")
+
+    it = mod.prefetch(bad(), depth=4)
+    assert [next(it), next(it)] == [1, 2]
+    with pytest.raises(ValueError, match="boom"):
+        next(it)
+    assert mod.parallel_map_io(lambda x: x * x, list(range(50)), workers=8) == [
+        x * x for x in range(50)]
+    assert mod.parallel_map_io(str, [3], workers=8) == ["3"]
+
+
+def test_prefetch_close_stops_producer():
+    produced = []
+
+    def src():
+        for i in range(10_000):
+            produced.append(i)
+            yield i
+
+    it = prefetch.PrefetchIterator(src(), depth=2)
+    next(it)
+    it.close()
+    time.sleep(0.7)
+    n = len(produced)
+    time.sleep(0.7)
+    assert len(produced) == n and n < 10
+
+
+# ---------------------------------------------------------------- mixing
+@pytest.mark.parametrize("over", [
+    dict(), dict(mixing_prob=1.0, mixing_num=2, normalize_after=True),
+    dict(mixing_prob=0.7, mixing_noise_prob=0.5, mixing_max_len=3)])
+def test_mix_batch_host_equals_jax(tmp_path, over):
+    d = _corpus(tmp_path, n=4)
+    rng = np.random.default_rng(11)
+    audio = (rng.standard_normal((6, 20000)) * 0.1).astype(np.float32)
+    audio[2] = 0.0  # a silent row: scale 0
+    cfg, jcfg = MixingConfig(**over), JMixingConfig(**over)
+    noise, jnoise = NoiseStore(str(d / "train.tsv")), JNoiseStore(str(d / "train.tsv"))
+    clips = [rng.standard_normal(9000).astype(np.float32) * 0.05 for _ in range(3)]
+    for kw, jkw in ((dict(noise=noise), dict(noise=jnoise)),
+                    (dict(noise_clips=clips), dict(noise_clips=clips)), ({}, {})):
+        got = mix_batch_host(np.random.default_rng(4), audio, None, cfg, **kw)
+        want = jax_mix(np.random.default_rng(4), audio, None, jcfg, **jkw)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+# -------------------------------------------------------------- iterator
+def _iterators(d, over=None, mixing=None, noise=False, label_files=True):
+    over = dict(dict(max_sample_size=32000, min_sample_size=9000, max_tokens=70000,
+                     num_buckets=4, required_batch_size_multiple=2), **(over or {}))
+    pair = []
+    for Man, Cfg, LF, Mix, Noise, It in (
+            (Manifest, DataConfig, LabelFile, MixingConfig, NoiseStore, PretrainIterator),
+            (JManifest, JDataConfig, JLabelFile, JMixingConfig, JNoiseStore,
+             JPretrainIterator)):
+        man = Man.load(str(d / "train.tsv"))
+        pair.append(It(man, Cfg(**over),
+                       label_files=[LF(str(d / "train.km"), 50.0)] if label_files else (),
+                       frame_hop=FRAME_HOP, frames_fn=frames,
+                       mixing=None if mixing is None else Mix(**mixing),
+                       noise=Noise(str(d / "train.tsv")) if noise else None, seed=3))
+    return pair
+
+
+@pytest.mark.parametrize("case", ["plain", "mixing", "noise_normalize", "batch_by_size",
+                                  "zip", "no_labels"])
+def test_pretrain_iterator_bit_identical_over_two_epochs(tmp_path, case):
+    """Two epochs from __iter__, fixed-shape padding rows included."""
+    kw = dict(plain={}, mixing=dict(mixing=dict(mixing_prob=0.5)),
+              noise_normalize=dict(mixing=dict(mixing_prob=0.8, mixing_noise_prob=0.5),
+                                   noise=True, over=dict(normalize=True)),
+              batch_by_size=dict(over=dict(fixed_shapes=False)),
+              zip={}, no_labels=dict(label_files=False))[case]
+    d = _corpus(tmp_path, zipped=case == "zip")
+    it, jit = _iterators(d, **kw)
+    n_plan = len(jit._plan(1)) + len(jit._plan(2))
+    padded = 0
+    for got, want in zip(iter(it), iter(jit)):
+        _assert_batches_equal(got, want)
+        padded += int((want["lengths"] == 0).sum())
+        n_plan -= 1
+        if n_plan == 0:
+            break
+    assert n_plan == 0 and it.state_dict() == jit.state_dict() == dict(epoch=2,
+                                                                        batch_offset=len(
+                                                                            jit._plan(2)))
+    if case in ("plain", "zip"):
+        assert padded > 0  # fixed_shapes padded some batch with zero rows
+    if case == "zip":
+        assert it.manifest.chunk_ids() is not None
+        np.testing.assert_array_equal(it.manifest.chunk_ids(), jit.manifest.chunk_ids())
+
+
+def test_pretrain_iterator_targets_clamped_and_valid(tmp_path):
+    it, _ = _iterators(_corpus(tmp_path))
+    seen_invalid = False
+    for b in it.epoch_batches(1):
+        assert b["targets"].min() >= 0 and b["targets"].dtype == np.int32
+        assert b["target_valid"].shape == b["targets"].shape
+        assert b["source"].shape[0] == it.fixed_bsz(b["source"].shape[1])
+        pad = b["lengths"] == 0
+        assert not b["target_valid"][pad].any() and not b["source"][pad].any()
+        seen_invalid |= bool((b["target_valid"][~pad] == 0).any())
+    assert seen_invalid  # the short label lines leave frames without labels
+
+
+def test_load_state_dict_resume_gives_the_same_next_batch(tmp_path):
+    d = _corpus(tmp_path)
+    it, _ = _iterators(d)
+    stream = iter(it)
+    n_first = len(it._plan(1))
+    for _ in range(n_first + 1):  # into the second epoch
+        next(stream)
+    state = it.state_dict()
+    want = next(stream)
+    fresh, jfresh = _iterators(d)
+    fresh.load_state_dict(state)
+    jfresh.load_state_dict(state)
+    _assert_batches_equal(next(iter(fresh)), want)
+    _assert_batches_equal(next(iter(jfresh)), want)
+
+
+# -------------------------------------------------------------- manifests
+def test_create_manifest_and_save_match_jax(tmp_path):
+    (tmp_path / "c").mkdir()
+    d = _corpus(tmp_path / "c", n=9)
+    (d / "sub").mkdir()
+    (d / "sub" / "x.wav").write_bytes(_wav_bytes(np.zeros(5000)))
+    for pct in (0.0, 0.4):
+        got, jgot = create_manifest(str(d), ext="wav", valid_percent=pct, seed=5), \
+            jax_create_manifest(str(d), ext="wav", valid_percent=pct, seed=5)
+        for m, jm in zip(got, jgot):
+            assert (m is None) == (jm is None)
+            if m is None:
+                continue
+            assert (m.root, m.paths, m.sizes.tolist()) == (jm.root, jm.paths, jm.sizes.tolist())
+            m.save(str(tmp_path / "a.tsv"))
+            jm.save(str(tmp_path / "b.tsv"))
+            assert (tmp_path / "a.tsv").read_text() == (tmp_path / "b.tsv").read_text()
+        assert (got[1] is None) == (pct == 0.0)
+
+
+def test_manifest_cli_matches_jax(tmp_path):
+    (tmp_path / "c").mkdir()
+    d = _corpus(tmp_path / "c", n=7)
+    for main, dest in ((data_cli, "port"), (jax_data_cli, "jax")):
+        main(["manifest", str(d), "--ext", "wav", "--valid-percent", "0.3", "--seed", "2",
+              "--dest", str(tmp_path / dest)])
+    for name in ("train.tsv", "valid.tsv"):
+        assert (tmp_path / "port" / name).read_text() == (tmp_path / "jax" / name).read_text()
+    assert len((tmp_path / "port" / "train.tsv").read_text().splitlines()) > 1
+    for sub in ("libri-labels", "resample", "cv-manifest", "binarize-text"):
+        with pytest.raises(NotImplementedError):
+            data_cli([sub, "--any", "x"])

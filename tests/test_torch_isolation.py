@@ -16,8 +16,15 @@ SCRIPT = textwrap.dedent("""
     import unispeech_tpu_torch
     from unispeech_tpu_torch.ops.kernels import _build
 
+    names = set()
     for m in pkgutil.walk_packages(unispeech_tpu_torch.__path__, "unispeech_tpu_torch."):
         importlib.import_module(m.name)
+        names.add(m.name)
+    pipeline = {"data.__main__", "data.batching", "data.dataset", "data.labels",
+                "data.mixing", "data.prefetch", "tools.kmeans", "train.checkpoint",
+                "train.loop", "train.__main__", "utils.debug", "utils.metrics"}
+    missing = {"unispeech_tpu_torch." + n for n in pipeline} - names
+    assert not missing, missing
 
     from unispeech_tpu_torch.configs import WavLMModelConfig, eval_conv_spec, base_encoder_config
     from unispeech_tpu_torch.models.wavlm import WavLM

@@ -12,6 +12,7 @@ for writing a params ``.npz`` the JAX tools read.
 names of the JAX package's fairseq exporter (``final_proj*``,
 ``label_embs_concat`` with the ILS tables stacked along the rows,
 ``target_glu.0``); ``jax_params_from_hubert_state_dict`` is its inverse.
+``jax_params_of`` is the training loop's export of a trained model.
 """
 
 from __future__ import annotations
@@ -220,6 +221,16 @@ def jax_params_from_hubert_state_dict(sd: Mapping[str, torch.Tensor],
         params["target_glu"] = {"Dense_0": {"kernel": _t(s["target_glu.0.weight"]),
                                             "bias": s["target_glu.0.bias"]}}
     return params
+
+
+def jax_params_of(model: torch.nn.Module) -> dict:
+    """The JAX params tree of a trained port model (a HubertPretrainModel:
+    the backbone under "wavlm", the heads beside it)."""
+    from unispeech_tpu_torch.models.hubert import HubertPretrainModel
+
+    if not isinstance(model, HubertPretrainModel):
+        raise NotImplementedError(f"no params export for {type(model).__name__} yet")
+    return jax_params_from_hubert_state_dict(model.state_dict(), model.pcfg)
 
 
 def save_params_npz(path: str, params) -> None:

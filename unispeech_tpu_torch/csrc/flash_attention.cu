@@ -4,7 +4,8 @@
 // (head-major layout, launched by _run_forward) and ::_fwd_kernel_packed
 // (natural (B, T, H*hd) layout, launched by _run_forward_packed):
 //   out = dropout(softmax(q*scale . k^T + gate[b,h,t] * bias[h,t,s]
-//                 + attn_mask[t,s] - 1e30 * (key s padded or s >= S))) . v
+//                 + attn_mask[t,s] + kPadNeg * (key s padded))) . v
+// over the S keys (keys past S, in a tile's tail, take -inf: p = 0)
 // and, when asked, lse = max + log(sum) per query row (taken before
 // dropout). Neither the logits nor the probabilities reach device memory.
 //
@@ -26,7 +27,7 @@
 //    kernel; rows past T or S load as zeros. The bias is read through a
 //    (S, T, H) map whose rows are padded to whole 16-byte units by its
 //    producer (ops/rel_pos.py), so no copy runs per call. The key mask of
-//    a step (-1e30 for padded keys and keys past S) is loaded a step
+//    a step (kPadNeg for padded keys, -inf past S) is loaded a step
 //    ahead into the ring; the gates are read once into registers;
 //  - products on wgmma with fp32 accumulators in registers: S = q.K^T by
 //    wgmma.m64n64k16 with both operands K-major from shared memory, and
@@ -69,7 +70,13 @@ constexpr int kStages = 2;
 constexpr int kMinBlocks = 3;
 constexpr uint32_t kTile = 64 * 128;  // 64 rows of 64 bf16, 128-byte swizzled
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kNegInf = -1e30f;
+// The additive mask of a padded key: a power of two, so that a padded
+// logit rounds to exactly kPadNeg whatever is added to it and kPadNeg *
+// log2 e is exact in fp32. A row whose keys are all padded (a zero-length
+// utterance of a fixed-shape batch) then gets p = ex2(x log2e - m log2e) =
+// 1 per key, the plain softmax's uniform row; with -1e30 the FMA left a
+// rounding residual of order 1e22 in the exponent: p = inf or 0, NaN out.
+constexpr float kPadNeg = -1267650600228229401496703205376.0f;  // -2^100
 
 // shared memory, from a 1024-byte aligned base: q, then per stage K, V,
 // the bias tile and the step's key mask
@@ -137,9 +144,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     // the additive key mask of key tile it for column tid (tid < 64)
     auto key_mask = [&](int it) {
         const int s = it * kBKey + tid;
-        bool pad = s >= S;
-        if (kKpm && !pad) pad = a.kpm[(size_t)b * S + s] != 0;
-        return pad ? kNegInf : 0.f;
+        if (s >= S) return -INFINITY;
+        return (kKpm && a.kpm[(size_t)b * S + s] != 0) ? kPadNeg : 0.f;
     };
 
     if (tid == 0) {

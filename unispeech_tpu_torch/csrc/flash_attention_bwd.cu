@@ -76,6 +76,8 @@ constexpr int kRowFloats = 3 * kBQ;          // lse, delta, gate of one query ti
 constexpr uint32_t kRowBytes = kRowFloats * 4;
 constexpr uint32_t kBox = 64 * 128;          // 64 rows of 32 fp32, 128-byte swizzled
 constexpr float kLog2e = 1.4426950408889634f;
+// a padded key's additive mask, exact under * log2 e (flash_attention.cu)
+constexpr float kPadNeg = -1267650600228229401496703205376.0f;  // -2^100
 
 // shared memory, from a 1024-byte aligned base
 constexpr uint32_t kOffK = 0;
@@ -215,7 +217,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_kernel(const __grid_con
     }
     if (tid < kBKey) {
         const int s = s0 + tid;
-        colneg[tid] = (s >= S || (a.kpm != nullptr && a.kpm[(size_t)b * S + s])) ? -1e30f : 0.f;
+        colneg[tid] = s >= S ? -INFINITY
+                      : (a.kpm != nullptr && a.kpm[(size_t)b * S + s]) ? kPadNeg : 0.f;
     }
 
     float dk[32], dv[32];

@@ -4,12 +4,14 @@ Manifest format: first line the root dir, then "relpath\\tnum_samples" rows.
 A path is a plain audio file or a "archive.zip:offset:length" byte slice of a
 stored (uncompressed) zip member. Audio is read with soundfile when it is
 installed, else with the stdlib ``wave`` module (16-bit PCM WAV).
+``create_manifest`` walks a directory into train/valid manifests.
 """
 
 from __future__ import annotations
 
 import io
 import os
+import random
 import wave
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -31,6 +33,22 @@ class Manifest:
     def abspath(self, i: int) -> str:
         return os.path.join(self.root, self.paths[i])
 
+    def chunk_ids(self) -> Optional[np.ndarray]:
+        """(N,) shard index per row for zip-sharded manifests
+        ("archive.zip:offset:length" rows), -1 for plain rows, or None when
+        the manifest has no sharded rows. Consecutive rows of one archive
+        share an id."""
+        ids = np.full(len(self.paths), -1, np.int64)
+        names: List[str] = []
+        for i, p in enumerate(self.paths):
+            f, slc = parse_path(p)
+            if slc is None:
+                continue
+            if not names or f != names[-1]:
+                names.append(f)
+            ids[i] = len(names) - 1
+        return ids if names else None
+
     @classmethod
     def load(cls, tsv_path: str) -> "Manifest":
         paths, sizes = [], []
@@ -44,6 +62,41 @@ class Manifest:
                 paths.append(items[0])
                 sizes.append(int(items[1]))
         return cls(root=root, paths=paths, sizes=np.asarray(sizes, dtype=np.int64))
+
+    def save(self, tsv_path: str) -> None:
+        with open(tsv_path, "w", encoding="utf-8") as f:
+            f.write(self.root + "\n")
+            for p, s in zip(self.paths, self.sizes):
+                f.write(f"{p}\t{int(s)}\n")
+
+
+def create_manifest(root: str, ext: str = "wav", valid_percent: float = 0.0,
+                    seed: int = 42) -> Tuple[Manifest, Optional[Manifest]]:
+    """Walk ``root`` (sorted) for ``*.ext`` files; each goes to the valid
+    manifest with probability ``valid_percent`` (None when it gets none)."""
+    rng = random.Random(seed)
+    split = {True: ([], []), False: ([], [])}
+    for dirpath, _, files in sorted(os.walk(root)):
+        for fname in sorted(files):
+            if not fname.endswith("." + ext):
+                continue
+            path = os.path.join(dirpath, fname)
+            n = audio_num_samples(path)
+            paths, sizes = split[rng.random() < valid_percent]
+            paths.append(os.path.relpath(path, root))
+            sizes.append(n)
+    train, valid = (Manifest(root, p, np.asarray(s, dtype=np.int64))
+                    for p, s in (split[False], split[True]))
+    return train, (valid if valid.paths else None)
+
+
+def audio_num_samples(path: str) -> int:
+    """Frame count of an audio file without decoding it."""
+    sf = _soundfile()
+    if sf is not None:
+        return sf.info(path).frames
+    with wave.open(path, "rb") as w:
+        return w.getnframes()
 
 
 def parse_path(path: str) -> Tuple[str, Optional[Tuple[int, int]]]:

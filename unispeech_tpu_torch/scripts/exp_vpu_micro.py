@@ -34,6 +34,7 @@ from typing import Dict, Sequence
 import torch
 
 from unispeech_tpu_torch.ops.kernels import FP32_FLOPS, HBM_BYTES_PER_S, _build, vpu_micro
+from unispeech_tpu_torch.utils.device import device_or_raise
 
 # copies of the function in a register-stream kernel (csrc/vpu_micro.cu):
 # its unrolled 16-byte vectors of 8 elements and the scalar tail
@@ -87,14 +88,6 @@ def sass_counts() -> Dict[str, tuple]:
     return {name: tuple(v) for name, v in counts.items()}
 
 
-def _device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: no CUDA device is available "
-                           "(pass --device cpu to run the plain versions)")
-    return device
-
-
 def main(argv: Sequence[str] = None) -> Dict[str, float]:
     """Times every variant and prints its line; returns ms per pass by name."""
     p = argparse.ArgumentParser("unispeech_tpu_torch.scripts.exp_vpu_micro")
@@ -104,7 +97,7 @@ def main(argv: Sequence[str] = None) -> Dict[str, float]:
     p.add_argument("--sass", action="store_true",
                    help="also count each kernel's instructions (needs cuobjdump)")
     args = p.parse_args(argv)
-    device = _device(args.device)
+    device = device_or_raise(args.device)
     shape = tuple(int(s) for s in args.shape.split(","))
     gen = torch.Generator(device=device).manual_seed(0)
     x = torch.randn(shape, generator=gen, device=device, dtype=torch.bfloat16)

@@ -1,15 +1,20 @@
 """Label pipeline CLI: ``python -m unispeech_tpu_torch.tools <subcommand>``.
 
-  dump-features --feature model   transformer-layer features of a WavLM
-                                  params .npz (the JAX package's checkpoint
-                                  format), sharded over (nshard, rank) workers
-                                  writing {split}_{rank}_{nshard}.npy/.len;
-                                  --arch base|large picks WavLM-Base(+) or
-                                  WavLM-Large's config, --encoder-json
-                                  overrides its fields
+Feature dumps are sharded over (nshard, rank) workers writing
+{split}_{rank}_{nshard}.npy/.len, k-means learns from the dumped shards, and
+label dumps write {split}_{rank}_{nshard}.km (one line per utterance;
+concatenate shards with ``cat``).
 
-Runs on the card unless ``--device cpu`` is given. MFCC features,
-``learn-kmeans`` and ``dump-labels`` are not ported yet.
+  dump-features   MFCC-39 (--feature mfcc) or the transformer-layer features
+                  of a WavLM params .npz in the JAX package's checkpoint
+                  format (--feature model; --arch base|large picks
+                  WavLM-Base(+) or WavLM-Large's config, --encoder-json
+                  overrides its fields; a pretraining export, the backbone
+                  under "wavlm", loads too)
+  learn-kmeans    mini-batch k-means++ on the dumped shards -> centroids .npy
+  dump-labels     nearest-centroid frame labels of the same features
+
+Model features and k-means run on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -34,18 +39,13 @@ def _shard_rows(n: int, nshard: int, rank: int):
     return start, end
 
 
-def _device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {name}: no CUDA device is available (pass --device cpu "
-            "to run on the CPU)")
-    return device
-
-
 def _feature_fn(args):
-    if args.feature != "model":
-        raise NotImplementedError(f"--feature {args.feature} is not ported to PyTorch yet")
+    from unispeech_tpu_torch.tools.kmeans import mfcc_39
+    from unispeech_tpu_torch.utils.device import device_or_raise
+
+    device = device_or_raise(args.device)
+    if args.feature == "mfcc":
+        return mfcc_39
     if args.checkpoint is None:
         raise ValueError("--feature model needs --checkpoint")
     from unispeech_tpu_torch.configs import (
@@ -60,7 +60,6 @@ def _feature_fn(args):
     from unispeech_tpu_torch.models.wavlm import WavLM
     from unispeech_tpu_torch.tools.kmeans import dump_model_features
 
-    device = _device(args.device)
     enc_fn = base_encoder_config if args.arch == "base" else large_encoder_config
     enc = enc_fn(
         relative_position_embedding=True, gru_rel_pos=True,
@@ -107,8 +106,48 @@ def cmd_dump_features(args) -> None:
         lf.write("\n".join(str(n) for n in lens) + "\n")
 
 
-def _not_ported(args) -> None:
-    raise NotImplementedError(f"{args.cmd} is not ported to PyTorch yet")
+def cmd_learn_kmeans(args) -> None:
+    from unispeech_tpu_torch.tools.kmeans import learn_kmeans
+
+    feats = []
+    rng = np.random.default_rng(args.seed)
+    for rank in range(args.nshard):
+        stem = f"{args.split}_{rank}_{args.nshard}"
+        x = np.load(os.path.join(args.feat_dir, stem + ".npy"))
+        if args.percent < 1.0:
+            x = x[rng.random(len(x)) < args.percent]
+        feats.append(x)
+    print(f"learning k-means on {sum(len(x) for x in feats)} frames", file=sys.stderr)
+    km = learn_kmeans(feats, n_clusters=args.n_clusters, seed=args.seed, epochs=args.epochs,
+                      device=args.device)
+    km.save(args.km_path)
+
+
+def cmd_dump_labels(args) -> None:
+    from unispeech_tpu_torch.data.manifest import Manifest, load_audio
+    from unispeech_tpu_torch.tools.kmeans import KmeansModel, apply_kmeans, write_label_file
+
+    man = Manifest.load(args.manifest)
+    start, end = _shard_rows(len(man), args.nshard, args.rank)
+    km = KmeansModel.load(args.km_path)
+    fn = _feature_fn(args)
+    os.makedirs(args.lab_dir, exist_ok=True)
+    stem = f"{args.split}_{args.rank}_{args.nshard}"
+    write_label_file(
+        os.path.join(args.lab_dir, stem + ".km"),
+        (apply_kmeans(km, np.asarray(fn(load_audio(man.abspath(i), 16_000)), np.float32),
+                      device=args.device) for i in range(start, end)))
+
+
+def _feature_args(p) -> None:
+    p.add_argument("--feature", choices=["mfcc", "model"], default="mfcc")
+    p.add_argument("--checkpoint", default=None, help="model params .npz")
+    p.add_argument("--layer", type=int, default=6,
+                   help="1-based transformer layer for model features")
+    p.add_argument("--arch", choices=["base", "large"], default="base")
+    p.add_argument("--encoder-json", default=None)
+    p.add_argument("--max-chunk", type=int, default=1_600_000)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
 
 def main(argv=None) -> None:
@@ -121,23 +160,33 @@ def main(argv=None) -> None:
     df.add_argument("--nshard", type=int, default=1)
     df.add_argument("--rank", type=int, default=0)
     df.add_argument("--feat-dir", required=True)
-    df.add_argument("--feature", choices=["mfcc", "model"], default="mfcc")
-    df.add_argument("--checkpoint", default=None, help="model params .npz")
-    df.add_argument("--layer", type=int, default=6,
-                    help="1-based transformer layer for model features")
-    df.add_argument("--arch", choices=["base", "large"], default="base")
-    df.add_argument("--encoder-json", default=None)
-    df.add_argument("--max-chunk", type=int, default=1_600_000)
-    df.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    _feature_args(df)
     df.set_defaults(fn=cmd_dump_features)
 
-    for name in ("learn-kmeans", "dump-labels"):
-        sub.add_parser(name).set_defaults(fn=_not_ported)
+    lk = sub.add_parser("learn-kmeans")
+    lk.add_argument("--feat-dir", required=True)
+    lk.add_argument("--split", default="train")
+    lk.add_argument("--nshard", type=int, default=1)
+    lk.add_argument("--n-clusters", type=int, default=100)
+    lk.add_argument("--percent", type=float, default=1.0,
+                    help="fraction of frames to sample")
+    lk.add_argument("--epochs", type=int, default=2)
+    lk.add_argument("--seed", type=int, default=0)
+    lk.add_argument("--km-path", required=True)
+    lk.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    lk.set_defaults(fn=cmd_learn_kmeans)
 
-    # the subcommands not ported yet take any flags and raise
-    args, rest = p.parse_known_args(argv)
-    if rest and args.fn is not _not_ported:
-        p.error("unrecognized arguments: " + " ".join(rest))
+    dl = sub.add_parser("dump-labels")
+    dl.add_argument("--manifest", required=True)
+    dl.add_argument("--split", default="train")
+    dl.add_argument("--nshard", type=int, default=1)
+    dl.add_argument("--rank", type=int, default=0)
+    dl.add_argument("--km-path", required=True)
+    dl.add_argument("--lab-dir", required=True)
+    _feature_args(dl)
+    dl.set_defaults(fn=cmd_dump_labels)
+
+    args = p.parse_args(argv)
     args.fn(args)
 
 

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from unispeech_tpu_torch.train.optim import OptimConfig, Optimizer, make_optimizer
+from unispeech_tpu_torch.utils.device import device_or_raise
 
 LossFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]]
 # loss_fn(batch, generator, step) -> (loss_sum, sample_size, metrics) of the
@@ -35,10 +36,7 @@ def create_train_state(model: nn.Module, optimizer_cfg: OptimConfig,
                        device="cuda") -> TrainState:
     """Move the model to ``device`` and build its optimizer. The default is
     the card; tests pass "cpu"."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to train on the CPU")
-    model = model.to(device)
+    model = model.to(device_or_raise(device))
     return TrainState(model=model, optimizer=make_optimizer(optimizer_cfg, model.parameters()))
 
 
