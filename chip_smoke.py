@@ -38,6 +38,17 @@ Phases, one line each (any failure raises and exits non-zero):
              20 steps on one batch, the loss must fall
     large_train  the same for WavLM-Large (the bench's Large config: 24
              layers, width 1024, final_dim 768) on 3 crops of 245,840 samples
+    ctc_train  CTC fine-tuning at WavLM-Large's full width (the model
+             finetune-ctc --arch large builds, masks and dropouts on, the
+             letter dictionary, bf16), its backbone grafted from a seed-0
+             HubertPretrainModel at the bench's Large config, on the padded
+             smoke batch with random letter transcripts (15 symbols per
+             second): 5 steps, the first 2 frozen, with launch counts per
+             step (no L1 or conv backward, no attention backward while
+             frozen, zero frontend gradients); one unfrozen step's
+             gradients, kernel path against plain path; 20 unfrozen steps,
+             the loss must fall; a batch with an infeasible and a
+             zero-length row (both rows' loss and logit gradient 0)
     pipeline HuBERT-style pretraining from raw audio through the CLIs, called
              in-process: 12 wav files of 3-12 s, data manifest, tools
              dump-features --feature mfcc, learn-kmeans (100 clusters),
@@ -46,6 +57,15 @@ Phases, one line each (any failure raises and exits non-zero):
              updates, then model features of the export at layer 12,
              k-means and labels; launch counts of the training runs, label
              frame counts, finite losses, the resume at update 4
+    ctc_pipeline  train finetune-ctc --arch large --w2v-path <the pipeline's
+             export> on letter transcripts of the 12 files (valid set the
+             same, --best-metric wer, freeze 2, checkpoints every 2) to
+             update 2, resumed to 4; decode --arch large with the viterbi
+             decoder, the kenlm decoder (a tiny ARPA LM and lexicon) and the
+             ensemble of both exports; finite losses, a valid WER at each
+             validation, the best checkpoint by WER, the resume, one
+             hypothesis per file, the WER report, attention backward only
+             from update 3 on
   9 vpu      the elementwise micro-benchmark's entry point
              (python -m unispeech_tpu_torch.scripts.exp_vpu_micro) at
              (6, 49152, 512) bf16 with launch counts; each of its seven
@@ -56,8 +76,10 @@ Phases, one line each (any failure raises and exits non-zero):
              and one PyTorch library call; the kernel's wrapper and the library
              call timed by CUDA events as the host enqueues them (wall: a
              call of several launches follows the host) and queued behind
-             a busy card (device); audio-seconds per second of the forward
-             and of the train step
+             a busy card (device); the attention backward on the padded
+             fine-tuning batch (16 heads); each kernel family's launches per
+             frozen and unfrozen fine-tuning step; audio-seconds per second
+             of the forward, of the train steps and of the fine-tuning steps
 
 The line before the last is the kernels JSON, the last the device JSON.
 """
@@ -880,20 +902,20 @@ def write_wav(path: pathlib.Path, samples: np.ndarray) -> None:
 PIPE_FILES, PIPE_SECONDS, PIPE_CLUSTERS, PIPE_LAYER = 12, (3.0, 12.0), 100, 12
 
 
-def pipeline_phase(counters):
+def pipeline_phase(counters, tmp):
     """HuBERT-style pretraining from raw audio through the CLIs' main(argv),
     in-process so the launch counters can be read: manifest -> MFCC ->
     k-means -> labels -> pretrain-hubert --arch large (4 updates, then
-    resumed to 6) -> model features of the export -> k-means -> labels."""
+    resumed to 6) -> model features of the export -> k-means -> labels.
+    Works in ``tmp`` and leaves the wav files, the manifest and the export
+    there for ctc_pipeline."""
     import io
 
     from unispeech_tpu_torch.configs import large_encoder_config
     from unispeech_tpu_torch.data.__main__ import main as data_main
-    from unispeech_tpu_torch.ops.kernels import _build
     from unispeech_tpu_torch.tools.__main__ import main as tools_main
     from unispeech_tpu_torch.train.__main__ import main as train_main
 
-    tmp = _build.BUILD_DIR / "smoke_pipeline"
     shutil.rmtree(tmp, ignore_errors=True)
     (tmp / "wavs").mkdir(parents=True)
     rng = np.random.default_rng(SEED + 9)
@@ -953,40 +975,464 @@ def pipeline_phase(counters):
             fail("pipeline: a non-finite loss")
         return [r["step"] for r in records]
 
-    try:
-        timed("data manifest", data_main, ["manifest", str(tmp / "wavs"), "--ext", "wav",
-                                           "--valid-percent", "0", "--dest", str(tmp / "man")])
-        timed("dump-features mfcc", tools_main,
-              ["dump-features", "--feature", "mfcc", "--manifest", man,
-               "--feat-dir", str(tmp / "mfcc")])
-        timed("learn-kmeans mfcc", tools_main,
-              ["learn-kmeans", "--feat-dir", str(tmp / "mfcc"), "--n-clusters",
-               str(PIPE_CLUSTERS), "--km-path", str(tmp / "km_mfcc.npy")])
-        timed("dump-labels mfcc", tools_main,
-              ["dump-labels", "--manifest", man, "--km-path", str(tmp / "km_mfcc.npy"),
-               "--lab-dir", str(lab)])
-        (lab / "train_0_1.km").rename(lab / "mfcc.km")
-        check_labels("mfcc", mfcc_frames, "mfcc")
-        first = train(4)
-        second = train(6)
-        phase("pipeline", first_run_updates=first, resumed_run_updates=second,
-              checkpoints=sorted(int(n) for n in os.listdir(ckpt)))
-        if first != [1, 2, 3, 4] or second != [5, 6]:
-            fail(f"pipeline: the resumed run did not start at update 4: {first}, {second}")
-        model_args = ["--feature", "model", "--arch", "large", "--checkpoint", export,
-                      "--layer", str(PIPE_LAYER)]
-        timed("dump-features model", tools_main,
-              ["dump-features", "--manifest", man, "--feat-dir", str(tmp / "model"),
-               *model_args])
-        timed("learn-kmeans model", tools_main,
-              ["learn-kmeans", "--feat-dir", str(tmp / "model"), "--n-clusters",
-               str(PIPE_CLUSTERS), "--km-path", str(tmp / "km_model.npy")])
-        timed("dump-labels model", tools_main,
-              ["dump-labels", "--manifest", man, "--km-path", str(tmp / "km_model.npy"),
-               "--lab-dir", str(lab), *model_args])
-        check_labels("train_0_1", model_frames, "model")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    timed("data manifest", data_main, ["manifest", str(tmp / "wavs"), "--ext", "wav",
+                                       "--valid-percent", "0", "--dest", str(tmp / "man")])
+    timed("dump-features mfcc", tools_main,
+          ["dump-features", "--feature", "mfcc", "--manifest", man,
+           "--feat-dir", str(tmp / "mfcc")])
+    timed("learn-kmeans mfcc", tools_main,
+          ["learn-kmeans", "--feat-dir", str(tmp / "mfcc"), "--n-clusters",
+           str(PIPE_CLUSTERS), "--km-path", str(tmp / "km_mfcc.npy")])
+    timed("dump-labels mfcc", tools_main,
+          ["dump-labels", "--manifest", man, "--km-path", str(tmp / "km_mfcc.npy"),
+           "--lab-dir", str(lab)])
+    (lab / "train_0_1.km").rename(lab / "mfcc.km")
+    check_labels("mfcc", mfcc_frames, "mfcc")
+    first = train(4)
+    second = train(6)
+    phase("pipeline", first_run_updates=first, resumed_run_updates=second,
+          checkpoints=sorted(int(n) for n in os.listdir(ckpt)))
+    if first != [1, 2, 3, 4] or second != [5, 6]:
+        fail(f"pipeline: the resumed run did not start at update 4: {first}, {second}")
+    model_args = ["--feature", "model", "--arch", "large", "--checkpoint", export,
+                  "--layer", str(PIPE_LAYER)]
+    timed("dump-features model", tools_main,
+          ["dump-features", "--manifest", man, "--feat-dir", str(tmp / "model"),
+           *model_args])
+    timed("learn-kmeans model", tools_main,
+          ["learn-kmeans", "--feat-dir", str(tmp / "model"), "--n-clusters",
+           str(PIPE_CLUSTERS), "--km-path", str(tmp / "km_model.npy")])
+    timed("dump-labels model", tools_main,
+          ["dump-labels", "--manifest", man, "--km-path", str(tmp / "km_model.npy"),
+           "--lab-dir", str(lab), *model_args])
+    check_labels("train_0_1", model_frames, "model")
+    shutil.rmtree(ckpt, ignore_errors=True)  # 11 GB of pretraining checkpoints
+
+
+LETTERS = "| E T A O N I H S R D L U M W C F G Y P B V K ' X J Q Z".split()
+CHARS_PER_SECOND = 15  # LibriSpeech's transcript rate
+
+
+def letter_transcript(rng, seconds: float) -> str:
+    """Random words of 2-7 letters in the letter format ("A B | C D |"),
+    about CHARS_PER_SECOND symbols per second of audio."""
+    units = []
+    while len(units) < int(seconds * CHARS_PER_SECOND):
+        units += list(rng.choice(LETTERS[1:], int(rng.integers(2, 8)))) + ["|"]
+    return " ".join(units)
+
+
+def ctc_finetune_config(freeze: int):
+    """The CtcFinetuneModel finetune-ctc --arch large builds: WavLM-Large's
+    encoder with the gated relative position bias (dropout 0.1, attention
+    dropout 0.1, remat_layers), time mask 0.65/10, channel mask 0.5/64,
+    final dropout 0.1, the letter dictionary."""
+    from unispeech_tpu_torch.configs import MaskConfig, large_encoder_config
+    from unispeech_tpu_torch.models.ctc import CtcFinetuneConfig
+
+    enc = large_encoder_config(relative_position_embedding=True, gru_rel_pos=True)
+    return CtcFinetuneConfig(encoder=enc, vocab_size=len(LETTERS) + 4, apply_mask=True,
+                             time_mask=MaskConfig(mask_prob=0.65, mask_length=10),
+                             freeze_finetune_updates=freeze, final_dropout=0.1)
+
+
+CTC_FREEZE, CTC_STEPS = 2, 5
+
+
+def ctc_train_phase(dev, counters, ctc_counts, wav, lengths):
+    """ctc_train: CTC fine-tuning at WavLM-Large's full width on the smoke
+    batch (4 utterances of 16/12/7/3 s padded to 16 s, random letter
+    transcripts at 15 symbols per second). The backbone is grafted from a
+    seed-0 HubertPretrainModel at the bench's Large config. 5 steps with
+    freeze_finetune_updates = 2 and launch counts per step; one unfrozen
+    step's gradients, kernel path against plain path; zero frontend
+    gradients; 20 unfrozen steps on one batch, the loss must fall; a batch
+    with an infeasible row and a zero-length row. Fills ``ctc_counts`` with
+    the launch counts of a frozen and an unfrozen step; returns the
+    end-to-end numbers and the padded attention backward's inputs."""
+    import dataclasses
+
+    from unispeech_tpu_torch.configs import (
+        HubertPretrainConfig,
+        MaskConfig,
+        large_encoder_config,
+    )
+    from unispeech_tpu_torch.data.dictionary import Dictionary
+    from unispeech_tpu_torch.models.ctc import CtcFinetuneModel, load_pretrained_into
+    from unispeech_tpu_torch.models.encoder import reset_parameters
+    from unispeech_tpu_torch.models.hubert import HubertPretrainModel
+    from unispeech_tpu_torch.ops.ctc import ctc_loss
+    from unispeech_tpu_torch.train.optim import OptimConfig
+    from unispeech_tpu_torch.train.state import create_train_state, make_train_step
+    from unispeech_tpu_torch.train.tasks import make_ctc_finetune_loss_fn
+
+    d = Dictionary.letters()
+    if d.symbols[4:] != LETTERS:
+        fail("ctc_train: the letter dictionary changed")
+    cfg = ctc_finetune_config(CTC_FREEZE)
+    model = CtcFinetuneModel(cfg, dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(SEED + 11))
+    # the graft at full size: the bench's Large pretraining model, seed 0
+    penc = large_encoder_config(relative_position_embedding=True, gru_rel_pos=True,
+                                encoder_layerdrop=0.05, remat_layers=False, scan_layers=False)
+    pre = HubertPretrainModel(HubertPretrainConfig(
+        encoder=penc, time_mask=MaskConfig(mask_prob=0.8, mask_length=10),
+        num_classes=(N_CLASSES,), final_dim=768), generator=torch.Generator().manual_seed(SEED))
+    load_pretrained_into(model, pre.state_dict())
+    backbone = dict(pre.state_dict())
+    if any(not torch.equal(v, backbone[k]) for k, v in model.wavlm.state_dict().items()):
+        fail("ctc_train: the graft did not carry the pretrained backbone")
+    del pre, backbone
+    nparams = sum(p.numel() for p in model.parameters())
+
+    B = wav.shape[0]
+    rng = np.random.default_rng(SEED + 12)
+    texts = [letter_transcript(rng, float(n) / SAMPLE_RATE) for n in lengths.cpu()]
+    enc_texts = [d.encode_line(t) for t in texts]
+    S = int(np.ceil(max(len(e) for e in enc_texts) / 8) * 8)
+    labels = np.full((B, S), d.pad(), np.int32)
+    for r, e in enumerate(enc_texts):
+        labels[r, :len(e)] = e
+    batch = {"source": wav, "lengths": lengths.to(torch.int32),
+             "labels": torch.from_numpy(labels).to(dev),
+             "label_lengths": torch.tensor([len(e) for e in enc_texts], dtype=torch.int32,
+                                           device=dev)}
+    state = create_train_state(model, OptimConfig(lr=5e-5, warmup_steps=2, total_steps=100,
+                                                  schedule="tri_stage", hold_steps=40),
+                               device=dev)
+    step = make_train_step(make_ctc_finetune_loss_fn(model))
+    gen = torch.Generator().manual_seed(SEED + 13)
+    L = cfg.encoder.encoder_layers
+    frontend = [p for n, p in model.named_parameters()
+                if n.startswith("wavlm.feature_extractor.")]
+    backbone_before = [p.detach().clone() for n, p in model.named_parameters()
+                       if n.startswith("wavlm.encoder.layers.")][:4]
+
+    def reset():
+        for m, attr in counters:
+            setattr(m, attr, 0)
+
+    for i in range(CTC_STEPS):
+        reset()
+        frozen = model.frozen(state.step)
+        met = step(state, batch, gen)
+        torch.cuda.synchronize()
+        counts = tuple(getattr(m, attr) for m, attr in counters)
+        kept = L - met["layers_dropped"]
+        # forward: L1 without the sums, every block's H pass and GEMM,
+        # attention once per kept layer (frozen: the backbone runs without
+        # autograd) or twice (remat_layers recomputes each layer in the
+        # backward); backward: no L1 or conv kernel (feature_grad_mult = 0),
+        # attention's pre-pass and kernel per kept layer once unfrozen
+        want = (1, 0, 12, 0) + ((kept, 0) if frozen else (2 * kept, 2 * kept))
+        loss, gnorm = float(met["loss_per_sample"]), float(met["grad_norm"])
+        phase("ctc_train", step=i, frozen=frozen, loss_per_token=f"{loss:.4f}",
+              grad_norm=f"{gnorm:.4f}", ntokens=int(met["sample_size"]),
+              layers_dropped=met["layers_dropped"],
+              launches_l1_conv_attn_fwd_bwd=counts)
+        if counts != want:
+            fail(f"ctc_train step {i}: launches {counts} != {want}")
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            fail(f"ctc_train step {i}: loss {loss}, grad_norm {gnorm}")
+        ctc_counts.setdefault("frozen" if frozen else "unfrozen", counts)
+        if any(p.grad is None or p.grad.any() for p in frontend):
+            fail(f"ctc_train step {i}: a frontend parameter got a nonzero gradient")
+    moved = [not torch.equal(a, p) for a, p in zip(
+        backbone_before, [p for n, p in model.named_parameters()
+                          if n.startswith("wavlm.encoder.layers.")][:4])]
+    if not all(moved):
+        fail("ctc_train: the backbone did not move")
+    del backbone_before
+
+    # one unfrozen step's gradients, kernel path against plain path: no
+    # masks, no dropout (the eval loss), the same weights
+    loss_eval = make_ctc_finetune_loss_fn(model, deterministic=True)
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, ss, _ = loss_eval(batch, None, CTC_FREEZE)
+        (loss / torch.clamp(ss, min=1.0)).backward()
+        return [torch.zeros_like(p) if p.grad is None else p.grad.float().clone()
+                for p in model.parameters()]
+
+    gk = grads()
+    with plain_ops():
+        gp = grads()
+    total = float(torch.sqrt(sum((g * g).sum() for g in gp)))
+    worst = []
+    for (name, _), a, b in zip(model.named_parameters(), gk, gp):
+        diff, ref = float((a - b).norm()), float(b.norm())
+        worst.append((diff / (GRAD_TOL * ref + GRAD_FLOOR * total), name, diff / max(ref, 1e-30)))
+    worst.sort(reverse=True)
+    for ratio, name, rel in worst[:5]:
+        phase("ctc_train", grad_vs_plain=name, rel_l2=f"{rel:.3g}", of_tolerance=f"{ratio:.3g}")
+    phase("ctc_train", grad_tol=f"{GRAD_TOL} * |g| + {GRAD_FLOOR} * |global|",
+          global_grad_norm=f"{total:.4g}", tensors=len(worst))
+    if worst[0][0] > 1.0:
+        fail(f"ctc_train: gradient of {worst[0][1]}: kernel path disagrees with the plain path")
+    if any(g.any() for (n, _), g in zip(model.named_parameters(), gk)
+           if n.startswith("wavlm.feature_extractor.")):
+        fail("ctc_train: the frontend got a gradient")
+    del gk, gp
+    model.zero_grad(set_to_none=True)
+
+    # an infeasible row (labels longer than its frames) and a zero-length
+    # padding row: a finite loss; both rows' loss and logit gradient are 0
+    crafted = {k: v.clone() for k, v in batch.items()}
+    short = int(lengths[-1])  # the 3 s row
+    n_short = cfg.encoder.num_frames(short)
+    crafted["labels"][-1] = torch.from_numpy(np.resize(labels[0], S)).to(dev)
+    crafted["label_lengths"][-1] = min(S, n_short + 50)
+    crafted["source"][2] = 0.0
+    crafted["lengths"][2] = 0
+    crafted["labels"][2] = d.pad()
+    crafted["label_lengths"][2] = 0
+    if not int(crafted["label_lengths"][-1]) > n_short:
+        fail("ctc_train: the crafted row is feasible")
+    out = model(crafted["source"], crafted["lengths"], deterministic=True, step=CTC_FREEZE)
+    logits = out.logits.detach().requires_grad_()
+    total_loss, _ = ctc_loss(logits, out.frame_lengths, crafted["labels"],
+                             crafted["label_lengths"])
+    total_loss.backward()
+    rows = [float(ctc_loss(logits[r:r + 1].detach(), out.frame_lengths[r:r + 1],
+                           crafted["labels"][r:r + 1], crafted["label_lengths"][r:r + 1])[0])
+            for r in range(B)]
+    gmax = [float(logits.grad[r].abs().max()) for r in range(B)]
+    total_loss = float(total_loss.detach())
+    phase("ctc_train", crafted_loss=f"{total_loss:.4f}",
+          per_row=[f"{x:.4f}" for x in rows], grad_max_per_row=[f"{x:.3g}" for x in gmax],
+          frames=out.frame_lengths.tolist(), labels=crafted["label_lengths"].tolist())
+    if not (np.isfinite(total_loss) and rows[2] == 0.0 and rows[3] == 0.0
+            and gmax[2] == 0.0 and gmax[3] == 0.0 and rows[0] > 0 and gmax[0] > 0):
+        fail("ctc_train: the infeasible or zero-length row is not 0, or the loss not finite")
+    met = step(state, crafted, gen)
+    if not (np.isfinite(float(met["loss_per_sample"])) and np.isfinite(float(met["grad_norm"]))):
+        fail("ctc_train: a train step on the crafted batch is not finite")
+    del logits, out
+
+    # ms per step (back to back), host enqueue on an idle queue, peak
+    # memory, and one profiled step, frozen and unfrozen
+    def timed(frozen, n=3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state.step = 0 if frozen else CTC_FREEZE
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        state.step = 0 if frozen else CTC_FREEZE
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        state.step = 0 if frozen else CTC_FREEZE
+        prof = profile_once(lambda: step(state, batch, gen),
+                            f"ctc_{'frozen' if frozen else 'unfrozen'}_profile")
+        return ms, host, prof
+
+    frozen_ms, host_frozen, frozen_prof = timed(True)
+    torch.cuda.reset_peak_memory_stats()
+    unfrozen_ms, host_unfrozen, unfrozen_prof = timed(False)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # learning: 20 unfrozen steps on one batch at a fixed learning rate, from
+    # a fresh head (the steps above have already taken the loss to the
+    # plateau where the head emits mostly blanks)
+    fresh = torch.nn.Linear(model.proj.in_features, model.proj.out_features)
+    reset_parameters(fresh, torch.Generator().manual_seed(SEED + 16))
+    model.proj.load_state_dict(fresh.state_dict())
+    state = create_train_state(model, OptimConfig(lr=5e-5, schedule="fixed"), device=dev)
+    state.step = CTC_FREEZE
+    losses = [step(state, batch, gen)["loss_per_sample"] for _ in range(20)]
+    losses = [float(x) for x in losses]
+    phase("ctc_train", learning_first=f"{losses[0]:.4f}", learning_last=f"{losses[-1]:.4f}",
+          steps=len(losses), losses=",".join(f"{x:.3f}" for x in losses))
+    if not losses[-1] < losses[0]:
+        fail(f"ctc_train: 20 steps on one batch: loss {losses[0]} -> {losses[-1]} did not fall")
+    audio_s = float(lengths.sum()) / SAMPLE_RATE
+    return dict(params=nparams, frozen_ms=frozen_ms, unfrozen_ms=unfrozen_ms,
+                host_frozen_ms=host_frozen, host_unfrozen_ms=host_unfrozen, peak_gb=peak_gb,
+                audio_s=audio_s, frozen_profile=frozen_prof, unfrozen_profile=unfrozen_prof)
+
+
+def finetune_attention_backward(dev, lengths, ctc_counts):
+    """Row 2Lp: the attention backward at WavLM-Large's 16 heads on the
+    fine-tuning batch (4 rows of 799 frames, 3 padded: 599/349/149 valid
+    keys), dropout 0.1 regenerated, against its plain version (dq/dk/dv 2
+    bf16 ulps, dbias/dgate relative L2 2e-3), with its bound, plain time
+    and SDPA's backward, per unfrozen fine-tuning step."""
+    from unispeech_tpu_torch.ops.kernels import flash_attention
+    from unispeech_tpu_torch.ops.rel_pos import compute_rel_pos_bias
+
+    enc = ctc_finetune_config(0).encoder
+    gen = torch.Generator().manual_seed(SEED + 14)
+    B, T = len(lengths), enc.num_frames(int(lengths.max()))
+    H, D = enc.encoder_attention_heads, enc.encoder_embed_dim
+    hd = D // H
+    q, kk, v = (torch.randn(B, T, H, hd, generator=gen).to(dev, torch.bfloat16)
+                for _ in range(3))
+    table = (torch.randn(enc.num_buckets, H, generator=gen) * 0.5).to(dev)
+    bias = compute_rel_pos_bias(table, T, T, enc.num_buckets, enc.max_distance,
+                                dtype=torch.bfloat16)
+    gate = (torch.rand(B, H, T, generator=gen) * 2 + 1).to(dev)
+    frames = torch.tensor([enc.num_frames(int(n)) for n in lengths.cpu()], device=dev)
+    kpm = torch.arange(T, device=dev)[None, :] >= frames[:, None]
+    seed = torch.randint(0, 2**62, (1,), generator=gen, dtype=torch.int64).to(dev)
+    rate = enc.attention_dropout
+    pout, plse = flash_attention.fused_attention_plain(
+        q, kk, v, bias=bias, gate=gate, key_padding_mask=kpm, dropout_rate=rate,
+        dropout_seed=seed, return_lse=True)
+    dout = (torch.randn(B, T, H, hd, generator=gen) * 1e-2).to(dev, torch.bfloat16)
+    args = (q, kk, v, bias, gate, kpm, None, rate, seed, pout, plse, dout)
+    got = flash_attention.fused_attention_backward(*args)
+    want = flash_attention.fused_attention_backward_plain(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+        err = max(err, compare(f"fused_attention_backward.h{H}.padded.{name}", a, b,
+                               tol_ulps=2.0))
+    rel_check(f"fused_attention_backward.h{H}.padded.dbias", got[3], want[3], 2e-3)
+    rel_check(f"fused_attention_backward.h{H}.padded.dgate", got[4], want[4], 2e-3)
+    del got, want
+    n = ctc_counts["unfrozen"][5] // 2  # backward calls per unfrozen step
+    # what this batch needs: every query against the valid keys of its row
+    # (five products), q/k/v/out/dO read and dq/dk/dv written once, the
+    # bias read and dbias written once, lse/delta/gate
+    keys = int(frames.sum())
+    nbytes = 8 * B * T * H * hd * 2 + 2 * H * T * T * 2 + 3 * B * H * T * 4 + B * T
+    b_ms, by = bound(nbytes, 10 * H * T * keys * hd, BF16_TC_FLOPS)
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, kk, v))
+    mask = (gate[..., None] * bias.float()[None]
+            + torch.where(kpm, -1e30, 0.0)[:, None, None, :]).to(torch.bfloat16).requires_grad_()
+    ya = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    return dict(
+        name=f"fused_attention_backward.h{H}.padded_finetune", route="cuda",
+        source="unispeech_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="unispeech_tpu/ops/pallas/flash_attention.py:1159",
+        launches=ctc_counts["unfrozen"][5], max_abs_err=err,
+        ms=n * cuda_ms(lambda: flash_attention.fused_attention_backward(*args)),
+        device_ms=n * device_ms(lambda: flash_attention.fused_attention_backward(*args)),
+        plain_ms=n * cuda_ms(lambda: flash_attention.fused_attention_backward_plain(*args),
+                             iters=2, warmup=1),
+        bound_ms=n * b_ms, bound_by=by,
+        **library_row(grad_fn(ya, (qh, kh, vh, mask), dout.transpose(1, 2).contiguous()), n))
+
+
+def ctc_pipeline_phase(counters, tmp):
+    """ctc_pipeline: CTC fine-tuning of the pipeline phase's WavLM-Large
+    export and decoding to a WER, through the CLIs' main(argv) in-process:
+    finetune-ctc --arch large --w2v-path <export> (letter transcripts of
+    the 12 wav files, the same files as the valid set, --best-metric wer,
+    freeze 2, checkpoints every 2) to update 2, resumed to update 4; then
+    decode --arch large with the viterbi decoder, the kenlm decoder over a
+    tiny ARPA LM and lexicon, and the ensemble of the update-2 and update-4
+    exports. Returns the decodes' reports."""
+    import io
+
+    from unispeech_tpu_torch.decode.__main__ import main as decode_main
+    from unispeech_tpu_torch.train.__main__ import main as train_main
+    from unispeech_tpu_torch.train.checkpoint import CheckpointManager
+
+    man = str(tmp / "man" / "train.tsv")
+    sizes = [int(line.split("\t")[1]) for line in
+             pathlib.Path(man).read_text().splitlines()[1:]]
+    rng = np.random.default_rng(SEED + 15)
+    texts = [letter_transcript(rng, n / SAMPLE_RATE) for n in sizes]
+    ltr = tmp / "train.ltr"
+    ltr.write_text("\n".join(texts) + "\n")
+    # a lexicon (letters, no boundary) and a unigram ARPA LM over 40 of the words
+    words = sorted({w.replace(" ", "") for t in texts for w in t.split("|") if w.strip()})[:40]
+    (tmp / "lexicon.txt").write_text("".join(f"{w}\t{' '.join(w)}\n" for w in words))
+    arpa = ["\\data\\", f"ngram 1={len(words) + 3}", "", "\\1-grams:", "-1.0\t<s>\t-0.3",
+            "-1.0\t</s>", "-3.0\t<unk>"]
+    arpa += [f"{-1.0 - 0.01 * i:.2f}\t{w}\t-0.2" for i, w in enumerate(words)]
+    (tmp / "lm.arpa").write_text("\n".join(arpa + ["", "\\end\\", ""]))
+    ckpt = str(tmp / "ctc_ckpt")
+    export = str(tmp / "export.npz")
+
+    def finetune(max_updates, out, want_valid):
+        argv = ["finetune-ctc", "--manifest", man, "--transcripts", str(ltr),
+                "--valid-manifest", man, "--valid-transcripts", str(ltr), "--arch", "large",
+                "--w2v-path", export, "--best-metric", "wer", "--freeze-finetune-updates",
+                str(CTC_FREEZE), "--save-interval-updates", "2", "--log-interval", "1",
+                "--lr", "5e-5", "--warmup-steps", "2", "--max-updates", str(max_updates),
+                "--checkpoint-dir", ckpt, "--export-params", str(tmp / out)]
+        for m, attr in counters:
+            setattr(m, attr, 0)
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(log):
+            train_main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = tuple(getattr(m, attr) for m, attr in counters)
+        lines = log.getvalue().splitlines()
+        train = [json.loads(x) for x in lines if x.startswith('{"tag": "train"')]
+        valid = [json.loads(x) for x in lines if x.startswith('{"tag": "valid"')]
+        for r in train:
+            phase("ctc_pipeline", update=r["step"], wall_s=r["elapsed_s"], loss=r["loss_avg"],
+                  ntokens=r.get("ntokens"))
+        for r in valid:
+            phase("ctc_pipeline", valid_update=r["step"], loss=r["loss_avg"], wer=r.get("wer"),
+                  uer=r.get("uer"))
+        phase("ctc_pipeline", step=f"finetune-ctc --max-updates {max_updates}",
+              seconds=f"{seconds:.2f}", launches_l1_conv_attn_fwd_bwd=counts)
+        if not all(np.isfinite(r["loss_avg"]) for r in train + valid):
+            fail("ctc_pipeline: a non-finite loss")
+        if [r["step"] for r in valid] != want_valid or \
+                not all("wer" in r and np.isfinite(r["wer"]) for r in valid):
+            fail(f"ctc_pipeline: no valid WER at each validation: {valid}")
+        if counts[1] or counts[3]:
+            fail(f"ctc_pipeline: an L1 or conv backward kernel was launched: {counts}")
+        if not (counts[0] and counts[2] and counts[4]):
+            fail(f"ctc_pipeline: a forward kernel family was not launched: {counts}")
+        return [r["step"] for r in train], counts, valid
+
+    first, c_first, v_first = finetune(2, "ctc2.npz", [2])
+    second, c_second, v_second = finetune(4, "ctc4.npz", [4])
+    mgr = CheckpointManager(ckpt, best_metric="wer")
+    best = mgr.best_step()
+    wers = {r["step"]: r["wer"] for r in v_first + v_second}
+    phase("ctc_pipeline", first_run_updates=first, resumed_run_updates=second,
+          checkpoints=sorted(int(n) for n in os.listdir(ckpt)), best_step=best,
+          valid_wer=wers)
+    if first != [1, 2] or second != [3, 4]:
+        fail(f"ctc_pipeline: the resumed run did not start at update 2: {first}, {second}")
+    # the frozen updates 1-2 launch no attention backward; 3-4 do
+    if c_first[5] != 0 or c_second[5] == 0:
+        fail(f"ctc_pipeline: attention backward launches {c_first[5]}, {c_second[5]}")
+    if best not in wers or wers[best] != min(wers.values()):
+        fail(f"ctc_pipeline: the best checkpoint {best} is not the best WER {wers}")
+
+    reports = {}
+    for name, extra in (("viterbi", ["--checkpoint", str(tmp / "ctc4.npz")]),
+                        ("kenlm", ["--checkpoint", str(tmp / "ctc4.npz"), "--decoder", "kenlm",
+                                   "--lm-model", str(tmp / "lm.arpa"), "--lexicon",
+                                   str(tmp / "lexicon.txt"), "--beam", "8"]),
+                        ("ensemble", ["--checkpoint", str(tmp / "ctc2.npz"),
+                                      str(tmp / "ctc4.npz")])):
+        out = tmp / f"decode_{name}"
+        for m, attr in counters:
+            setattr(m, attr, 0)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            decode_main(["--manifest", man, "--transcripts", str(ltr), "--arch", "large",
+                         "--results-path", str(out), *extra])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = tuple(getattr(m, attr) for m, attr in counters)
+        rep = json.loads((out / "wer_report.json").read_text())
+        hyps = (out / "hypo.word").read_text().splitlines()
+        phase("ctc_pipeline", decode=name, seconds=f"{seconds:.2f}", utterances=rep["utterances"],
+              wer=rep.get("wer"), uer=rep.get("uer"), hypo_lines=len(hyps),
+              launches_l1_conv_attn_fwd_bwd=counts)
+        if not {"utterances", "wer", "uer"} <= set(rep) or rep["utterances"] != len(sizes) \
+                or len(hyps) != len(sizes):
+            fail(f"ctc_pipeline: decode {name}: report {rep}, {len(hyps)} hypothesis lines")
+        if not (counts[0] and counts[2] and counts[4]) or counts[1] or counts[3] or counts[5]:
+            fail(f"ctc_pipeline: decode {name}: launches {counts}")
+        reports[name] = rep
+    return reports
 
 
 def main() -> int:
@@ -1184,9 +1630,21 @@ def main() -> int:
     large_train = train_phase(dev, counters, large_counts, arch="large")
     clock.done("large_train")
 
-    # HuBERT-style pretraining from raw audio through the CLIs
-    pipeline_phase(counters)
-    clock.done("pipeline")
+    # CTC fine-tuning steps at WavLM-Large's full width on the padded batch
+    ctc_counts = {}
+    ctc = ctc_train_phase(dev, counters, ctc_counts, wav, lengths)
+    clock.done("ctc_train")
+
+    # HuBERT-style pretraining from raw audio through the CLIs, then CTC
+    # fine-tuning of its export and decoding to a WER
+    tmp = _build.BUILD_DIR / "smoke_pipeline"
+    try:
+        pipeline_phase(counters, tmp)
+        clock.done("pipeline")
+        ctc_pipeline_phase(counters, tmp)
+        clock.done("ctc_pipeline")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     # 9 the elementwise micro-benchmark at its full shape
     vpu_row = vpu_phase(dev)
@@ -1284,8 +1742,19 @@ def main() -> int:
     ))
     rows += backward_times(bw, train_counts)
     rows += backward_times(bw_large, large_counts)
+    rows.append(finetune_attention_backward(dev, lengths, ctc_counts))
     rows.append(vpu_row)
     del bw, bw_large
+    # each kernel family's launches in one frozen and one unfrozen CTC
+    # fine-tuning step at WavLM-Large's width (its forms of the family)
+    family = (("l1_conv_with_stats.no_sums", 0), ("l1_conv_with_stats", None),
+              ("l1_conv_backward", 1), ("conv_gelu_block_backward", 3),
+              ("conv_gelu_block", 2), ("fused_attention_backward", 5),
+              ("fused_attention", 4), ("vpu_micro", None))
+    for r in rows:
+        idx = next(i for prefix, i in family if r["name"].startswith(prefix))
+        r["ctc_launches_frozen"] = 0 if idx is None else ctc_counts["frozen"][idx]
+        r["ctc_launches_unfrozen"] = 0 if idx is None else ctc_counts["unfrozen"][idx]
     for r in rows:
         phase("times", **{k: (f"{v:.4f}" if isinstance(v, float) else
                               "null" if v is None else v)
@@ -1323,6 +1792,18 @@ def main() -> int:
           profiled_busy_ms=f"{large_train['busy_ms']:.3f}",
           profiled_wall_ms=f"{large_train['wall_ms']:.3f}",
           kernel_launches_per_step=large_train["launches"])
+    fp, up = ctc["frozen_profile"], ctc["unfrozen_profile"]
+    phase("e2e_ctc_train", params=ctc["params"], frozen_step_ms=f"{ctc['frozen_ms']:.3f}",
+          unfrozen_step_ms=f"{ctc['unfrozen_ms']:.3f}",
+          host_enqueue_frozen_ms=f"{ctc['host_frozen_ms']:.3f}",
+          host_enqueue_unfrozen_ms=f"{ctc['host_unfrozen_ms']:.3f}",
+          audio_seconds_per_step=ctc["audio_s"], padded_seconds=B * NS / SAMPLE_RATE,
+          audio_sec_per_s_frozen=f"{ctc['audio_s'] / (ctc['frozen_ms'] / 1e3):.1f}",
+          audio_sec_per_s_unfrozen=f"{ctc['audio_s'] / (ctc['unfrozen_ms'] / 1e3):.1f}",
+          peak_memory_gb=f"{ctc['peak_gb']:.2f}",
+          profiled_busy_ms_frozen=f"{fp[0]:.3f}", profiled_wall_ms_frozen=f"{fp[1]:.3f}",
+          profiled_busy_ms_unfrozen=f"{up[0]:.3f}", profiled_wall_ms_unfrozen=f"{up[1]:.3f}",
+          kernel_launches_frozen=fp[2], kernel_launches_unfrozen=up[2])
     clock.done("times")
 
     print(json.dumps({"kernels": rows}), flush=True)

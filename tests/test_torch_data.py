@@ -19,7 +19,9 @@ from unispeech_tpu.data import batching as jbatching
 from unispeech_tpu.data import labels as jlabels
 from unispeech_tpu.data import prefetch as jprefetch
 from unispeech_tpu.data.__main__ import main as jax_data_cli
+from unispeech_tpu.data.dictionary import Dictionary as JDictionary
 from unispeech_tpu.data.dataset import DataConfig as JDataConfig
+from unispeech_tpu.data.dataset import FinetuneIterator as JFinetuneIterator
 from unispeech_tpu.data.dataset import PretrainIterator as JPretrainIterator
 from unispeech_tpu.data.labels import LabelFile as JLabelFile
 from unispeech_tpu.data.manifest import Manifest as JManifest
@@ -29,7 +31,8 @@ from unispeech_tpu.data.mixing import NoiseStore as JNoiseStore
 from unispeech_tpu.data.mixing import mix_batch_host as jax_mix
 from unispeech_tpu_torch.data import batching, labels, prefetch
 from unispeech_tpu_torch.data.__main__ import main as data_cli
-from unispeech_tpu_torch.data.dataset import DataConfig, PretrainIterator
+from unispeech_tpu_torch.data.dataset import DataConfig, FinetuneIterator, PretrainIterator
+from unispeech_tpu_torch.data.dictionary import Dictionary
 from unispeech_tpu_torch.data.labels import LabelFile
 from unispeech_tpu_torch.data.manifest import Manifest, create_manifest
 from unispeech_tpu_torch.data.mixing import MixingConfig, NoiseStore, mix_batch_host
@@ -286,6 +289,55 @@ def test_load_state_dict_resume_gives_the_same_next_batch(tmp_path):
     jfresh.load_state_dict(state)
     _assert_batches_equal(next(iter(fresh)), want)
     _assert_batches_equal(next(iter(jfresh)), want)
+
+
+@pytest.mark.parametrize("fixed_shapes", [True, False], ids=["fixed", "batch_by_size"])
+def test_finetune_iterator_bit_identical_over_two_epochs(tmp_path, fixed_shapes):
+    """FinetuneIterator's batches (audio, lengths, pad-filled labels, label
+    lengths; under fixed shapes one label length S for the dataset and the
+    zero-length padding rows) equal the JAX package's over two epochs. An
+    utterance longer than max_sample_size is cropped and keeps its whole
+    transcript, in both packages."""
+    d = _corpus(tmp_path)
+    man = Manifest.load(str(d / "train.tsv"))
+    rng = np.random.default_rng(4)
+    letters = Dictionary.letters().symbols[4:]
+    texts = [" ".join(rng.choice(letters, max(1, int(n) * 15 // 16000)))
+             for n in man.sizes]
+    texts[2] = ""  # an empty transcript
+    over = dict(max_sample_size=32000, min_sample_size=9000, max_tokens=70000, num_buckets=4,
+                required_batch_size_multiple=2, fixed_shapes=fixed_shapes)
+    it = FinetuneIterator(man, DataConfig(**over), texts, Dictionary.letters(),
+                          frame_hop=FRAME_HOP, frames_fn=frames, seed=3)
+    jit = JFinetuneIterator(JManifest.load(str(d / "train.tsv")), JDataConfig(**over), texts,
+                            JDictionary.letters(), frame_hop=FRAME_HOP, frames_fn=frames,
+                            seed=3)
+    enc = [Dictionary.letters().encode_line(t) for t in texts]
+    n_plan = len(jit._plan(1)) + len(jit._plan(2))
+    padded = cropped = 0
+    widths = set()
+    for got, want in zip(iter(it), iter(jit)):
+        _assert_batches_equal(got, want)
+        assert sorted(want) == ["label_lengths", "labels", "lengths", "source"]
+        widths.add(want["labels"].shape[1])
+        pad = want["lengths"] == 0
+        padded += int(pad.sum())
+        assert not want["label_lengths"][pad].any()
+        assert (want["labels"][pad] == Dictionary.letters().pad()).all()
+        for r in np.flatnonzero(want["lengths"] == over["max_sample_size"]):
+            row = [i for i in range(len(texts)) if len(enc[i]) == want["label_lengths"][r]
+                   and man.sizes[i] > over["max_sample_size"]]
+            cropped += bool(row)
+        n_plan -= 1
+        if n_plan == 0:
+            break
+    assert n_plan == 0 and it.state_dict() == jit.state_dict()
+    assert cropped > 0  # cropped rows kept their whole transcripts
+    if fixed_shapes:
+        longest = max(len(e) for e in enc)
+        assert padded > 0 and widths == {int(np.ceil(longest / 8) * 8)}
+    with pytest.raises(ValueError):
+        FinetuneIterator(man, DataConfig(**over), texts[:-1], Dictionary.letters())
 
 
 # -------------------------------------------------------------- manifests

@@ -1,7 +1,8 @@
 """The port imports neither JAX nor the JAX package, and importing it builds
-nothing: every module is imported, and a tiny CPU forward and a tiny
-pretraining step run, in a fresh interpreter, which must end with no ``jax``
-and no ``unispeech_tpu.`` module loaded and no kernel library built."""
+nothing: every module is imported, and a tiny CPU forward, a tiny
+pretraining step, a frozen and an unfrozen CTC fine-tuning step and a beam
+decode run, in a fresh interpreter, which must end with no ``jax`` and no
+``unispeech_tpu.`` module loaded and no kernel library built."""
 
 import subprocess
 import sys
@@ -22,7 +23,10 @@ SCRIPT = textwrap.dedent("""
         names.add(m.name)
     pipeline = {"data.__main__", "data.batching", "data.dataset", "data.labels",
                 "data.mixing", "data.prefetch", "tools.kmeans", "train.checkpoint",
-                "train.loop", "train.__main__", "utils.debug", "utils.metrics"}
+                "train.loop", "train.__main__", "utils.debug", "utils.metrics",
+                "data.dictionary", "data.text_encoders", "decode", "decode.__main__",
+                "decode.arpa", "decode.beam", "decode.wer", "models.ctc", "ops.ctc",
+                "train.tasks"}
     missing = {"unispeech_tpu_torch." + n for n in pipeline} - names
     assert not missing, missing
 
@@ -55,6 +59,25 @@ SCRIPT = textwrap.dedent("""
                        "targets": torch.randint(0, 5, (2, 99, 1))},
                torch.Generator().manual_seed(1))
     assert torch.isfinite(met["loss_per_sample"]) and state.step == 1
+
+    from unispeech_tpu_torch.data.dictionary import Dictionary
+    from unispeech_tpu_torch.decode.beam import CtcBeamDecoder
+    from unispeech_tpu_torch.models.ctc import CtcFinetuneConfig, CtcFinetuneModel
+    from unispeech_tpu_torch.train.tasks import make_ctc_finetune_loss_fn
+
+    d = Dictionary.letters()
+    ctc = CtcFinetuneModel(CtcFinetuneConfig(encoder=enc, vocab_size=len(d),
+                                             freeze_finetune_updates=1, final_dropout=0.1),
+                           generator=torch.Generator().manual_seed(0))
+    state = create_train_state(ctc, OptimConfig(schedule="fixed"), device="cpu")
+    step = make_train_step(make_ctc_finetune_loss_fn(ctc))
+    b = {"source": torch.randn(2, 2000), "lengths": torch.tensor([2000, 1500]),
+         "labels": torch.tensor([[5, 6, 4], [7, 4, 1]]), "label_lengths": torch.tensor([3, 2])}
+    for _ in range(2):  # one frozen step, one not
+        met = step(state, b, torch.Generator().manual_seed(1))
+        assert torch.isfinite(met["loss_per_sample"])
+    lp = torch.log_softmax(ctc(b["source"], b["lengths"]).logits, -1)[0].detach().numpy()
+    assert CtcBeamDecoder(beam=4).decode(lp)
 
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m.startswith("unispeech_tpu."))

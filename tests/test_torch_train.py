@@ -355,9 +355,9 @@ def test_dropout_training_is_reproducible_and_random():
 
 def test_not_ported_raise(tmp_path):
     """The SAT branch, the quantizer, their loss terms, sharding, the
-    training subcommands other than pretrain-hubert, and pretrain-hubert's
-    --sat, --n-model > 1, --fsdp and multi-host flags raise until they are
-    ported."""
+    training subcommands other than pretrain-hubert and finetune-ctc, and
+    pretrain-hubert's --sat, --n-model > 1, --fsdp and multi-host flags
+    raise until they are ported."""
     import dataclasses as dc
 
     from unispeech_tpu_torch.train import __main__ as train_cli
@@ -375,7 +375,7 @@ def test_not_ported_raise(tmp_path):
         hubert_loss(dc.replace(out, spk_logits=torch.zeros(1)), HubertCriterionConfig())
     with pytest.raises(NotImplementedError):
         shard_train_state(None)
-    for sub in ("pretrain-wav2vec2", "finetune-ctc", "finetune-seq2seq", "train-lm"):
+    for sub in ("pretrain-wav2vec2", "finetune-seq2seq", "train-lm"):
         with pytest.raises(NotImplementedError):
             train_cli.main([sub, "--manifest", "x", "--dict", "y"])
     (tmp_path / "m.tsv").write_text(f"{tmp_path}\n")

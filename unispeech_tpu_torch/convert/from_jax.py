@@ -12,7 +12,10 @@ for writing a params ``.npz`` the JAX tools read.
 names of the JAX package's fairseq exporter (``final_proj*``,
 ``label_embs_concat`` with the ILS tables stacked along the rows,
 ``target_glu.0``); ``jax_params_from_hubert_state_dict`` is its inverse.
-``jax_params_of`` is the training loop's export of a trained model.
+``ctc_state_dict_from_jax`` carries a CTC fine-tune model (the backbone
+under ``wavlm.``, the ``proj`` head); ``jax_params_from_ctc_state_dict``
+is its inverse. ``jax_params_of`` is the training loop's export of a
+trained model.
 """
 
 from __future__ import annotations
@@ -223,14 +226,36 @@ def jax_params_from_hubert_state_dict(sd: Mapping[str, torch.Tensor],
     return params
 
 
+def ctc_state_dict_from_jax(params: Mapping, enc: EncoderConfig) -> Dict[str, torch.Tensor]:
+    """Port state dict of a CtcFinetuneModel from the JAX params (the
+    backbone under "wavlm", the ``proj`` Dense beside it)."""
+    sd = {"wavlm." + k: v for k, v in wavlm_state_dict_from_jax(params["wavlm"], enc).items()}
+    sd["proj.weight"] = torch.tensor(_t(params["proj"]["kernel"]))
+    sd["proj.bias"] = torch.tensor(_np(params["proj"]["bias"]))
+    return sd
+
+
+def jax_params_from_ctc_state_dict(sd: Mapping[str, torch.Tensor], enc: EncoderConfig) -> dict:
+    """Inverse of ``ctc_state_dict_from_jax``; the backbone's layers are
+    stacked under ``layers`` as ``nn.scan`` keeps them."""
+    backbone = {k[len("wavlm."):]: v for k, v in sd.items() if k.startswith("wavlm.")}
+    return {"wavlm": jax_params_from_state_dict(backbone, enc),
+            "proj": {"kernel": _t(sd["proj.weight"].detach().cpu().float().numpy()),
+                     "bias": sd["proj.bias"].detach().cpu().float().numpy()}}
+
+
 def jax_params_of(model: torch.nn.Module) -> dict:
-    """The JAX params tree of a trained port model (a HubertPretrainModel:
-    the backbone under "wavlm", the heads beside it)."""
+    """The JAX params tree of a trained port model: a HubertPretrainModel
+    (the backbone under "wavlm", the heads beside it) or a
+    CtcFinetuneModel (the backbone under "wavlm", ``proj``)."""
+    from unispeech_tpu_torch.models.ctc import CtcFinetuneModel
     from unispeech_tpu_torch.models.hubert import HubertPretrainModel
 
-    if not isinstance(model, HubertPretrainModel):
-        raise NotImplementedError(f"no params export for {type(model).__name__} yet")
-    return jax_params_from_hubert_state_dict(model.state_dict(), model.pcfg)
+    if isinstance(model, HubertPretrainModel):
+        return jax_params_from_hubert_state_dict(model.state_dict(), model.pcfg)
+    if isinstance(model, CtcFinetuneModel):
+        return jax_params_from_ctc_state_dict(model.state_dict(), model.wavlm.cfg.encoder)
+    raise NotImplementedError(f"no params export for {type(model).__name__} yet")
 
 
 def save_params_npz(path: str, params) -> None:

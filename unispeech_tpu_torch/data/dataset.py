@@ -3,9 +3,10 @@
 Counterpart of the JAX package's ``data/dataset.py`` (``DataConfig``,
 ``PretrainIterator``): numpy batches of a fixed set of bucket shapes, made
 deterministically from (seed, epoch, batch index), so (epoch, batch_offset)
-is the whole resumable state. The same manifest, label files and seed give
-the JAX package's batches bit for bit. The multilingual resampling
-(``lang_groups``) and the fine-tuning iterators are not ported yet.
+is the whole resumable state. The same manifest, label files, transcripts
+and seed give the JAX package's batches bit for bit. ``FinetuneIterator``
+adds the CTC transcripts. The multilingual resampling (``lang_groups``)
+and ``Seq2SeqIterator`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from unispeech_tpu_torch.data.batching import (
     ordered_indices,
     shard_batches,
 )
+from unispeech_tpu_torch.data.dictionary import Dictionary
 from unispeech_tpu_torch.data.labels import LabelFile, align_labels_to_frames, crop_labels
 from unispeech_tpu_torch.data.manifest import Manifest, load_audio
 from unispeech_tpu_torch.data.mixing import MixingConfig, NoiseStore, mix_batch_host
@@ -224,3 +226,44 @@ def _pad_rows(batch: Dict[str, np.ndarray], B_target: int) -> Dict[str, np.ndarr
     pad = B_target - B
     return {k: np.concatenate([v, np.zeros((pad,) + v.shape[1:], dtype=v.dtype)], axis=0)
             for k, v in batch.items()}
+
+
+class FinetuneIterator(PretrainIterator):
+    """Audio and transcript batches for CTC fine-tuning.
+
+    ``transcripts``: one text line per manifest row (letter format, e.g.
+    "H E L L O | W O R L D |"), encoded with ``dictionary``. Batches gain
+    labels (B, S) i32 filled with ``dictionary.pad()`` and label_lengths
+    (B,) i32; a zero-length padding row has label length 0. Under
+    ``fixed_shapes`` S is one length for the whole dataset (the longest
+    transcript, in multiples of 8), so a batch's shape varies only with its
+    audio bucket. A crop of audio longer than ``max_sample_size`` keeps the
+    utterance's whole transcript, as in the JAX package.
+    """
+
+    def __init__(self, manifest: Manifest, cfg: DataConfig, transcripts: Sequence[str],
+                 dictionary: Dictionary, **kw):
+        super().__init__(manifest, cfg, label_files=(), **kw)
+        if len(transcripts) != len(manifest):
+            raise ValueError(f"{len(transcripts)} transcripts for {len(manifest)} "
+                             "manifest rows")
+        self.dictionary = dictionary
+        self.enc = [dictionary.encode_line(t) for t in transcripts]
+        self._S_fixed = int(np.ceil(max((len(e) for e in self.enc), default=1) / 8) * 8) or 8
+
+    def _collate(self, idx, epoch, bi):
+        batch = super()._collate(idx, epoch, bi)
+        labs = [self.enc[int(i)] for i in idx]
+        if self.cfg.fixed_shapes:
+            S = self._S_fixed
+        else:
+            S = int(np.ceil(max(max(len(l) for l in labs), 1) / 8) * 8)
+        B = batch["source"].shape[0]  # the zero-length padding rows included
+        labels = np.full((B, S), self.dictionary.pad(), dtype=np.int32)
+        lab_len = np.zeros((B,), dtype=np.int32)
+        for r, l in enumerate(labs):
+            labels[r, :len(l)] = l
+            lab_len[r] = len(l)
+        batch["labels"] = labels
+        batch["label_lengths"] = lab_len
+        return batch

@@ -102,10 +102,14 @@ class WavLM(nn.Module):
             if lengths is not None:
                 source = source.masked_fill(~valid, 0.0)
 
-        feats = self.feature_extractor(source)
-        if enc.feature_grad_mult != 1.0:
-            feats = (grad_multiply(feats, enc.feature_grad_mult)
-                     if enc.feature_grad_mult > 0 else feats.detach())
+        if enc.feature_grad_mult > 0:
+            feats = self.feature_extractor(source)
+            if enc.feature_grad_mult != 1.0:
+                feats = grad_multiply(feats, enc.feature_grad_mult)
+        else:
+            # a frozen frontend (CTC fine-tuning) runs forward only
+            with torch.no_grad():
+                feats = self.feature_extractor(source)
         padding_mask = None
         if lengths is not None:
             padding_mask = frame_padding_mask(lengths, source.shape[1], feats.shape[1])
