@@ -66,6 +66,27 @@ Phases, one line each (any failure raises and exits non-zero):
              validation, the best checkpoint by WER, the resume, one
              hypothesis per file, the WER report, attention backward only
              from update 3 on
+    w2v_train  UniSpeech pretraining at WavLM-Large's width
+             (Wav2Vec2PretrainModel: no relative position bias, transpose
+             mode, Gumbel 2 x 320, 100 negatives, final_dim and vq_dim 768,
+             the letter CTC head, replace_prob 0.5, mtlalpha 0.5, bf16) on
+             the padded smoke batch with random letter transcripts: 3 steps
+             with launch counts per step (L1 1/1 without the sums, conv
+             12/18, attention 48/48 in the no-bias form with remat_layers),
+             the quantizer's temperature and perplexities; one step's
+             gradients, kernel path against plain path, the same generator
+             seed, the codeword choices pinned; 20 steps, the loss must fall;
+             step ms, host enqueue, audio-seconds per second, peak memory
+    sat_train  the same for UniSpeech-SAT at the bench's Large config with
+             pretrain-hubert --sat's speaker branch (1 + 100 instances, spk
+             loss weight 0.1) on random frame labels; loss_spk_m and
+             contrastive_acc per step
+    w2v_pipeline  train pretrain-wav2vec2 --arch large --mtlalpha 0.5 on the
+             pipeline's 12 files as two comma-separated "language"
+             manifests (--multilang-alpha 0.5) with letter transcripts, to
+             update 2, resumed to 4; then pretrain-hubert --arch large --sat
+             on the pipeline's MFCC labels for 2 updates; finite losses, the
+             resume, every kernel family launched
   9 vpu      the elementwise micro-benchmark's entry point
              (python -m unispeech_tpu_torch.scripts.exp_vpu_micro) at
              (6, 49152, 512) bf16 with launch counts; each of its seven
@@ -77,9 +98,12 @@ Phases, one line each (any failure raises and exits non-zero):
              call timed by CUDA events as the host enqueues them (wall: a
              call of several launches follows the host) and queued behind
              a busy card (device); the attention backward on the padded
-             fine-tuning batch (16 heads); each kernel family's launches per
-             frozen and unfrozen fine-tuning step; audio-seconds per second
-             of the forward, of the train steps and of the fine-tuning steps
+             fine-tuning batch (16 heads); the attention forward and backward
+             without bias on that batch with dropout (rows 1nLp, 2nLp, per
+             w2v_train step); each kernel family's launches per frozen and
+             unfrozen fine-tuning step; audio-seconds per second of the
+             forward, of the train steps, of the fine-tuning steps and of the
+             UniSpeech and UniSpeech-SAT steps
 
 The line before the last is the kernels JSON, the last the device JSON.
 """
@@ -88,6 +112,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import pathlib
 import shutil
@@ -120,6 +145,11 @@ BF16_ULP = 2.0 ** -7
 # covers gradients that are zero analytically (the k_proj bias: softmax
 # ignores a per-query constant), noise on both paths.
 GRAD_TOL, GRAD_FLOOR = 5e-2, 1e-4
+# draws of a contrastive step's randomness whose gradients the kernel-vs-plain
+# check of w2v_train and sat_train stacks: one draw's ratio of the two paths'
+# fp32 errors on a noise-led tensor spreads over 0.5-4 on an H100; stacked
+# over 16 draws the gate read 0.82 of its tolerance there
+GRAD_DRAWS = 16
 
 
 def phase(tag: str, /, **fields) -> None:
@@ -1435,6 +1465,411 @@ def ctc_pipeline_phase(counters, tmp):
     return reports
 
 
+
+def unispeech_large_config():
+    """The UniSpeech model of w2v_train: WavLM-Large's encoder as
+    pretrain-wav2vec2 --arch large builds it (24 layers, width 1024, 16
+    heads, layer_norm extractor, pre-LN, no relative position bias, dropout
+    0.1, remat_layers), the reference's wav2vec 2.0 Large heads (final_dim
+    768, vq_dim = final_dim 768: fairseq's wav2vec2_large_librivox has
+    latent_dim 0), Gumbel 2 groups x 320, 100 negatives, transpose mode, the
+    letter CTC head with replace_prob 0.5."""
+    from unispeech_tpu_torch.configs import (
+        GumbelVQConfig,
+        MaskConfig,
+        Wav2Vec2PretrainConfig,
+        large_encoder_config,
+    )
+
+    return Wav2Vec2PretrainConfig(
+        encoder=large_encoder_config(), time_mask=MaskConfig(mask_prob=0.65, mask_length=10),
+        final_dim=768, quantizer=GumbelVQConfig(num_vars=320, groups=2, vq_dim=768),
+        num_negatives=100, transpose=True, ctc_vocab_size=len(LETTERS) + 4, replace_prob=0.5)
+
+
+def sat_large_config():
+    """The UniSpeech-SAT model of sat_train: the bench's Large pretraining
+    config (bench.py:154-206: rel-pos bias with the gate, dropout 0.1,
+    layerdrop 0.05, final_dim 768, 504 classes) with the speaker branch as
+    pretrain-hubert --sat sets it (one same-utterance and 100 cross-sample
+    instances, the tap at layer 6)."""
+    from unispeech_tpu_torch.configs import HubertPretrainConfig, MaskConfig, large_encoder_config
+
+    enc = large_encoder_config(relative_position_embedding=True, gru_rel_pos=True,
+                               encoder_layerdrop=0.05, dropout=0.1, attention_dropout=0.1,
+                               remat_ffn=True, remat_layers=False, scan_layers=False)
+    return HubertPretrainConfig(encoder=enc, time_mask=MaskConfig(mask_prob=0.8, mask_length=10),
+                                num_classes=(N_CLASSES,), final_dim=768,
+                                utterance_contrastive_loss=True, num_instances=1,
+                                cross_sample_instances=100)
+
+
+@contextlib.contextmanager
+def pinned_codewords(picks, flips):
+    """The Gumbel quantizer's hard choices, call by call: recorded into
+    ``picks`` when it is empty on entry, else taken from it (the soft
+    probabilities stay the run's own), counting in ``flips`` the choices
+    the run would have made otherwise. Two paths round the quantizer's
+    input differently, and a near-tie of the noisy logits then picks
+    another codeword, which changes that frame's target: pinned, the runs
+    differ only in their arithmetic."""
+    from unispeech_tpu_torch.ops import quantizer
+
+    real = quantizer.gumbel_softmax
+    replay = bool(picks)
+    calls = iter(range(1 << 30))
+
+    def fn(logits, tau, noise, hard=True):
+        y = real(logits, tau, noise, hard)
+        i = next(calls)
+        if not replay:
+            picks.append(y.detach().argmax(-1))
+            return y
+        y_soft = torch.softmax((logits.float() + noise) / tau, dim=-1)
+        flips.append(int((y_soft.argmax(-1) != picks[i]).sum()))
+        y_hard = F.one_hot(picks[i], logits.shape[-1]).to(y_soft.dtype)
+        return y_hard + y_soft - y_soft.detach()
+
+    quantizer.gumbel_softmax = fn
+    try:
+        yield
+    finally:
+        quantizer.gumbel_softmax = real
+
+
+def contrastive_train_phase(dev, counters, tag, wav, lengths, counts_out):
+    """w2v_train (UniSpeech at Large width: InfoNCE + 0.5 phonetic CTC) or
+    sat_train (UniSpeech-SAT at Large width) on the padded smoke batch
+    (random letter transcripts at 15 symbols per second, or random frame
+    labels): 3 steps with launch counts per step; one step's gradients for
+    each of GRAD_DRAWS generator seeds, kernel path against plain path with
+    the same seed (the same masks, dropout, negatives or instances, Gumbel
+    noise, replace mask; the quantizer's codeword choices pinned), stacked
+    over the draws; 20 steps on one batch, the loss must fall. Fills ``counts_out`` with the first step's launch counts;
+    returns the end-to-end numbers."""
+    from unispeech_tpu_torch.data.dictionary import Dictionary
+    from unispeech_tpu_torch.models.hubert import HubertPretrainModel
+    from unispeech_tpu_torch.models.wav2vec2 import Wav2Vec2PretrainModel
+    from unispeech_tpu_torch.train.losses import HubertCriterionConfig
+    from unispeech_tpu_torch.train.optim import OptimConfig
+    from unispeech_tpu_torch.train.state import create_train_state, make_train_step
+    from unispeech_tpu_torch.train.tasks import make_hubert_loss_fn, make_wav2vec2_loss_fn
+
+    w2v = tag == "w2v_train"
+    B = wav.shape[0]
+    gen = torch.Generator().manual_seed(SEED + (21 if w2v else 22))
+    batch = {"source": wav, "lengths": lengths.to(torch.int32)}
+    if w2v:
+        cfg = unispeech_large_config()
+        model = Wav2Vec2PretrainModel(cfg, dtype=torch.bfloat16,
+                                      generator=torch.Generator().manual_seed(SEED))
+        d = Dictionary.letters()
+        rng = np.random.default_rng(SEED + 23)
+        enc_texts = [d.encode_line(letter_transcript(rng, float(n) / SAMPLE_RATE))
+                     for n in lengths.cpu()]
+        S = int(np.ceil(max(len(e) for e in enc_texts) / 8) * 8)
+        labels = np.full((B, S), d.pad(), np.int32)
+        for r, e in enumerate(enc_texts):
+            labels[r, :len(e)] = e
+        batch["labels"] = torch.from_numpy(labels).to(dev)
+        batch["label_lengths"] = torch.tensor([len(e) for e in enc_texts], dtype=torch.int32,
+                                              device=dev)
+        loss_fn = make_wav2vec2_loss_fn(model, mtlalpha=0.5)
+        enc = cfg.encoder
+    else:
+        cfg = sat_large_config()
+        model = HubertPretrainModel(cfg, dtype=torch.bfloat16,
+                                    generator=torch.Generator().manual_seed(SEED))
+        enc = cfg.encoder
+        T = enc.num_frames(wav.shape[1])
+        batch["targets"] = torch.randint(0, N_CLASSES, (B, T, 1), generator=gen).to(dev)
+        loss_fn = make_hubert_loss_fn(model, HubertCriterionConfig(spk_loss_weight=0.1))
+    nparams = sum(p.numel() for p in model.parameters())
+    state = create_train_state(model, OptimConfig(lr=5e-4, warmup_steps=100, total_steps=1000),
+                               device=dev)
+    step = make_train_step(loss_fn)
+    L = enc.encoder_layers
+    phase(tag, params=nparams, frames=enc.num_frames(wav.shape[1]), batch=B)
+
+    def reset():
+        for m, attr in counters:
+            setattr(m, attr, 0)
+
+    for i in range(3):
+        reset()
+        met = step(state, batch, gen)
+        torch.cuda.synchronize()
+        counts = tuple(getattr(m, attr) for m, attr in counters)
+        kept = L - met["layers_dropped"]
+        # L1 without the sums and its backward; each block's H pass and GEMM
+        # forward, H, dx, dW backward (the frontend trains: feature_grad_mult
+        # 1.0, on padded rows); attention forward once per kept layer, twice
+        # with remat_layers (w2v), its pre-pass and kernel backward
+        want = (1, 1, 12, 18) + ((2 * kept, 2 * kept) if w2v else (kept, 2 * kept))
+        loss, gnorm = float(met["loss_per_sample"]), float(met["grad_norm"])
+        extra = (dict(loss_ctc=f"{float(met['loss_ctc']):.3f}",
+                      loss_contrastive=f"{float(met['loss_contrastive']):.3f}",
+                      temp=f"{cfg.quantizer.temp_at(i):.6f}",
+                      code_perplexity=f"{float(met['code_perplexity']):.2f}",
+                      prob_perplexity=f"{float(met['prob_perplexity']):.2f}") if w2v else
+                 dict(loss_spk_m=f"{float(met['loss_spk_m']):.4f}",
+                      contrastive_acc=f"{float(met['contrastive_acc']):.4f}"))
+        phase(tag, step=i, loss_per_sample=f"{loss:.4f}", grad_norm=f"{gnorm:.4f}",
+              sample_size=int(met["sample_size"]), layers_dropped=met["layers_dropped"],
+              launches_l1_conv_attn_fwd_bwd=counts, **extra)
+        if counts != want:
+            fail(f"{tag} step {i}: launches {counts} != {want}")
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            fail(f"{tag} step {i}: loss {loss}, grad_norm {gnorm}")
+        if i == 0:
+            counts_out.update(zip(("l1", "l1_bwd", "conv", "conv_bwd", "attn", "attn_bwd"),
+                                  counts))
+
+    # one step's gradients, kernel path against plain path, for GRAD_DRAWS
+    # draws of the step's randomness (masks, dropout, negatives or
+    # instances, Gumbel noise, replace mask): the same weights and generator
+    # seed on both paths, the codeword choices pinned. At random weights the
+    # contrastive gradient is a difference of near-equal terms, and bf16
+    # rounding moves it by 10-20% in either path. The frontend's gradient is
+    # led by the last valid frame of each padded row: its receptive field
+    # reaches the padding, whose LayerNorms see (near) zero variance and
+    # scale the gradient by up to 1/sqrt(eps), bf16 noise with it, on both
+    # paths. So a
+    # tensor that misses train's rule passes when the kernel path is no
+    # further from the same steps in fp32 (the plain ops) than the bf16
+    # plain path is, 1.5x. Both rules read each tensor's gradients of all
+    # draws stacked
+    def grads(m, seed):
+        m.zero_grad(set_to_none=True)
+        fn = (make_wav2vec2_loss_fn(m, mtlalpha=0.5) if w2v else
+              make_hubert_loss_fn(m, HubertCriterionConfig(spk_loss_weight=0.1)))
+        loss, ss, _ = fn(batch, torch.Generator().manual_seed(seed), state.step)
+        (loss / torch.clamp(ss, min=1.0)).backward()
+        out = [torch.zeros_like(p) if p.grad is None else p.grad.float().clone()
+               for p in m.parameters()]
+        m.zero_grad(set_to_none=True)
+        return out
+
+    model32 = type(model)(cfg).to(dev)
+    model32.load_state_dict(model.state_dict())
+    # per draw and tensor: |gk - gp|^2, |gp|^2, |gk - g32|^2, |gp - g32|^2
+    per_draw = []
+    n_pinned = n_flips = 0
+    for d in range(GRAD_DRAWS):
+        picks, flips = [], []
+        seed = SEED + 24 + d
+        with pinned_codewords(picks, flips):
+            gk = grads(model, seed)
+        with pinned_codewords(picks, flips), plain_ops():
+            gp = grads(model, seed)
+        with pinned_codewords(picks, flips), plain_ops():
+            g32 = grads(model32, seed)
+        per_draw.append(torch.stack([
+            torch.stack([((a - b) ** 2).sum(), (b * b).sum(), ((a - c) ** 2).sum(),
+                         ((b - c) ** 2).sum()])
+            for a, b, c in zip(gk, gp, g32)], 1).double().cpu())
+        n_pinned += sum(int(p.numel()) for p in picks)
+        n_flips += sum(flips)
+        del gk, gp, g32
+    del model32
+    diff, ref, err_k, err_p = sum(per_draw).sqrt().tolist()
+    total = math.sqrt(sum(r * r for r in ref))
+    worst = []
+    for j, (name, _) in enumerate(model.named_parameters()):
+        rule = diff[j] / (GRAD_TOL * ref[j] + GRAD_FLOOR * total)
+        vs32 = err_k[j] / (1.5 * err_p[j] + GRAD_FLOOR * total)
+        worst.append((min(rule, vs32), rule, name, diff[j] / max(ref[j], 1e-30), err_k[j],
+                      err_p[j], j))
+    worst.sort(reverse=True)
+    for ratio, rule, name, rel, ek, ep, _ in worst[:5]:
+        phase(tag, grad_vs_plain=name, rel_l2=f"{rel:.3g}", of_tolerance=f"{rule:.3g}",
+              kernel_vs_fp32=f"{ek:.3g}", plain_vs_fp32=f"{ep:.3g}",
+              of_fp32_tolerance=f"{ratio:.3g}")
+    phase(tag, grad_tol=f"{GRAD_TOL} * |g| + {GRAD_FLOOR} * |global|",
+          or_fp32_tol=f"|gk - g32| <= 1.5 |gp - g32| + {GRAD_FLOOR} * |global|",
+          draws_stacked=GRAD_DRAWS, global_grad_norm=f"{total:.4g}", tensors=len(worst),
+          within_train_rule=sum(1 for w in worst if w[1] <= 1.0),
+          codeword_choices_pinned=n_pinned, plain_path_would_differ=n_flips)
+    j = worst[0][-1]
+    phase(tag, worst_tensor_per_draw=worst[0][2], kernel_over_plain_fp32_error=",".join(
+        f"{math.sqrt(e[2, j] / max(e[3, j], 1e-60)):.3f}" for e in per_draw))
+    if worst[0][0] > 1.0:
+        fail(f"{tag}: gradient of {worst[0][2]}: kernel path disagrees with the plain path")
+
+    # ms per step (back to back), host enqueue on an idle queue, peak memory,
+    # one profiled step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_time = 3
+    t0 = time.perf_counter()
+    for _ in range(n_time):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_time
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    step(state, batch, gen)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    busy_ms, wall_ms, n_launch = profile_once(lambda: step(state, batch, gen), f"{tag}_profile")
+
+    # learning: 20 steps on one batch at a fixed learning rate
+    state = create_train_state(model, OptimConfig(lr=5e-4, schedule="fixed"), device=dev)
+    losses = [float(step(state, batch, gen)["loss_per_sample"]) for _ in range(20)]
+    phase(tag, learning_first=f"{losses[0]:.4f}", learning_last=f"{losses[-1]:.4f}",
+          steps=len(losses), losses=",".join(f"{x:.3f}" for x in losses))
+    if not losses[-1] < losses[0]:
+        fail(f"{tag}: 20 steps on one batch: loss {losses[0]} -> {losses[-1]} did not fall")
+    audio_s = float(lengths.sum()) / SAMPLE_RATE
+    return dict(params=nparams, step_ms=step_ms, host_ms=host_ms, peak_gb=peak_gb,
+                audio_s=audio_s, busy_ms=busy_ms, wall_ms=wall_ms, launches=n_launch)
+
+
+def nobias_attention_rows(dev, lengths, w2v_counts):
+    """Rows 1nLp and 2nLp: the attention forward and backward as wav2vec
+    2.0 / UniSpeech train them (no bias, no gate, dropout 0.1, 16 heads) on
+    the padded smoke batch (4 rows of 799 frames, 599/349/149 valid keys in
+    three), against their plain versions (forward 2 bf16 ulps with dropout,
+    dq/dk/dv 2), with bound, plain time and SDPA (the same boolean key mask
+    and dropout_p), per w2v_train step."""
+    from unispeech_tpu_torch.ops.kernels import flash_attention
+
+    enc = unispeech_large_config().encoder
+    gen = torch.Generator().manual_seed(SEED + 25)
+    B, T = len(lengths), enc.num_frames(int(lengths.max()))
+    H, hd = enc.encoder_attention_heads, enc.encoder_embed_dim // enc.encoder_attention_heads
+    q, kk, v = (torch.randn(B, T, H, hd, generator=gen).to(dev, torch.bfloat16)
+                for _ in range(3))
+    frames = torch.tensor([enc.num_frames(int(n)) for n in lengths.cpu()], device=dev)
+    kpm = torch.arange(T, device=dev)[None, :] >= frames[:, None]
+    seed = torch.randint(0, 2**62, (1,), generator=gen, dtype=torch.int64).to(dev)
+    rate = enc.attention_dropout
+    fwd = dict(key_padding_mask=kpm, dropout_rate=rate, dropout_seed=seed)
+    out, lse = flash_attention.fused_attention(q, kk, v, **fwd, return_lse=True)
+    pout, plse = flash_attention.fused_attention_plain(q, kk, v, **fwd, return_lse=True)
+    torch.cuda.synchronize()
+    err_f = compare(f"fused_attention.nobias.h{H}.padded", out, pout, tol_ulps=2.0)
+    dout = (torch.randn(B, T, H, hd, generator=gen) * 1e-2).to(dev, torch.bfloat16)
+    args = (q, kk, v, None, None, kpm, None, rate, seed, pout, plse, dout)
+    got = flash_attention.fused_attention_backward(*args)
+    want = flash_attention.fused_attention_backward_plain(*args)
+    torch.cuda.synchronize()
+    err_b = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+        err_b = max(err_b, compare(f"fused_attention_backward.nobias.h{H}.padded.{name}", a, b,
+                                   tol_ulps=2.0))
+    del got, want, out, lse
+    n_fwd, n_bwd = w2v_counts["attn"], w2v_counts["attn_bwd"] // 2  # calls per step
+    keys = int(frames.sum())
+    f_bound = bound(4 * B * T * H * hd * 2 + B * H * T * 4 + B * T, 4 * H * T * keys * hd,
+                    BF16_TC_FLOPS)
+    b_bound = bound(8 * B * T * H * hd * 2 + 3 * B * H * T * 4 + B * T,
+                    10 * H * T * keys * hd, BF16_TC_FLOPS)
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, kk, v))
+    attend = ~kpm[:, None, None, :]
+    ya = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=attend, dropout_p=rate)
+    rows = [dict(
+        name=f"fused_attention.nobias.h{H}.padded_w2v", route="cuda",
+        source="unispeech_tpu_torch/csrc/flash_attention.cu",
+        replaces="unispeech_tpu/ops/pallas/flash_attention.py:878",
+        launches=w2v_counts["attn"], max_abs_err=err_f,
+        ms=n_fwd * cuda_ms(lambda: flash_attention.fused_attention(q, kk, v, **fwd)),
+        device_ms=n_fwd * device_ms(lambda: flash_attention.fused_attention(q, kk, v, **fwd)),
+        plain_ms=n_fwd * cuda_ms(lambda: flash_attention.fused_attention_plain(q, kk, v, **fwd),
+                                 iters=2, warmup=1),
+        bound_ms=n_fwd * f_bound[0], bound_by=f_bound[1],
+        **library_row(lambda: F.scaled_dot_product_attention(
+            qh.detach(), kh.detach(), vh.detach(), attn_mask=attend, dropout_p=rate), n_fwd),
+    ), dict(
+        name=f"fused_attention_backward.nobias.h{H}.padded_w2v", route="cuda",
+        source="unispeech_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="unispeech_tpu/ops/pallas/flash_attention.py:1159",
+        launches=w2v_counts["attn_bwd"], max_abs_err=err_b,
+        ms=n_bwd * cuda_ms(lambda: flash_attention.fused_attention_backward(*args)),
+        device_ms=n_bwd * device_ms(lambda: flash_attention.fused_attention_backward(*args)),
+        plain_ms=n_bwd * cuda_ms(lambda: flash_attention.fused_attention_backward_plain(*args),
+                                 iters=2, warmup=1),
+        bound_ms=n_bwd * b_bound[0], bound_by=b_bound[1],
+        **library_row(grad_fn(ya, (qh, kh, vh), dout.transpose(1, 2).contiguous()), n_bwd))]
+    return rows
+
+
+def w2v_pipeline_phase(counters, tmp):
+    """w2v_pipeline: UniSpeech and UniSpeech-SAT pretraining from the
+    pipeline phase's 12 wav files through the CLIs' main(argv) in-process:
+    train pretrain-wav2vec2 --arch large --mtlalpha 0.5 on two
+    comma-separated manifests of 6 files each (two "languages", resampled
+    with --multilang-alpha 0.5) with letter transcripts, to update 2 with
+    checkpoints every 2, then resumed to 4; then train pretrain-hubert
+    --arch large --sat on the pipeline's MFCC labels for 2 updates. Finite
+    losses, the resume at update 2, every kernel family launched."""
+    import io
+
+    from unispeech_tpu_torch.data.dictionary import Dictionary
+    from unispeech_tpu_torch.train.__main__ import main as train_main
+
+    lines = (tmp / "man" / "train.tsv").read_text().splitlines()
+    root, rows = lines[0], lines[1:]
+    rng = np.random.default_rng(SEED + 26)
+    mans, ltrs = [], []
+    for li, part in enumerate((rows[:6], rows[6:])):
+        man, ltr = tmp / f"lang{li}.tsv", tmp / f"lang{li}.ltr"
+        man.write_text(root + "\n" + "\n".join(part) + "\n")
+        ltr.write_text("\n".join(letter_transcript(rng, int(r.split("\t")[1]) / SAMPLE_RATE)
+                                 for r in part) + "\n")
+        mans.append(str(man))
+        ltrs.append(str(ltr))
+    Dictionary.letters().save(str(tmp / "letters.txt"))
+
+    def run(argv, what):
+        for m, attr in counters:
+            setattr(m, attr, 0)
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(log):
+            train_main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = tuple(getattr(m, attr) for m, attr in counters)
+        records = [json.loads(line) for line in log.getvalue().splitlines()
+                   if line.startswith('{"tag": "train"')]
+        for r in records:
+            keys = ("loss_ctc", "loss_contrastive", "code_perplexity", "prob_perplexity",
+                    "loss_spk_m", "contrastive_acc")
+            phase("w2v_pipeline", update=r["step"], wall_s=r["elapsed_s"], loss=r["loss_avg"],
+                  sample_size=r["sample_size"], **{k: r[k] for k in keys if k in r})
+        phase("w2v_pipeline", step=what, seconds=f"{seconds:.2f}",
+              launches_l1_conv_attn_fwd_bwd=counts)
+        if not all(counts):
+            fail(f"w2v_pipeline: {what}: a kernel family was not launched: {counts}")
+        if not records or not all(np.isfinite(r["loss_avg"]) for r in records):
+            fail(f"w2v_pipeline: {what}: a non-finite loss or no update logged")
+        return [r["step"] for r in records]
+
+    ckpt = str(tmp / "w2v_ckpt")
+    argv = ["pretrain-wav2vec2", "--arch", "large", "--manifest", ",".join(mans),
+            "--transcripts", ",".join(ltrs), "--dict", str(tmp / "letters.txt"),
+            "--mtlalpha", "0.5", "--multilang-alpha", "0.5", "--save-interval-updates", "2",
+            "--log-interval", "1", "--checkpoint-dir", ckpt, "--export-params",
+            str(tmp / "w2v_export.npz")]
+    first = run(argv + ["--max-updates", "2"], "pretrain-wav2vec2 --max-updates 2")
+    second = run(argv + ["--max-updates", "4"], "pretrain-wav2vec2 --max-updates 4 (resumed)")
+    phase("w2v_pipeline", first_run_updates=first, resumed_run_updates=second,
+          checkpoints=sorted(int(n) for n in os.listdir(ckpt)))
+    if first != [1, 2] or second != [3, 4]:
+        fail(f"w2v_pipeline: the resumed run did not start at update 2: {first}, {second}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    sat_ckpt = str(tmp / "sat_ckpt")
+    sat = run(["pretrain-hubert", "--sat", "--arch", "large", "--manifest",
+               str(tmp / "man" / "train.tsv"), "--labels", str(tmp / "lab" / "mfcc.km"),
+               "--num-classes", str(PIPE_CLUSTERS), "--label-rate", "100",
+               "--max-updates", "2", "--save-interval-updates", "2", "--log-interval", "1",
+               "--checkpoint-dir", sat_ckpt], "pretrain-hubert --sat --max-updates 2")
+    if sat != [1, 2]:
+        fail(f"w2v_pipeline: pretrain-hubert --sat logged updates {sat}")
+    shutil.rmtree(sat_ckpt, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1643,6 +2078,15 @@ def main() -> int:
         clock.done("pipeline")
         ctc_pipeline_phase(counters, tmp)
         clock.done("ctc_pipeline")
+        # UniSpeech and UniSpeech-SAT pretraining at Large width: steps on
+        # the padded batch, then the CLIs on the pipeline's files
+        w2v_counts, sat_counts = {}, {}
+        w2v = contrastive_train_phase(dev, counters, "w2v_train", wav, lengths, w2v_counts)
+        clock.done("w2v_train")
+        sat = contrastive_train_phase(dev, counters, "sat_train", wav, lengths, sat_counts)
+        clock.done("sat_train")
+        w2v_pipeline_phase(counters, tmp)
+        clock.done("w2v_pipeline")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1743,6 +2187,7 @@ def main() -> int:
     rows += backward_times(bw, train_counts)
     rows += backward_times(bw_large, large_counts)
     rows.append(finetune_attention_backward(dev, lengths, ctc_counts))
+    rows += nobias_attention_rows(dev, lengths, w2v_counts)
     rows.append(vpu_row)
     del bw, bw_large
     # each kernel family's launches in one frozen and one unfrozen CTC
@@ -1804,6 +2249,13 @@ def main() -> int:
           profiled_busy_ms_frozen=f"{fp[0]:.3f}", profiled_wall_ms_frozen=f"{fp[1]:.3f}",
           profiled_busy_ms_unfrozen=f"{up[0]:.3f}", profiled_wall_ms_unfrozen=f"{up[1]:.3f}",
           kernel_launches_frozen=fp[2], kernel_launches_unfrozen=up[2])
+    for name, e in (("e2e_w2v_train", w2v), ("e2e_sat_train", sat)):
+        phase(name, params=e["params"], step_ms=f"{e['step_ms']:.3f}",
+              host_enqueue_ms=f"{e['host_ms']:.3f}", audio_seconds_per_step=e["audio_s"],
+              padded_seconds=B * NS / SAMPLE_RATE,
+              audio_sec_per_s=f"{e['audio_s'] / (e['step_ms'] / 1e3):.1f}",
+              peak_memory_gb=f"{e['peak_gb']:.2f}", profiled_busy_ms=f"{e['busy_ms']:.3f}",
+              profiled_wall_ms=f"{e['wall_ms']:.3f}", kernel_launches_per_step=e["launches"])
     clock.done("times")
 
     print(json.dumps({"kernels": rows}), flush=True)

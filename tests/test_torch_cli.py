@@ -10,6 +10,7 @@ a few 1e-3; the features are held at relative L2 <= 2e-2.
 """
 
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -391,3 +392,178 @@ def test_finetune_ctc_cli_grafts_the_pretrained_export(tmp_path):
     for path, leaf in flat_w.items():
         np.testing.assert_array_equal(flat_g[path], leaf)
     assert set(got) == {"wavlm", "proj"} and got["proj"]["kernel"].shape == (64, 32)
+
+
+# ------------------------------------------------- pretrain-wav2vec2, --sat
+@pytest.fixture
+def one_torch_thread():
+    """The tiny models gain nothing from intra-op threads, and under a
+    parallel test run (several worker processes on few cores) OpenMP's
+    spinning threads slow these training runs tenfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+W2V_TINY = dict(encoder_layers=2, encoder_embed_dim=32, encoder_ffn_embed_dim=64,
+                encoder_attention_heads=2, conv_layers=[[32, 10, 5], [32, 3, 2], [32, 2, 2]],
+                conv_pos=8, conv_pos_groups=2)
+
+
+def _speech_corpus(d, n, seed):
+    """n wav files of 0.5-1.2 s, their manifest and letter transcripts."""
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    rows, texts = [], []
+    for i in range(n):
+        m = int(rng.integers(8000, 19000))
+        _write_wav(d / f"u{i}.wav", rng.standard_normal(m) * 0.1)
+        rows.append(f"u{i}.wav\t{m}")
+        texts.append(" ".join(rng.choice(list("ABCDE"), 6)) + " |")
+    (d / "train.tsv").write_text(f"{d}\n" + "\n".join(rows) + "\n")
+    (d / "train.ltr").write_text("\n".join(texts) + "\n")
+    return d
+
+
+def _train_records(capsys):
+    return [json.loads(line) for line in capsys.readouterr().err.splitlines()
+            if line.startswith('{"tag": "train"')]
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("unispeech", [False, True], ids=["wav2vec2", "unispeech_two_langs"])
+def test_pretrain_wav2vec2_cli(tmp_path, capsys, unispeech):
+    """pretrain-wav2vec2 --device cpu, a tiny --encoder-json: plain
+    wav2vec 2.0 on one manifest, and UniSpeech (--mtlalpha 0.5, a letter
+    dictionary) on two comma-separated per-language manifests resampled
+    with --multilang-alpha 0.5. Every update draws (masks, negatives, Gumbel
+    noise), so the run is held by finite losses and the resume: 2 updates,
+    then a second call to 3 that starts from the update-2 checkpoint. The
+    --export-params file loads into the JAX Wav2Vec2PretrainModel and gives
+    the port's encoder output (and CTC logits) at rtol/atol 1e-5, fp32."""
+    from unispeech_tpu.configs import Wav2Vec2PretrainConfig as JW2VConfig
+    from unispeech_tpu.configs import base_encoder_config as jax_base
+    from unispeech_tpu.models.wav2vec2 import Wav2Vec2PretrainModel as JW2V
+    from unispeech_tpu.train.checkpoint import load_params_npz
+    from unispeech_tpu_torch.configs import Wav2Vec2PretrainConfig
+    from unispeech_tpu_torch.configs import base_encoder_config as port_base
+    from unispeech_tpu_torch.data.dictionary import Dictionary
+    from unispeech_tpu_torch.models.wav2vec2 import Wav2Vec2PretrainModel
+    from unispeech_tpu_torch.train.__main__ import main as train_cli
+
+    langs = [_speech_corpus(tmp_path / f"lang{i}", n, i) for i, n in enumerate((5, 2))]
+    argv = ["pretrain-wav2vec2", "--encoder-json", json.dumps(W2V_TINY), "--max-tokens",
+            "40000", "--max-sample-size", "20000", "--min-sample-size", "8000",
+            "--log-interval", "1", "--save-interval-updates", "2", "--checkpoint-dir",
+            str(tmp_path / "ckpt"), "--export-params", str(tmp_path / "export.npz"),
+            "--device", "cpu"]
+    if unispeech:
+        Dictionary.letters().save(str(tmp_path / "dict.txt"))
+        argv += ["--manifest", ",".join(str(d / "train.tsv") for d in langs),
+                 "--transcripts", ",".join(str(d / "train.ltr") for d in langs),
+                 "--mtlalpha", "0.5", "--dict", str(tmp_path / "dict.txt"),
+                 "--multilang-alpha", "0.5"]
+    else:
+        argv += ["--manifest", str(langs[0] / "train.tsv")]
+    train_cli(argv + ["--max-updates", "2"])
+    train_cli(argv + ["--max-updates", "3"])
+    records = _train_records(capsys)
+    assert [r["step"] for r in records] == [1, 2, 3]
+    assert all(np.isfinite(r["loss_avg"]) for r in records)
+    assert all(("loss_ctc" in r) == unispeech for r in records)
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["2", "3"]
+
+    enc_kw = dict(W2V_TINY, conv_layers=tuple(map(tuple, W2V_TINY["conv_layers"])), dropout=0.0,
+                  attention_dropout=0.0)
+    vocab = len(Dictionary.letters()) if unispeech else 0
+    kw = dict(transpose=unispeech, ctc_vocab_size=vocab)
+    cfg = Wav2Vec2PretrainConfig(encoder=port_base(**enc_kw), **kw)
+    model = Wav2Vec2PretrainModel(cfg)
+    model.load_state_dict(torch.load(tmp_path / "ckpt" / "3" / "state.pt",
+                                     weights_only=True)["model"])
+    jmodel = JW2V(JW2VConfig(encoder=jax_base(**enc_kw), **kw))
+    params = load_params_npz(str(tmp_path / "export.npz"))
+    source = np.random.default_rng(9).standard_normal((2, 12000)).astype(np.float32)
+    lengths = np.asarray([12000, 9000], np.int32)
+    jout = jmodel.apply({"params": params}, jnp.asarray(source), jnp.asarray(lengths),
+                        mask=False, deterministic=True, rngs={"negatives": jax.random.PRNGKey(0)})
+    with torch.no_grad():
+        out = model(torch.from_numpy(source), torch.from_numpy(lengths), mask=False,
+                    generator=torch.Generator())
+    np.testing.assert_allclose(out.x.numpy(), np.asarray(jout.x), rtol=1e-5, atol=1e-5)
+    if unispeech:
+        np.testing.assert_allclose(out.ctc_logits.numpy(), np.asarray(jout.ctc_logits),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_pretrain_hubert_sat_cli(tmp_path, capsys):
+    """pretrain-hubert --sat --device cpu (one same-utterance and 100
+    cross-utterance instances, spk loss weight 0.1, the tap at layer 6 of a
+    tiny 6-layer encoder): finite losses with the speaker terms, the resume
+    at update 2, and the export in the JAX UniSpeech-SAT model gives the
+    port's prediction logits (rtol/atol 1e-5, fp32)."""
+    from unispeech_tpu.configs import HubertPretrainConfig as JHubertConfig
+    from unispeech_tpu.configs import base_encoder_config as jax_base
+    from unispeech_tpu.models.hubert import HubertPretrainModel as JHubert
+    from unispeech_tpu.train.checkpoint import load_params_npz
+    from unispeech_tpu_torch.configs import HubertPretrainConfig
+    from unispeech_tpu_torch.configs import base_encoder_config as port_base
+    from unispeech_tpu_torch.models.hubert import HubertPretrainModel
+    from unispeech_tpu_torch.train.__main__ import main as train_cli
+
+    d = _speech_corpus(tmp_path / "c", 5, 0)
+    sizes = [int(r.split("\t")[1]) for r in (d / "train.tsv").read_text().splitlines()[1:]]
+    rng = np.random.default_rng(1)
+    (d / "train.km").write_text("\n".join(
+        " ".join(map(str, rng.integers(0, 10, 1 + (n - 400) // 320))) for n in sizes) + "\n")
+    tiny = dict(W2V_TINY, encoder_layers=6, num_buckets=16, max_distance=32)
+    argv = ["pretrain-hubert", "--sat", "--manifest", str(d / "train.tsv"), "--labels",
+            str(d / "train.km"), "--num-classes", "10", "--encoder-json", json.dumps(tiny),
+            "--max-tokens", "40000", "--max-sample-size", "20000", "--min-sample-size",
+            "8000", "--log-interval", "1", "--save-interval-updates", "2",
+            "--checkpoint-dir", str(tmp_path / "ckpt"), "--export-params",
+            str(tmp_path / "export.npz"), "--device", "cpu"]
+    train_cli(argv + ["--max-updates", "2"])
+    train_cli(argv + ["--max-updates", "3"])
+    records = _train_records(capsys)
+    assert [r["step"] for r in records] == [1, 2, 3]
+    assert all(np.isfinite(r["loss_avg"]) and np.isfinite(r["loss_spk_m"])
+               and 0 <= r["contrastive_acc"] <= 1 for r in records)
+
+    enc_kw = dict(tiny, conv_layers=tuple(map(tuple, tiny["conv_layers"])), dropout=0.0,
+                  attention_dropout=0.0, encoder_layerdrop=0.0,
+                  relative_position_embedding=True, gru_rel_pos=True)
+    kw = dict(num_classes=(10,), utterance_contrastive_loss=True, num_instances=1)
+    cfg = HubertPretrainConfig(encoder=port_base(**enc_kw), **kw)
+    model = HubertPretrainModel(cfg)
+    model.load_state_dict(torch.load(tmp_path / "ckpt" / "3" / "state.pt",
+                                     weights_only=True)["model"])
+    jmodel = JHubert(JHubertConfig(encoder=jax_base(**enc_kw), **kw))
+    params = load_params_npz(str(tmp_path / "export.npz"))
+    source = np.random.default_rng(9).standard_normal((2, 12000)).astype(np.float32)
+    T = cfg.encoder.num_frames(12000)
+    targets = np.zeros((2, T, 1), np.int32)
+    jout = jmodel.apply({"params": params}, jnp.asarray(source), jnp.asarray(targets),
+                        mask=False, deterministic=True, rngs={"instances": jax.random.PRNGKey(0)})
+    with torch.no_grad():
+        out = model(torch.from_numpy(source), torch.from_numpy(targets), mask=False,
+                    generator=torch.Generator())
+    for key in jout.logits:
+        np.testing.assert_allclose(out.logits[key].numpy(), np.asarray(jout.logits[key]),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_pretrain_wav2vec2_default_device_needs_cuda(tmp_path):
+    """Without --device cpu the CLI runs on the card, and without one it
+    raises rather than fall back to the CPU."""
+    from unispeech_tpu_torch.train.__main__ import main as train_cli
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default device is usable")
+    d = _speech_corpus(tmp_path / "c", 2, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli(["pretrain-wav2vec2", "--manifest", str(d / "train.tsv"),
+                   "--encoder-json", json.dumps(W2V_TINY), "--min-sample-size", "8000",
+                   "--checkpoint-dir", str(tmp_path / "ckpt")])

@@ -602,3 +602,61 @@ def test_small_model_train_step_kernel_path_matches_plain(dev, monkeypatch):
     for (name, _), a, b in zip(model.named_parameters(), gk, gp):
         assert torch.isfinite(a).all(), name
         assert (a - b).norm().item() <= 5e-2 * b.norm().item() + 1e-4 * total, name
+
+
+def test_small_wav2vec2_train_kernel_path_matches_plain(dev, monkeypatch):
+    """A small UniSpeech model (Wav2Vec2PretrainModel: no relative position
+    bias, head dim 64, the frontend trained with feature_grad_mult 1.0, the
+    CTC head with mtlalpha 0.5) on the card, on a padded batch with dropout
+    0.1 and attention dropout 0.1: one step's gradients through the kernels
+    against the same model with the three ops' plain versions, the same
+    generator seed (so the same masks, dropout, negatives, Gumbel noise and
+    replace mask). Per parameter |g - g_plain| <= 5e-2 |g_plain| + 1e-4
+    |global|, as the HuBERT case above."""
+    from unispeech_tpu_torch.configs import (
+        GumbelVQConfig,
+        MaskConfig,
+        Wav2Vec2PretrainConfig,
+        base_encoder_config,
+    )
+    from unispeech_tpu_torch.models import encoder
+    from unispeech_tpu_torch.models.wav2vec2 import Wav2Vec2PretrainModel
+    from unispeech_tpu_torch.train.tasks import make_wav2vec2_loss_fn
+
+    enc = base_encoder_config(
+        encoder_layers=2, encoder_embed_dim=128, encoder_ffn_embed_dim=256,
+        encoder_attention_heads=2, conv_layers=((128, 10, 5),) + ((128, 3, 2),) * 2,
+        conv_pos=16, conv_pos_groups=4, dropout=0.1, attention_dropout=0.1,
+        encoder_layerdrop=0.0, remat_layers=False)
+    cfg = Wav2Vec2PretrainConfig(encoder=enc, time_mask=MaskConfig(mask_prob=0.65, mask_length=4),
+                                 final_dim=32, num_negatives=10,
+                                 quantizer=GumbelVQConfig(num_vars=16, vq_dim=32),
+                                 transpose=True, ctc_vocab_size=12)
+    model = Wav2Vec2PretrainModel(cfg, dtype=torch.bfloat16,
+                                  generator=torch.Generator().manual_seed(0)).to(dev)
+    g = torch.Generator().manual_seed(1)
+    batch = {"source": (torch.randn(3, 6000, generator=g) * 0.1).to(dev),
+             "lengths": torch.tensor([6000, 4100, 2500], device=dev),
+             "labels": torch.randint(1, 12, (3, 6), generator=g).to(dev),
+             "label_lengths": torch.tensor([6, 4, 2], device=dev)}
+    loss_fn = make_wav2vec2_loss_fn(model, mtlalpha=0.5)
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, ss, _ = loss_fn(batch, torch.Generator().manual_seed(5), 0)
+        (loss / ss).backward()
+        return [p.grad.float().clone() for p in model.parameters()]
+
+    mods = (l1_frontend, conv_stack, flash_attention)
+    counts = [(m.launches, m.backward_launches) for m in mods]
+    gk = grads()
+    launched = [(m.launches - a, m.backward_launches - b) for m, (a, b) in zip(mods, counts)]
+    assert launched == [(1, 1), (3, 7), (2, 4)]
+    monkeypatch.setattr(encoder, "l1_conv_with_stats", l1_frontend.l1_conv_with_stats_plain)
+    monkeypatch.setattr(encoder, "conv_gelu_block", conv_stack.conv_gelu_block_plain)
+    monkeypatch.setattr(encoder, "fused_attention", flash_attention.fused_attention_plain)
+    gp = grads()
+    total = torch.sqrt(sum((x * x).sum() for x in gp)).item()
+    for (name, _), a, b in zip(model.named_parameters(), gk, gp):
+        assert torch.isfinite(a).all(), name
+        assert (a - b).norm().item() <= 5e-2 * b.norm().item() + 1e-4 * total, name

@@ -29,6 +29,7 @@ from unispeech_tpu.data.manifest import create_manifest as jax_create_manifest
 from unispeech_tpu.data.mixing import MixingConfig as JMixingConfig
 from unispeech_tpu.data.mixing import NoiseStore as JNoiseStore
 from unispeech_tpu.data.mixing import mix_batch_host as jax_mix
+from unispeech_tpu.data import multilingual as jmultilingual
 from unispeech_tpu_torch.data import batching, labels, prefetch
 from unispeech_tpu_torch.data.__main__ import main as data_cli
 from unispeech_tpu_torch.data.dataset import DataConfig, FinetuneIterator, PretrainIterator
@@ -36,6 +37,7 @@ from unispeech_tpu_torch.data.dictionary import Dictionary
 from unispeech_tpu_torch.data.labels import LabelFile
 from unispeech_tpu_torch.data.manifest import Manifest, create_manifest
 from unispeech_tpu_torch.data.mixing import MixingConfig, NoiseStore, mix_batch_host
+from unispeech_tpu_torch.data import multilingual
 
 FRAME_HOP = 320
 
@@ -338,6 +340,102 @@ def test_finetune_iterator_bit_identical_over_two_epochs(tmp_path, fixed_shapes)
         assert padded > 0 and widths == {int(np.ceil(longest / 8) * 8)}
     with pytest.raises(ValueError):
         FinetuneIterator(man, DataConfig(**over), texts[:-1], Dictionary.letters())
+
+
+# ----------------------------------------------------------- multilingual
+def _languages(tmp_path):
+    """Three per-language corpora of 6, 3 and 1 utterances (one too short to
+    keep), each with its own root, manifest and letter transcripts."""
+    mans, texts = [], []
+    letters = Dictionary.letters().symbols[4:]
+    for li, n in enumerate((6, 3, 2)):
+        d = tmp_path / f"lang{li}"
+        d.mkdir()
+        _corpus(d, n=n, seed=li)
+        if li == 2:  # a language with one row under min_sample_size
+            lines = (d / "train.tsv").read_text().splitlines()
+            (d / "train.tsv").write_text("\n".join(lines[:2] + [lines[2].split("\t")[0]
+                                                                + "\t4000"]) + "\n")
+        mans.append(str(d / "train.tsv"))
+        rng = np.random.default_rng(li)
+        texts += [" ".join(rng.choice(letters, 10)) for _ in range(n)]
+    return mans, texts
+
+
+def test_concat_manifests_and_ratios_match_jax(tmp_path):
+    mans, _ = _languages(tmp_path)
+    man, groups = multilingual.concat_manifests([Manifest.load(p) for p in mans])
+    jman, jgroups = jmultilingual.concat_manifests([JManifest.load(p) for p in mans])
+    assert man.root == jman.root and man.paths == jman.paths
+    np.testing.assert_array_equal(man.sizes, jman.sizes)
+    for g, jg in zip(groups, jgroups):
+        np.testing.assert_array_equal(g, jg)
+    for alpha in (1.0, 0.5, 0.2):
+        lengths = np.asarray([6, 3, 1])
+        np.testing.assert_array_equal(multilingual.multilang_sample_probs(lengths, alpha),
+                                      jmultilingual.multilang_sample_probs(lengths, alpha))
+        np.testing.assert_array_equal(multilingual.multilang_size_ratios(lengths, alpha),
+                                      jmultilingual.multilang_size_ratios(lengths, alpha))
+        for r in multilingual.multilang_size_ratios(lengths, alpha):
+            np.testing.assert_array_equal(
+                multilingual.resampled_rows(np.arange(10, 16), r, 3, 2, 1),
+                jmultilingual.resampled_rows(np.arange(10, 16), r, 3, 2, 1))
+
+
+@pytest.mark.parametrize("kind", ["pretrain", "finetune"])
+def test_multilingual_iterators_bit_identical_over_two_epochs(tmp_path, kind):
+    """lang_groups with multilang_alpha 0.5 (the low-resource languages
+    upsampled, with replacement): the same batches as the JAX iterators over
+    two epochs, and the epochs' row multisets differ."""
+    mans, texts = _languages(tmp_path)
+    over = dict(max_sample_size=32000, min_sample_size=9000, max_tokens=70000, num_buckets=4,
+                required_batch_size_multiple=2)
+    its = []
+    for mod, Man, Cfg, It, Dic in (
+            (multilingual, Manifest, DataConfig,
+             PretrainIterator if kind == "pretrain" else FinetuneIterator, Dictionary),
+            (jmultilingual, JManifest, JDataConfig,
+             JPretrainIterator if kind == "pretrain" else JFinetuneIterator, JDictionary)):
+        man, groups = mod.concat_manifests([Man.load(p) for p in mans])
+        kw = dict(frame_hop=FRAME_HOP, frames_fn=frames, seed=3, lang_groups=groups,
+                  multilang_alpha=0.5)
+        its.append(It(man, Cfg(**over), **kw) if kind == "pretrain"
+                   else It(man, Cfg(**over), texts, Dic.letters(), **kw))
+    it, jit = its
+    assert sorted(it._epoch_rows(1).tolist()) != sorted(it._epoch_rows(2).tolist())
+    n_plan = len(jit._plan(1)) + len(jit._plan(2))
+    for got, want in zip(iter(it), iter(jit)):
+        _assert_batches_equal(got, want)
+        n_plan -= 1
+        if n_plan == 0:
+            break
+    assert n_plan == 0 and it.state_dict() == jit.state_dict()
+
+
+@pytest.mark.parametrize("kind", ["pretrain", "finetune"])
+def test_iterator_without_rows_raises(tmp_path, kind):
+    """No row reaches min_sample_size: iterating raises ValueError, where the
+    JAX package plans empty epochs forever. SIGALRM bounds the test at 20 s,
+    so a regression fails instead of hanging the suite."""
+    import signal
+
+    d = _corpus(tmp_path, n=3)
+    man = Manifest.load(str(d / "train.tsv"))
+    cfg = DataConfig(min_sample_size=10 ** 6)
+    it = (PretrainIterator(man, cfg) if kind == "pretrain"
+          else FinetuneIterator(man, cfg, ["A B"] * 3, Dictionary.letters()))
+
+    def hung(*_):
+        raise TimeoutError("the iterator plans empty epochs without end")
+
+    old = signal.signal(signal.SIGALRM, hung)
+    signal.alarm(20)
+    try:
+        with pytest.raises(ValueError, match="min_sample_size"):
+            next(iter(it))
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
 
 
 # -------------------------------------------------------------- manifests

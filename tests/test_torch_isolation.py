@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the JAX package, and importing it builds
 nothing: every module is imported, and a tiny CPU forward, a tiny
-pretraining step, a frozen and an unfrozen CTC fine-tuning step and a beam
+pretraining step (and one with the UniSpeech-SAT branch), a UniSpeech
+multitask step, a frozen and an unfrozen CTC fine-tuning step and a beam
 decode run, in a fresh interpreter, which must end with no ``jax`` and no
 ``unispeech_tpu.`` module loaded and no kernel library built."""
 
@@ -26,7 +27,7 @@ SCRIPT = textwrap.dedent("""
                 "train.loop", "train.__main__", "utils.debug", "utils.metrics",
                 "data.dictionary", "data.text_encoders", "decode", "decode.__main__",
                 "decode.arpa", "decode.beam", "decode.wer", "models.ctc", "ops.ctc",
-                "train.tasks"}
+                "train.tasks", "ops.quantizer", "models.wav2vec2", "data.multilingual"}
     missing = {"unispeech_tpu_torch." + n for n in pipeline} - names
     assert not missing, missing
 
@@ -59,6 +60,32 @@ SCRIPT = textwrap.dedent("""
                        "targets": torch.randint(0, 5, (2, 99, 1))},
                torch.Generator().manual_seed(1))
     assert torch.isfinite(met["loss_per_sample"]) and state.step == 1
+
+    sat = HubertPretrainModel(HubertPretrainConfig(
+        encoder=enc, num_classes=(5,), final_dim=8, utterance_contrastive_loss=True,
+        utterance_contrastive_layer=1, num_instances=1, quantize_targets=True),
+        generator=torch.Generator().manual_seed(0))
+    state = create_train_state(sat, OptimConfig(schedule="fixed"), device="cpu")
+    step = make_train_step(make_hubert_loss_fn(sat, HubertCriterionConfig(
+        spk_loss_weight=0.1, prob_ppl_weight=0.1)))
+    met = step(state, {"source": torch.randn(2, 2000),
+                       "targets": torch.randint(0, 5, (2, 99, 1))},
+               torch.Generator().manual_seed(1))
+    assert torch.isfinite(met["loss_per_sample"]) and "loss_spk_m" in met
+
+    from unispeech_tpu_torch.configs import GumbelVQConfig, Wav2Vec2PretrainConfig
+    from unispeech_tpu_torch.models.wav2vec2 import Wav2Vec2PretrainModel
+    from unispeech_tpu_torch.train.tasks import make_wav2vec2_loss_fn
+
+    w2v = Wav2Vec2PretrainModel(Wav2Vec2PretrainConfig(
+        encoder=enc, final_dim=8, num_negatives=4, quantizer=GumbelVQConfig(num_vars=6, vq_dim=8),
+        transpose=True, ctc_vocab_size=7), generator=torch.Generator().manual_seed(0))
+    state = create_train_state(w2v, OptimConfig(schedule="fixed"), device="cpu")
+    step = make_train_step(make_wav2vec2_loss_fn(w2v, mtlalpha=0.5))
+    met = step(state, {"source": torch.randn(2, 2000), "lengths": torch.tensor([2000, 1500]),
+                       "labels": torch.tensor([[5, 6, 4], [2, 4, 1]]),
+                       "label_lengths": torch.tensor([3, 2])}, torch.Generator().manual_seed(1))
+    assert torch.isfinite(met["loss_per_sample"]) and "loss_ctc" in met
 
     from unispeech_tpu_torch.data.dictionary import Dictionary
     from unispeech_tpu_torch.decode.beam import CtcBeamDecoder

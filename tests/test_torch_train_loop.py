@@ -30,23 +30,27 @@ from unispeech_tpu.models.hubert import HubertPretrainModel as JHubert
 from unispeech_tpu.train.checkpoint import load_params_npz as jax_load_params_npz
 from unispeech_tpu.train.loop import group_microbatches as jax_group_microbatches
 from unispeech_tpu_torch.configs import (
+    GumbelVQConfig,
     HubertPretrainConfig,
     MaskConfig,
+    Wav2Vec2PretrainConfig,
     base_encoder_config,
     large_encoder_config,
 )
 from unispeech_tpu_torch.convert.from_jax import hubert_state_dict_from_jax
-from unispeech_tpu_torch.data.dataset import DataConfig, PretrainIterator
+from unispeech_tpu_torch.data.dataset import DataConfig, FinetuneIterator, PretrainIterator
+from unispeech_tpu_torch.data.dictionary import Dictionary
 from unispeech_tpu_torch.data.labels import LabelFile
 from unispeech_tpu_torch.data.manifest import Manifest
 from unispeech_tpu_torch.models.hubert import HubertPretrainModel
+from unispeech_tpu_torch.models.wav2vec2 import Wav2Vec2PretrainModel
 from unispeech_tpu_torch.train.__main__ import main as train_cli
 from unispeech_tpu_torch.train.checkpoint import CheckpointManager
 from unispeech_tpu_torch.train.loop import LoopConfig, group_microbatches, run_training
 from unispeech_tpu_torch.train.losses import HubertCriterionConfig
 from unispeech_tpu_torch.train.optim import OptimConfig
 from unispeech_tpu_torch.train.state import create_train_state
-from unispeech_tpu_torch.train.tasks import make_hubert_loss_fn
+from unispeech_tpu_torch.train.tasks import make_hubert_loss_fn, make_wav2vec2_loss_fn
 from unispeech_tpu_torch.utils.debug import HangWatchdog, nonfinite_paths
 from unispeech_tpu_torch.utils.metrics import MetricsAggregator, ProgressLogger
 
@@ -298,6 +302,47 @@ def test_resumed_run_equals_uninterrupted_grouped(tmp_path):
     resumed, _ = _run(tmp_path, "b", 4, corpus, accum_steps=2)
     assert full.step == resumed.step == 4 and full.optimizer.count == 4
     assert sorted(os.listdir(tmp_path / "b")) == ["1", "2", "4"]
+    for (name, a), b in zip(full.model.state_dict().items(),
+                            resumed.model.state_dict().values()):
+        assert torch.equal(a, b), name
+    sa, sb = full.optimizer.adamw.state_dict(), resumed.optimizer.adamw.state_dict()
+    for i in sa["state"]:
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(sa["state"][i][key], sb["state"][i][key])
+
+
+def _run_unispeech(tmp_path, ckpt, max_updates, corpus):
+    """UniSpeech multitask pretraining (mtlalpha 0.5) from a FinetuneIterator."""
+    enc = _tiny_enc(dropout=0.1, attention_dropout=0.1, encoder_layerdrop=0.2,
+                    dropout_features=0.1)
+    cfg = Wav2Vec2PretrainConfig(encoder=enc, time_mask=MaskConfig(mask_prob=0.5, mask_length=4),
+                                 final_dim=8, num_negatives=4, cross_sample_negatives=2,
+                                 quantizer=GumbelVQConfig(num_vars=6, groups=2, vq_dim=8),
+                                 transpose=True, ctc_vocab_size=len(Dictionary.letters()))
+    model = Wav2Vec2PretrainModel(cfg, generator=torch.Generator().manual_seed(0))
+    man = Manifest.load(str(corpus / "train.tsv"))
+    texts = ["A B | C |"] * len(man)
+    data = FinetuneIterator(man, DataConfig(max_sample_size=20000, min_sample_size=8000,
+                                            max_tokens=48000, num_buckets=3,
+                                            required_batch_size_multiple=2),
+                            texts, Dictionary.letters(), seed=3)
+    loop = LoopConfig(max_updates=max_updates, log_interval=1, save_interval_updates=2,
+                      checkpoint_dir=str(tmp_path / ckpt), seed=5)
+    return run_training(model, make_wav2vec2_loss_fn(model, mtlalpha=0.5),
+                        OptimConfig(lr=1e-3, warmup_steps=2, total_steps=8), iter(data), loop,
+                        device="cpu", data_state=data)
+
+
+def test_resumed_run_equals_uninterrupted_wav2vec2(tmp_path):
+    """The same for UniSpeech pretraining, whose update generator feeds the
+    mask, dropout (with dropout_features and final_dropout), the Gumbel
+    noise, the negatives and the CTC head's replace mask: 4 updates in one
+    run against 2, a resume, 2 more, bit for bit."""
+    corpus = _corpus(tmp_path)
+    full = _run_unispeech(tmp_path, "a", 4, corpus)
+    _run_unispeech(tmp_path, "b", 2, corpus)
+    resumed = _run_unispeech(tmp_path, "b", 4, corpus)
+    assert full.step == resumed.step == 4
     for (name, a), b in zip(full.model.state_dict().items(),
                             resumed.model.state_dict().values()):
         assert torch.equal(a, b), name

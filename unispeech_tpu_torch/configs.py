@@ -192,7 +192,17 @@ class GumbelVQConfig:
     weight_proj_depth: int = 1
     weight_proj_factor: int = 1
 
-    def temp_at(self, num_updates) -> float:
+    def temp_at(self, num_updates):
+        """max(temp_start * temp_decay ** num_updates, temp_min), as the JAX
+        package computes it: in double precision for an int step, in fp32
+        (an fp32 tensor) for a tensor step."""
+        if hasattr(num_updates, "dtype"):
+            import torch
+
+            decay = torch.tensor(self.temp_decay, dtype=torch.float32,
+                                 device=num_updates.device)
+            return torch.clamp(self.temp_start * decay ** num_updates.float(),
+                               min=self.temp_min)
         return max(self.temp_start * self.temp_decay**num_updates, self.temp_min)
 
 

@@ -11,7 +11,13 @@ for writing a params ``.npz`` the JAX tools read.
 ``hubert_state_dict_from_jax`` adds the masked-prediction heads under the
 names of the JAX package's fairseq exporter (``final_proj*``,
 ``label_embs_concat`` with the ILS tables stacked along the rows,
-``target_glu.0``); ``jax_params_from_hubert_state_dict`` is its inverse.
+``target_glu.0``, and UniSpeech-SAT's ``spk_proj``,
+``layer_norm_for_extract``, ``project_q`` and ``quantizer.*``);
+``jax_params_from_hubert_state_dict`` is its inverse.
+``wav2vec2_state_dict_from_jax`` carries a wav2vec 2.0 / UniSpeech model
+(the backbone at the top level, ``quantizer.*``, ``project_q``,
+``final_proj``, ``target_glu.0``, the CTC head ``ctc_proj`` as ``proj``);
+``jax_params_from_wav2vec2_state_dict`` is its inverse.
 ``ctc_state_dict_from_jax`` carries a CTC fine-tune model (the backbone
 under ``wavlm.``, the ``proj`` head); ``jax_params_from_ctc_state_dict``
 is its inverse. ``jax_params_of`` is the training loop's export of a
@@ -25,7 +31,12 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from unispeech_tpu_torch.configs import EncoderConfig, HubertPretrainConfig
+from unispeech_tpu_torch.configs import (
+    EncoderConfig,
+    GumbelVQConfig,
+    HubertPretrainConfig,
+    Wav2Vec2PretrainConfig,
+)
 
 _ATTN_PROJ = ("q_proj", "k_proj", "v_proj", "out_proj")
 
@@ -177,6 +188,41 @@ def jax_params_from_state_dict(sd: Mapping[str, torch.Tensor], enc: EncoderConfi
     return params
 
 
+def _dense_from_jax(heads: Dict, key: str, node: Mapping) -> None:
+    heads[key + ".weight"] = _t(node["kernel"])
+    heads[key + ".bias"] = _np(node["bias"])
+
+
+def _dense_to_jax(s: Mapping, key: str) -> dict:
+    return {"kernel": _t(s[key + ".weight"]), "bias": s[key + ".bias"]}
+
+
+def _quantizer_from_jax(heads: Dict, q: Mapping) -> None:
+    """A GumbelVectorQuantizer's params under ``quantizer.``: ``vars`` and
+    ``weight_proj`` (depth 1) or ``weight_proj.{0,2,...}`` (deeper)."""
+    heads["quantizer.vars"] = _np(q["vars"])
+    if "weight_proj" in q:
+        _dense_from_jax(heads, "quantizer.weight_proj", q["weight_proj"])
+        return
+    i = 0
+    while f"weight_proj_{i}" in q:
+        _dense_from_jax(heads, f"quantizer.weight_proj.{2 * i}", q[f"weight_proj_{i}"])
+        i += 1
+    _dense_from_jax(heads, f"quantizer.weight_proj.{2 * i}", q["weight_proj_out"])
+
+
+def _quantizer_to_jax(s: Mapping, cfg: GumbelVQConfig) -> dict:
+    q = {"vars": s["quantizer.vars"]}
+    depth = cfg.weight_proj_depth
+    if depth > 1:
+        for i in range(depth - 1):
+            q[f"weight_proj_{i}"] = _dense_to_jax(s, f"quantizer.weight_proj.{2 * i}")
+        q["weight_proj_out"] = _dense_to_jax(s, f"quantizer.weight_proj.{2 * (depth - 1)}")
+    else:
+        q["weight_proj"] = _dense_to_jax(s, "quantizer.weight_proj")
+    return q
+
+
 def hubert_state_dict_from_jax(params: Mapping, cfg: HubertPretrainConfig
                                ) -> Dict[str, torch.Tensor]:
     """Port state dict of a HubertPretrainModel from the JAX params (the
@@ -194,9 +240,15 @@ def hubert_state_dict_from_jax(params: Mapping, cfg: HubertPretrainConfig
         heads[f"final_proj.{li}.bias"] = _np(params[f"final_proj_{li}"]["bias"])
         li += 1
     if "target_glu" in params:
-        dense = params["target_glu"]["Dense_0"]
-        heads["target_glu.0.weight"] = _t(dense["kernel"])
-        heads["target_glu.0.bias"] = _np(dense["bias"])
+        _dense_from_jax(heads, "target_glu.0", params["target_glu"]["Dense_0"])
+    for name in ("spk_proj", "project_q"):
+        if name in params:
+            _dense_from_jax(heads, name, params[name])
+    if "layer_norm_for_extract" in params:
+        heads["layer_norm_for_extract.weight"] = _np(params["layer_norm_for_extract"]["scale"])
+        heads["layer_norm_for_extract.bias"] = _np(params["layer_norm_for_extract"]["bias"])
+    if "quantizer" in params:
+        _quantizer_from_jax(heads, params["quantizer"])
     sd.update({k: torch.tensor(v) for k, v in heads.items()})
     return sd
 
@@ -221,8 +273,51 @@ def jax_params_from_hubert_state_dict(sd: Mapping[str, torch.Tensor],
                                       "bias": s[f"final_proj.{li}.bias"]}
         li += 1
     if "target_glu.0.weight" in s:
-        params["target_glu"] = {"Dense_0": {"kernel": _t(s["target_glu.0.weight"]),
-                                            "bias": s["target_glu.0.bias"]}}
+        params["target_glu"] = {"Dense_0": _dense_to_jax(s, "target_glu.0")}
+    for name in ("spk_proj", "project_q"):
+        if name + ".weight" in s:
+            params[name] = _dense_to_jax(s, name)
+    if "layer_norm_for_extract.weight" in s:
+        params["layer_norm_for_extract"] = {"scale": s["layer_norm_for_extract.weight"],
+                                            "bias": s["layer_norm_for_extract.bias"]}
+    if "quantizer.vars" in s:
+        params["quantizer"] = _quantizer_to_jax(s, cfg.quantizer)
+    return params
+
+
+def wav2vec2_state_dict_from_jax(params: Mapping, cfg: Wav2Vec2PretrainConfig
+                                 ) -> Dict[str, torch.Tensor]:
+    """Port state dict of a Wav2Vec2PretrainModel from the JAX params (the
+    backbone under "wavlm", the heads beside it; the CTC head ``ctc_proj``
+    becomes ``proj``)."""
+    sd = wavlm_state_dict_from_jax(params["wavlm"], cfg.encoder)
+    heads: Dict[str, np.ndarray] = {}
+    for name in ("project_q", "final_proj"):
+        _dense_from_jax(heads, name, params[name])
+    if "quantizer" in params:
+        _quantizer_from_jax(heads, params["quantizer"])
+    if "target_glu" in params:
+        _dense_from_jax(heads, "target_glu.0", params["target_glu"]["Dense_0"])
+    if "ctc_proj" in params:
+        _dense_from_jax(heads, "proj", params["ctc_proj"])
+    sd.update({k: torch.tensor(v) for k, v in heads.items()})
+    return sd
+
+
+def jax_params_from_wav2vec2_state_dict(sd: Mapping[str, torch.Tensor],
+                                        cfg: Wav2Vec2PretrainConfig) -> dict:
+    """Inverse of ``wav2vec2_state_dict_from_jax``; the backbone's layers are
+    stacked under ``layers`` as ``nn.scan`` keeps them."""
+    s = {k: v.detach().cpu().float().numpy() for k, v in sd.items()}
+    params = {"wavlm": jax_params_from_state_dict(sd, cfg.encoder),
+              "project_q": _dense_to_jax(s, "project_q"),
+              "final_proj": _dense_to_jax(s, "final_proj")}
+    if "quantizer.vars" in s:
+        params["quantizer"] = _quantizer_to_jax(s, cfg.quantizer)
+    if "target_glu.0.weight" in s:
+        params["target_glu"] = {"Dense_0": _dense_to_jax(s, "target_glu.0")}
+    if "proj.weight" in s:
+        params["ctc_proj"] = _dense_to_jax(s, "proj")
     return params
 
 
@@ -246,13 +341,16 @@ def jax_params_from_ctc_state_dict(sd: Mapping[str, torch.Tensor], enc: EncoderC
 
 def jax_params_of(model: torch.nn.Module) -> dict:
     """The JAX params tree of a trained port model: a HubertPretrainModel
-    (the backbone under "wavlm", the heads beside it) or a
-    CtcFinetuneModel (the backbone under "wavlm", ``proj``)."""
+    or a Wav2Vec2PretrainModel (the backbone under "wavlm", the heads
+    beside it) or a CtcFinetuneModel (the backbone under "wavlm", ``proj``)."""
     from unispeech_tpu_torch.models.ctc import CtcFinetuneModel
     from unispeech_tpu_torch.models.hubert import HubertPretrainModel
+    from unispeech_tpu_torch.models.wav2vec2 import Wav2Vec2PretrainModel
 
     if isinstance(model, HubertPretrainModel):
         return jax_params_from_hubert_state_dict(model.state_dict(), model.pcfg)
+    if isinstance(model, Wav2Vec2PretrainModel):
+        return jax_params_from_wav2vec2_state_dict(model.state_dict(), model.wcfg)
     if isinstance(model, CtcFinetuneModel):
         return jax_params_from_ctc_state_dict(model.state_dict(), model.wavlm.cfg.encoder)
     raise NotImplementedError(f"no params export for {type(model).__name__} yet")

@@ -5,8 +5,13 @@ Counterpart of the JAX package's ``data/dataset.py`` (``DataConfig``,
 deterministically from (seed, epoch, batch index), so (epoch, batch_offset)
 is the whole resumable state. The same manifest, label files, transcripts
 and seed give the JAX package's batches bit for bit. ``FinetuneIterator``
-adds the CTC transcripts. The multilingual resampling (``lang_groups``)
-and ``Seq2SeqIterator`` are not ported yet.
+adds the CTC transcripts. ``lang_groups`` (per-language row indices, from
+``multilingual.concat_manifests``) resample the rows of each epoch by
+language with ``multilang_alpha``. ``Seq2SeqIterator`` is not ported yet.
+
+One reading differs on purpose: an iterator none of whose rows reaches
+``min_sample_size`` raises ``ValueError`` when iterated, where the JAX
+package's plans empty epochs without end.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from unispeech_tpu_torch.data.dictionary import Dictionary
 from unispeech_tpu_torch.data.labels import LabelFile, align_labels_to_frames, crop_labels
 from unispeech_tpu_torch.data.manifest import Manifest, load_audio
 from unispeech_tpu_torch.data.mixing import MixingConfig, NoiseStore, mix_batch_host
+from unispeech_tpu_torch.data.multilingual import multilang_size_ratios, resampled_rows
 from unispeech_tpu_torch.data.prefetch import parallel_map_io
 
 
@@ -75,6 +81,8 @@ class PretrainIterator:
         seed: int = 1,
         num_shards: int = 1,
         shard_id: int = 0,
+        lang_groups: Optional[Sequence[np.ndarray]] = None,
+        multilang_alpha: float = 1.0,
     ):
         self.manifest = manifest
         self.cfg = cfg
@@ -91,6 +99,14 @@ class PretrainIterator:
         sizes = np.minimum(manifest.sizes, cfg.max_sample_size)
         self._keep = np.flatnonzero(manifest.sizes >= cfg.min_sample_size)
         self._sizes = sizes
+        # multilingual resampling: each language's kept rows and size ratio
+        self._lang_groups = self._lang_ratios = None
+        if lang_groups is not None:
+            keep_set = set(self._keep.tolist())
+            self._lang_groups = [np.asarray([r for r in g if r in keep_set], dtype=np.int64)
+                                 for g in lang_groups]
+            lengths = np.asarray([max(len(g), 1) for g in self._lang_groups])
+            self._lang_ratios = multilang_size_ratios(lengths, multilang_alpha)
         # zip-sharded manifests keep archive locality when shuffled
         self._chunk_ids = manifest.chunk_ids()
         kept = sizes[self._keep]
@@ -111,6 +127,15 @@ class PretrainIterator:
         self.batch_offset = int(d["batch_offset"])
 
     # -- epoch plan --------------------------------------------------------
+    def _epoch_rows(self, epoch: int) -> np.ndarray:
+        """The rows of one epoch: every kept row, or the per-language
+        resampled multiset."""
+        if self._lang_groups is None:
+            return self._keep
+        parts = [resampled_rows(g, float(r), self.seed, epoch, li)
+                 for li, (g, r) in enumerate(zip(self._lang_groups, self._lang_ratios))]
+        return np.concatenate(parts) if parts else self._keep
+
     def fixed_bsz(self, bucket_len: int) -> int:
         """Rows per batch at bucket length Tb, a function of the bucket
         alone, so (B, Tb) is fixed per bucket."""
@@ -124,7 +149,7 @@ class PretrainIterator:
         return max(nb, 1)
 
     def _plan(self, epoch: int) -> List[np.ndarray]:
-        pool = self._keep
+        pool = self._epoch_rows(epoch)
         if self._chunk_ids is not None and self.cfg.shuffle:
             idx = pool[chunk_shuffled_indices(
                 self._sizes[pool], self._chunk_ids[pool], self.seed, epoch,
@@ -160,6 +185,10 @@ class PretrainIterator:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         while True:
             plan = self._plan(self.epoch)
+            if not plan:
+                raise ValueError(
+                    f"epoch {self.epoch} has no batch: no manifest row of this shard "
+                    f"reaches min_sample_size ({self.cfg.min_sample_size} samples)")
             for bi in range(self.batch_offset, len(plan)):
                 self.batch_offset = bi + 1
                 yield self._collate(plan[bi], self.epoch, bi)

@@ -28,6 +28,15 @@ def draw_seeds(generator: torch.Generator, n: int) -> torch.Tensor:
     return torch.randint(0, SEED_HIGH, (n,), generator=generator, dtype=torch.int64)
 
 
+def device_generator(generator: torch.Generator, device=None) -> torch.Generator:
+    """A generator on ``device`` seeded by one draw from ``generator`` (a
+    host-side CPU generator): the samplers draw on the tensor's device, and
+    the host generator's stream stays one seed per draw."""
+    gen = torch.Generator(device=device if device is not None else "cpu")
+    gen.manual_seed(int(draw_seeds(generator, 1)))
+    return gen
+
+
 def keep_mask(seed: int, shape, rate: float, device) -> torch.Tensor:
     """The bool keep mask of ``seed``: a pure function of its arguments."""
     gen = torch.Generator(device=device)

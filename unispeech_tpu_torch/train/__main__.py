@@ -1,19 +1,23 @@
 """Training CLI: ``python -m unispeech_tpu_torch.train <subcommand>``.
 
-  pretrain-hubert   HuBERT / WavLM masked prediction from a manifest and
-                    frame-label files (.km): the data pipeline, the update
-                    loop, checkpoints and resume, an optional params .npz
-                    export in the JAX package's layout
+  pretrain-hubert   HuBERT / WavLM / UniSpeech-SAT (``--sat``) masked
+                    prediction from a manifest and frame-label files (.km):
+                    the data pipeline, the update loop, checkpoints and
+                    resume, an optional params .npz export in the JAX
+                    package's layout
+  pretrain-wav2vec2 wav2vec 2.0 contrastive pretraining, with UniSpeech's
+                    phonetic CTC multitask (``--mtlalpha > 0``, ``--dict``,
+                    ``--transcripts``); comma-separated per-language
+                    manifests are resampled by ``--multilang-alpha``
   finetune-ctc      CTC fine-tuning on letter transcripts, from a
                     pretrained params .npz (``--w2v-path``), with valid-time
                     WER and checkpoint selection by ``--best-metric``
 
 The arguments are the JAX CLI's, plus ``--device`` (default cuda; the CPU
 only when ``--device cpu`` is given). Not ported yet, raising
-``NotImplementedError``: the UniSpeech-SAT branch (``--sat``), tensor
-parallelism and FSDP (``--n-model > 1``, ``--fsdp``), the multi-host flags,
-and the subcommands pretrain-wav2vec2, finetune-seq2seq and train-lm (they
-take any flags).
+``NotImplementedError``: tensor parallelism and FSDP (``--n-model > 1``,
+``--fsdp``), the multi-host flags, and the subcommands finetune-seq2seq and
+train-lm (they take any flags).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import sys
 
 import torch
 
-NOT_PORTED = ("pretrain-wav2vec2", "finetune-seq2seq", "train-lm")
+NOT_PORTED = ("finetune-seq2seq", "train-lm")
 NO_EFFECT = " (an XLA compile choice of the JAX package: accepted, no effect here)"
 
 
@@ -135,9 +139,6 @@ def cmd_pretrain_hubert(args) -> None:
     from unispeech_tpu_torch.train.optim import OptimConfig
     from unispeech_tpu_torch.train.tasks import make_hubert_loss_fn
 
-    if args.sat:
-        raise NotImplementedError("--sat: the UniSpeech-SAT speaker branch is not ported to "
-                                  "PyTorch yet")
     loop_cfg = _loop_cfg(args)  # raises for the mesh options not ported
     enc = _encoder(args, relative_position_embedding=not args.no_rel_pos,
                    gru_rel_pos=not args.no_rel_pos, encoder_layerdrop=0.05)
@@ -149,6 +150,8 @@ def cmd_pretrain_hubert(args) -> None:
         num_classes=tuple(int(n) for n in args.num_classes),
         final_dim=256 if args.arch == "base" else 768,
         predict_layers=tuple(args.predict_layers or ()),
+        utterance_contrastive_loss=args.sat,
+        num_instances=1 if args.sat else 0,
     )
     model = HubertPretrainModel(cfg, dtype=torch.bfloat16 if args.bf16 else torch.float32,
                                 generator=torch.Generator().manual_seed(args.seed))
@@ -168,7 +171,56 @@ def cmd_pretrain_hubert(args) -> None:
     optim = OptimConfig(lr=args.lr, warmup_steps=args.warmup_steps,
                         total_steps=args.max_updates, clip_norm=args.clip_norm,
                         stacked_update=args.stacked_optimizer)
-    run_training(model, make_hubert_loss_fn(model, HubertCriterionConfig()), optim,
+    crit = HubertCriterionConfig(spk_loss_weight=0.1 if args.sat else 0.0)
+    run_training(model, make_hubert_loss_fn(model, crit), optim, iter(data), loop_cfg,
+                 device=args.device, data_state=data)
+
+
+def cmd_pretrain_wav2vec2(args) -> None:
+    from unispeech_tpu_torch.configs import MaskConfig, Wav2Vec2PretrainConfig
+    from unispeech_tpu_torch.data.dataset import FinetuneIterator, PretrainIterator
+    from unispeech_tpu_torch.data.dictionary import Dictionary
+    from unispeech_tpu_torch.data.manifest import Manifest
+    from unispeech_tpu_torch.data.multilingual import concat_manifests
+    from unispeech_tpu_torch.models.wav2vec2 import Wav2Vec2PretrainModel
+    from unispeech_tpu_torch.train.loop import run_training
+    from unispeech_tpu_torch.train.optim import OptimConfig
+    from unispeech_tpu_torch.train.tasks import make_wav2vec2_loss_fn
+
+    loop_cfg = _loop_cfg(args)  # raises for the mesh options not ported
+    enc = _encoder(args)
+    unispeech = args.mtlalpha > 0
+    if unispeech and not (args.dict and args.transcripts):
+        raise ValueError("--mtlalpha > 0 (the UniSpeech CTC head) needs --dict and "
+                         "--transcripts")
+    d = Dictionary.load(args.dict) if unispeech else None
+    # final_dim and vq_dim keep the config's 256 at --arch large, as the JAX
+    # CLI builds it (the reference's wav2vec 2.0 Large uses 768)
+    cfg = Wav2Vec2PretrainConfig(
+        encoder=enc, time_mask=MaskConfig(mask_prob=args.mask_prob, mask_length=10),
+        transpose=unispeech, ctc_vocab_size=len(d) if d else 0,
+        replace_prob=args.replace_prob)
+    model = Wav2Vec2PretrainModel(cfg, dtype=torch.bfloat16 if args.bf16 else torch.float32,
+                                  generator=torch.Generator().manual_seed(args.seed))
+    # comma-separated per-language manifests: temperature resampling
+    man_paths = args.manifest.split(",")
+    lang_groups = None
+    if len(man_paths) > 1:
+        man, lang_groups = concat_manifests([Manifest.load(p) for p in man_paths])
+    else:
+        man = Manifest.load(args.manifest)
+    kw = dict(seed=args.seed, lang_groups=lang_groups, multilang_alpha=args.multilang_alpha)
+    if unispeech:
+        texts = []
+        for p in args.transcripts.split(","):
+            texts.extend(pathlib.Path(p).read_text().splitlines())
+        data = FinetuneIterator(man, _data_cfg(args), texts, d, **kw)
+    else:
+        data = PretrainIterator(man, _data_cfg(args), **kw)
+    optim = OptimConfig(lr=args.lr, warmup_steps=args.warmup_steps,
+                        total_steps=args.max_updates, clip_norm=args.clip_norm,
+                        stacked_update=args.stacked_optimizer)
+    run_training(model, make_wav2vec2_loss_fn(model, mtlalpha=args.mtlalpha), optim,
                  iter(data), loop_cfg, device=args.device, data_state=data)
 
 
@@ -254,7 +306,7 @@ def main(argv=None) -> None:
     ph.add_argument("--predict-layers", type=int, nargs="*", default=None,
                     help="ILS: 1-based layers with prediction losses")
     ph.add_argument("--sat", action="store_true",
-                    help="UniSpeech-SAT speaker contrastive branch (not ported)")
+                    help="UniSpeech-SAT speaker contrastive branch")
     ph.add_argument("--mixing-prob", type=float, default=0.0)
     ph.add_argument("--mixing-num", type=int, default=1)
     ph.add_argument("--noise-path", default=None,
@@ -263,6 +315,19 @@ def main(argv=None) -> None:
                     help="probability a mix overlays noise instead of speech")
     ph.add_argument("--no-rel-pos", action="store_true")
     ph.set_defaults(fn=cmd_pretrain_hubert)
+
+    pw = sub.add_parser("pretrain-wav2vec2")
+    _common(pw)
+    pw.add_argument("--mask-prob", type=float, default=0.65)
+    pw.add_argument("--mtlalpha", type=float, default=0.0,
+                    help=">0 adds the UniSpeech phonetic CTC multitask")
+    pw.add_argument("--replace-prob", type=float, default=0.5)
+    pw.add_argument("--dict", default=None, help="phone/letter dict of the UniSpeech CTC head")
+    pw.add_argument("--transcripts", default=None,
+                    help="transcripts, comma-separated per language when --manifest is")
+    pw.add_argument("--multilang-alpha", type=float, default=1.0,
+                    help="temperature resampling alpha over comma-separated manifests")
+    pw.set_defaults(fn=cmd_pretrain_wav2vec2)
 
     fc = sub.add_parser("finetune-ctc")
     _common(fc)

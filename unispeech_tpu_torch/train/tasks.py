@@ -1,7 +1,8 @@
 """Task glue: a loss function binding model and criterion.
 
 Counterpart of the JAX package's ``train/tasks.py`` (``make_hubert_loss_fn``,
-``make_ctc_finetune_loss_fn``, ``make_ctc_valid_decode_fn``):
+``make_wav2vec2_loss_fn``, ``make_ctc_finetune_loss_fn``,
+``make_ctc_valid_decode_fn``):
 ``loss_fn(batch, generator, step)`` returns (loss sum, sample_size,
 metrics) of the model it binds (JAX passes the params; here the model holds
 them).
@@ -13,23 +14,64 @@ import torch
 
 from unispeech_tpu_torch.models.ctc import CtcFinetuneModel
 from unispeech_tpu_torch.models.hubert import HubertPretrainModel
+from unispeech_tpu_torch.models.wav2vec2 import Wav2Vec2PretrainModel
 from unispeech_tpu_torch.ops.ctc import ctc_loss
-from unispeech_tpu_torch.train.losses import HubertCriterionConfig, hubert_loss
+from unispeech_tpu_torch.train.losses import (
+    HubertCriterionConfig,
+    hubert_loss,
+    wav2vec2_contrastive_loss,
+)
 
 
 def make_hubert_loss_fn(model: HubertPretrainModel, crit: HubertCriterionConfig):
-    """Masked-prediction pretraining objective (HuBERT / WavLM / ILS).
+    """Masked-prediction pretraining objective (HuBERT / WavLM / ILS / SAT).
 
     batch: {"source": (B, n), "targets": (B, T, num_sets), optional
     "lengths": (B,), optional "boundary_mask": (B, T) precomputed mask that
-    replaces the span sampler}. ``metrics`` gains ``layers_dropped``, the
-    layers layerdrop skipped (a host int)."""
+    replaces the span sampler}. The step sets the SAT quantizer's
+    temperature. ``metrics`` gains ``layers_dropped``, the layers layerdrop
+    skipped (a host int)."""
 
     def loss_fn(batch, generator, step):
         out = model(batch["source"], batch["targets"], batch.get("lengths"), mask=True,
                     deterministic=False, generator=generator,
-                    boundary_mask=batch.get("boundary_mask"))
+                    boundary_mask=batch.get("boundary_mask"), num_updates=step)
         loss, sample_size, metrics = hubert_loss(out, crit)
+        metrics["layers_dropped"] = out.layers_dropped
+        return loss, sample_size, metrics
+
+    return loss_fn
+
+
+def make_wav2vec2_loss_fn(model: Wav2Vec2PretrainModel, features_pen_weight: float = 0.0,
+                          prob_ppl_weight: float = 0.1, mtlalpha: float = 0.0):
+    """wav2vec 2.0 InfoNCE; with ``mtlalpha > 0`` the UniSpeech multitask
+    mtlalpha * CTC + (1 - mtlalpha) * InfoNCE, the CTC term the summed
+    phonetic CTC loss of ``ops/ctc.py`` (zero-infinity).
+
+    batch: {"source", optional "lengths", optional "boundary_mask", for CTC
+    "labels" (B, S) and "label_lengths" (B,)}. The step sets the
+    quantizer's temperature. ``metrics`` gains ``layers_dropped``."""
+
+    def loss_fn(batch, generator, step):
+        out = model(batch["source"], batch.get("lengths"), mask=True, deterministic=False,
+                    num_updates=step, generator=generator,
+                    boundary_mask=batch.get("boundary_mask"))
+        m = out.mask_indices.float()
+        valid = torch.ones_like(m) if out.padding_mask is None else (~out.padding_mask).float()
+        loss_c, sample_size, metrics = wav2vec2_contrastive_loss(
+            out.contrastive_logits, m * valid, out.features_pen, out.vq_result,
+            features_pen_weight=features_pen_weight, prob_ppl_weight=prob_ppl_weight)
+        loss = loss_c
+        if mtlalpha > 0.0:
+            if out.ctc_logits is None:
+                raise ValueError("mtlalpha > 0 needs the CTC head (ctc_vocab_size > 0)")
+            loss_ctc, ntok = ctc_loss(out.ctc_logits, valid.sum(-1).int(), batch["labels"],
+                                      batch["label_lengths"])
+            metrics["loss_ctc"] = loss_ctc
+            metrics["ctc_ntokens"] = ntok.float()
+            loss = mtlalpha * loss_ctc + (1.0 - mtlalpha) * loss_c
+        metrics["loss"] = loss
         metrics["layers_dropped"] = out.layers_dropped
         return loss, sample_size, metrics
 
