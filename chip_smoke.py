@@ -66,6 +66,34 @@ Phases, one line each (any failure raises and exits non-zero):
              validation, the best checkpoint by WER, the resume, one
              hypothesis per file, the WER report, attention backward only
              from update 3 on
+    s2s_train  seq2seq fine-tuning at WavLM-Large's full width (the model
+             finetune-seq2seq --arch large builds: the encoder as ctc_train,
+             the default decoder 768 wide, 3072 FFN, 6 layers, 4 heads,
+             enc_proj, the letter dictionary, bf16), grafted as ctc_train,
+             on the padded smoke batch with random letter transcripts: 5
+             steps, the first 2 frozen, with launch counts per step; one
+             unfrozen step's gradients, kernel path against plain path; a
+             batch with a zero-length row, finite; step ms, host enqueue,
+             peak memory, a profiled unfrozen step; greedy and beam decoding
+             (K = 5, no-repeat-ngram 3, max_len 64) with ms per call, beam
+             K = 1 equal to greedy, the beams sorted and distinct; 20
+             unfrozen steps on one batch, the loss must fall; then a GLU +
+             iPQ noise (quant_noise_pq 0.1) encoder at width 1024 and depth
+             4: its forward, kernel path against plain path, 3 finite train
+             steps, the share of dropped blocks within 4 sigma of p
+    lm_train the TransformerLM train-lm builds (512 wide, 2048 FFN, 6
+             layers, 8 heads; block 128, batch 32; bf16) on a synthetic Zipf
+             corpus: 20 steps, the loss must fall; step ms, tokens/s; the
+             NeuralLMScorer on the card against the CPU, fp32, rtol 1e-4
+    s2s_pipeline  train finetune-seq2seq --arch large --w2v-path <the
+             pipeline's export> (valid WER, --best-metric wer, freeze 2,
+             --valid-decode-max-len 32) to update 2, resumed to 4; data
+             binarize-text on a word corpus and train train-lm from the .bin
+             (10 updates, --export-params); decode --decoder seq2seq of the
+             seq2seq export and --decoder neural of ctc_pipeline's export
+             with the lexicon and the LM; finite losses, a WER at each
+             validation, the resume, one hypothesis per file, the WER
+             reports, seconds per call
     w2v_train  UniSpeech pretraining at WavLM-Large's width
              (Wav2Vec2PretrainModel: no relative position bias, transpose
              mode, Gumbel 2 x 320, 100 negatives, final_dim and vq_dim 768,
@@ -101,9 +129,9 @@ Phases, one line each (any failure raises and exits non-zero):
              fine-tuning batch (16 heads); the attention forward and backward
              without bias on that batch with dropout (rows 1nLp, 2nLp, per
              w2v_train step); each kernel family's launches per frozen and
-             unfrozen fine-tuning step; audio-seconds per second of the
-             forward, of the train steps, of the fine-tuning steps and of the
-             UniSpeech and UniSpeech-SAT steps
+             unfrozen fine-tuning step (CTC and seq2seq); audio-seconds per
+             second of the forward, of the train steps, of the fine-tuning
+             steps and of the UniSpeech and UniSpeech-SAT steps
 
 The line before the last is the kernels JSON, the last the device JSON.
 """
@@ -1466,6 +1494,522 @@ def ctc_pipeline_phase(counters, tmp):
 
 
 
+S2S_FREEZE, S2S_STEPS, S2S_DECODE_LEN, S2S_BEAM = 2, 5, 64, 5
+
+
+def seq2seq_large_config(freeze: int, **enc_over):
+    """The Seq2SeqModel finetune-seq2seq --arch large builds: WavLM-Large's
+    encoder with the gated relative position bias (dropout 0.1, attention
+    dropout 0.1, remat_layers), time mask 0.5/10, channel mask 0.5/64, the
+    default decoder (768 wide, 3072 FFN, 6 layers, 4 heads, so enc_proj),
+    the letter dictionary."""
+    from unispeech_tpu_torch.configs import MaskConfig, large_encoder_config
+    from unispeech_tpu_torch.data.dictionary import Dictionary
+    from unispeech_tpu_torch.models.seq2seq import Seq2SeqConfig, Seq2SeqDecoderConfig
+
+    d = Dictionary.letters()
+    enc = large_encoder_config(relative_position_embedding=True, gru_rel_pos=True, **enc_over)
+    return Seq2SeqConfig(encoder=enc, decoder=Seq2SeqDecoderConfig(vocab_size=len(d),
+                                                                   padding_idx=d.pad()),
+                         apply_mask=True, time_mask=MaskConfig(mask_prob=0.5, mask_length=10),
+                         freeze_finetune_updates=freeze)
+
+
+def seq2seq_batch(d, wav, lengths, rng):
+    """The smoke batch with random letter transcripts (15 symbols per
+    second), in Seq2SeqIterator's form: eos-shifted prev_tokens,
+    eos-terminated targets, target_mask, S a multiple of 8."""
+    B = wav.shape[0]
+    enc = [d.encode_line(letter_transcript(rng, float(n) / SAMPLE_RATE)) for n in lengths.cpu()]
+    S = int(np.ceil((max(len(e) for e in enc) + 1) / 8) * 8)
+    tgt = np.full((B, S), d.pad(), np.int32)
+    prev = np.full((B, S), d.pad(), np.int32)
+    mask = np.zeros((B, S), np.float32)
+    for r, e in enumerate(enc):
+        L = len(e)
+        tgt[r, :L], tgt[r, L] = e, d.eos()
+        prev[r, 0], prev[r, 1:L + 1] = d.eos(), e
+        mask[r, :L + 1] = 1.0
+    dev = wav.device
+    return {"source": wav, "lengths": lengths.to(torch.int32),
+            "prev_tokens": torch.from_numpy(prev).to(dev),
+            "targets": torch.from_numpy(tgt).to(dev),
+            "target_mask": torch.from_numpy(mask).to(dev)}
+
+
+def s2s_train_phase(dev, counters, s2s_counts, wav, lengths):
+    """s2s_train: seq2seq fine-tuning at WavLM-Large's width on the smoke
+    batch, the backbone grafted from a seed-0 HubertPretrainModel at the
+    bench's Large config: 5 steps, the first 2 frozen, with launch counts
+    per step; one unfrozen step's gradients, kernel path against plain path;
+    20 unfrozen steps on one batch, the loss must fall; a batch with a
+    zero-length row, finite; greedy and beam decoding (K = 5, no-repeat-
+    ngram 3, max_len 64) with beam K = 1 equal to greedy and the beams
+    sorted and distinct; then a GLU + iPQ-noise encoder at full width."""
+    from unispeech_tpu_torch.configs import (
+        HubertPretrainConfig,
+        MaskConfig,
+        large_encoder_config,
+    )
+    from unispeech_tpu_torch.data.dictionary import Dictionary
+    from unispeech_tpu_torch.models.ctc import load_pretrained_into
+    from unispeech_tpu_torch.models.hubert import HubertPretrainModel
+    from unispeech_tpu_torch.models.seq2seq import Seq2SeqModel, beam_decode, greedy_decode
+    from unispeech_tpu_torch.train.optim import OptimConfig
+    from unispeech_tpu_torch.train.state import create_train_state, make_train_step
+    from unispeech_tpu_torch.train.tasks import make_seq2seq_loss_fn
+
+    d = Dictionary.letters()
+    cfg = seq2seq_large_config(S2S_FREEZE)
+    model = Seq2SeqModel(cfg, dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(SEED + 21))
+    penc = large_encoder_config(relative_position_embedding=True, gru_rel_pos=True,
+                                encoder_layerdrop=0.05, remat_layers=False, scan_layers=False)
+    pre = HubertPretrainModel(HubertPretrainConfig(
+        encoder=penc, time_mask=MaskConfig(mask_prob=0.8, mask_length=10),
+        num_classes=(N_CLASSES,), final_dim=768), generator=torch.Generator().manual_seed(SEED))
+    load_pretrained_into(model, pre.state_dict())
+    backbone = dict(pre.state_dict())
+    if any(not torch.equal(v, backbone[k]) for k, v in model.wavlm.state_dict().items()):
+        fail("s2s_train: the graft did not carry the pretrained backbone")
+    del pre, backbone
+    nparams = sum(p.numel() for p in model.parameters())
+    n_dec = sum(p.numel() for p in model.decoder.parameters())
+    batch = seq2seq_batch(d, wav, lengths, np.random.default_rng(SEED + 22))
+    phase("s2s_train", params=nparams, decoder_params=n_dec,
+          enc_proj=tuple(model.enc_proj.weight.shape), S=batch["targets"].shape[1],
+          targets=int(batch["target_mask"].sum()))
+    state = create_train_state(model, OptimConfig(lr=5e-5, warmup_steps=2, total_steps=100,
+                                                  schedule="tri_stage", hold_steps=40),
+                               device=dev)
+    step = make_train_step(make_seq2seq_loss_fn(model))
+    gen = torch.Generator().manual_seed(SEED + 23)
+    L = cfg.encoder.encoder_layers
+
+    def reset():
+        for m, attr in counters:
+            setattr(m, attr, 0)
+
+    for i in range(S2S_STEPS):
+        reset()
+        frozen = model.frozen(state.step)
+        met = step(state, batch, gen)
+        torch.cuda.synchronize()
+        counts = tuple(getattr(m, attr) for m, attr in counters)
+        kept = L - met["layers_dropped"]
+        # as ctc_train: no L1 or conv backward (feature_grad_mult 0), the
+        # attention backward only once unfrozen (remat_layers: 2 forwards)
+        want = (1, 0, 12, 0) + ((kept, 0) if frozen else (2 * kept, 2 * kept))
+        loss, gnorm = float(met["loss_per_sample"]), float(met["grad_norm"])
+        phase("s2s_train", step=i, frozen=frozen, loss_per_token=f"{loss:.4f}",
+              grad_norm=f"{gnorm:.4f}", ntokens=int(met["sample_size"]),
+              layers_dropped=met["layers_dropped"], launches_l1_conv_attn_fwd_bwd=counts)
+        if counts != want:
+            fail(f"s2s_train step {i}: launches {counts} != {want}")
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            fail(f"s2s_train step {i}: loss {loss}, grad_norm {gnorm}")
+        s2s_counts.setdefault("frozen" if frozen else "unfrozen", counts)
+
+    # one unfrozen step's gradients, kernel path against plain path (the
+    # eval loss: no masks, no dropout)
+    loss_eval = make_seq2seq_loss_fn(model, deterministic=True)
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, ss, _ = loss_eval(batch, None, S2S_FREEZE)
+        (loss / torch.clamp(ss, min=1.0)).backward()
+        return [torch.zeros_like(p) if p.grad is None else p.grad.float().clone()
+                for p in model.parameters()]
+
+    gk = grads()
+    with plain_ops():
+        gp = grads()
+    total = float(torch.sqrt(sum((g * g).sum() for g in gp)))
+    worst = []
+    for (name, _), a, b in zip(model.named_parameters(), gk, gp):
+        diff, ref = float((a - b).norm()), float(b.norm())
+        worst.append((diff / (GRAD_TOL * ref + GRAD_FLOOR * total), name, diff / max(ref, 1e-30)))
+    worst.sort(reverse=True)
+    for ratio, name, rel in worst[:5]:
+        phase("s2s_train", grad_vs_plain=name, rel_l2=f"{rel:.3g}", of_tolerance=f"{ratio:.3g}")
+    phase("s2s_train", grad_tol=f"{GRAD_TOL} * |g| + {GRAD_FLOOR} * |global|",
+          global_grad_norm=f"{total:.4g}", tensors=len(worst))
+    if worst[0][0] > 1.0:
+        fail(f"s2s_train: gradient of {worst[0][1]}: kernel path disagrees with the plain path")
+    del gk, gp
+    model.zero_grad(set_to_none=True)
+
+    # a zero-length padding row (target_mask 0, as Seq2SeqIterator gives
+    # it): the loss, the logits of that row and the gradients are finite
+    crafted = {k: v.clone() for k, v in batch.items()}
+    crafted["source"][2] = 0.0
+    crafted["lengths"][2] = 0
+    crafted["prev_tokens"][2] = d.pad()
+    crafted["prev_tokens"][2, 0] = d.eos()
+    crafted["targets"][2] = d.pad()
+    crafted["targets"][2, 0] = d.eos()
+    crafted["target_mask"][2] = 0.0
+    out = model(crafted["source"], crafted["prev_tokens"], crafted["lengths"],
+                deterministic=True, step=S2S_FREEZE)
+    row_finite = bool(torch.isfinite(out.logits[2]).all())
+    del out
+    met = step(state, crafted, gen)
+    g_finite = all(p.grad is None or bool(torch.isfinite(p.grad).all())
+                   for p in model.parameters())
+    phase("s2s_train", zero_row_loss=f"{float(met['loss_per_sample']):.4f}",
+          zero_row_logits_finite=row_finite, grads_finite=g_finite,
+          ntokens=int(met["sample_size"]))
+    if not (row_finite and g_finite and np.isfinite(float(met["loss_per_sample"]))
+            and int(met["sample_size"]) == int(crafted["target_mask"].sum())):
+        fail("s2s_train: the batch with a zero-length row is not finite")
+
+    # ms per step (back to back), host enqueue, peak memory, one profiled
+    # unfrozen step
+    def timed(frozen, n=3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state.step = 0 if frozen else S2S_FREEZE
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        state.step = 0 if frozen else S2S_FREEZE
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        return ms, host
+
+    frozen_ms, host_frozen = timed(True)
+    torch.cuda.reset_peak_memory_stats()
+    unfrozen_ms, host_unfrozen = timed(False)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state.step = S2S_FREEZE
+    prof = profile_once(lambda: step(state, batch, gen), "s2s_unfrozen_profile")
+
+    # decoding: greedy and beam at max_len 64; K = 1 without the ban is
+    # greedy; the beams come sorted and distinct
+    model.eval()
+    eos = d.eos()
+    src, lens = batch["source"], batch["lengths"]
+
+    def decode_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    reset()
+    greedy, greedy_ms = decode_ms(lambda: greedy_decode(model, src, lens, eos, eos,
+                                                        max_len=S2S_DECODE_LEN))
+    dec_counts = tuple(getattr(m, attr) for m, attr in counters)
+    (beam1, _), beam1_ms = decode_ms(lambda: beam_decode(model, src, lens, eos, eos,
+                                                         beam_size=1, max_len=S2S_DECODE_LEN))
+    (beams, scores), beam_ms = decode_ms(lambda: beam_decode(
+        model, src, lens, eos, eos, beam_size=S2S_BEAM, max_len=S2S_DECODE_LEN,
+        no_repeat_ngram=3))
+    distinct = all(len({tuple(beams[b, k].tolist()) for k in range(S2S_BEAM)}) == S2S_BEAM
+                   for b in range(beams.shape[0]))
+    ordered = bool((scores[:, :-1] >= scores[:, 1:]).all())
+    hyps = [d.string([t for t in row.tolist() if t != eos][:12]) for row in greedy]
+    phase("s2s_train", greedy_ms=f"{greedy_ms:.1f}", beam1_ms=f"{beam1_ms:.1f}",
+          beam5_ms=f"{beam_ms:.1f}", decode_len=S2S_DECODE_LEN,
+          decode_launches_l1_conv_attn_fwd_bwd=dec_counts,
+          beam1_equals_greedy=bool(torch.equal(beam1[:, 0], greedy)),
+          beams_sorted=ordered, beams_distinct=distinct,
+          best_scores=[f"{x:.3f}" for x in scores[:, 0].tolist()], greedy_head=hyps)
+    if not torch.equal(beam1[:, 0], greedy):
+        fail("s2s_train: beam search with K = 1 does not give greedy's tokens")
+    if not (ordered and distinct and torch.isfinite(scores).all()):
+        fail("s2s_train: the beams are not sorted, distinct and finite")
+    if dec_counts != (1, 0, 12, 0, 24, 0):
+        fail(f"s2s_train: a decode's encoder launches {dec_counts}")
+
+    # learning: 20 unfrozen steps on one batch at a fixed learning rate
+    model.train()
+    state = create_train_state(model, OptimConfig(lr=1e-4, schedule="fixed"), device=dev)
+    state.step = S2S_FREEZE
+    losses = [float(step(state, batch, gen)["loss_per_sample"]) for _ in range(20)]
+    phase("s2s_train", learning_first=f"{losses[0]:.4f}", learning_last=f"{losses[-1]:.4f}",
+          steps=len(losses), losses=",".join(f"{x:.3f}" for x in losses))
+    if not losses[-1] < losses[0]:
+        fail(f"s2s_train: 20 steps on one batch: loss {losses[0]} -> {losses[-1]} did not fall")
+    del state, model, step
+    torch.cuda.empty_cache()
+    glu_quant_noise(dev, batch)
+    audio_s = float(lengths.sum()) / SAMPLE_RATE
+    return dict(params=nparams, frozen_ms=frozen_ms, unfrozen_ms=unfrozen_ms,
+                host_frozen_ms=host_frozen, host_unfrozen_ms=host_unfrozen, peak_gb=peak_gb,
+                audio_s=audio_s, profile=prof, greedy_ms=greedy_ms, beam_ms=beam_ms,
+                beam1_ms=beam1_ms)
+
+
+GLU_QN_LAYERS = 4
+
+
+def glu_quant_noise(dev, batch):
+    """The GLU feed-forward with iPQ noise (quant_noise_pq 0.1) in a
+    WavLM-Large-width encoder cut to 4 layers, under the default decoder:
+    the forward, kernel path against plain path (relative L2 5e-2, as the
+    serving paths), with and without the noise (the same seeds, so the
+    same block masks); 3 train steps with finite losses; the share of
+    dropped blocks within 4 sigma of p."""
+    from unispeech_tpu_torch.models import encoder
+    from unispeech_tpu_torch.models.seq2seq import Seq2SeqModel
+    from unispeech_tpu_torch.train.optim import OptimConfig
+    from unispeech_tpu_torch.train.state import create_train_state, make_train_step
+    from unispeech_tpu_torch.train.tasks import make_seq2seq_loss_fn
+
+    p = 0.1
+    cfg = seq2seq_large_config(0, encoder_layers=GLU_QN_LAYERS, activation_fn="glu",
+                               quant_noise_pq=p, dropout=0.0, attention_dropout=0.0,
+                               activation_dropout=0.0, encoder_layerdrop=0.0)
+    model = Seq2SeqModel(cfg, dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(SEED + 24)).to(dev)
+    if model.wavlm.encoder.layers[0].fc1.linear.weight.shape != (2 * 4096, 1024):
+        fail("glu: fc1 is not the GLU's Linear(1024, 2 * 4096)")
+    drawn = {}  # seed -> (dropped, blocks); remat_layers draws each mask twice
+    real = encoder.quant_noise_blocks
+
+    def counted(seed, *args):
+        out = real(seed, *args)
+        drawn[seed] = (int(out.sum()), out.numel())
+        return out
+
+    src, lens = batch["source"], batch["lengths"]
+    rel = {}
+    with torch.no_grad():
+        for name, det in (("serving", True), ("qn_training", False)):
+            run = lambda: model.encode(src, lens, deterministic=det,
+                                       generator=torch.Generator().manual_seed(SEED + 25))[0]
+            got = run()
+            with plain_ops():
+                want = run()
+            rel[name] = rel_l2(got, want)
+    phase("glu_qn", layers=GLU_QN_LAYERS, rel_l2_vs_plain=rel, tol="5e-2")
+    if not all(np.isfinite(v) and v <= 5e-2 for v in rel.values()):
+        fail(f"glu_qn: kernel path disagrees with the plain path: {rel}")
+    state = create_train_state(model, OptimConfig(lr=5e-5, schedule="fixed"), device=dev)
+    step = make_train_step(make_seq2seq_loss_fn(model))
+    gen = torch.Generator().manual_seed(SEED + 26)
+    encoder.quant_noise_blocks = counted
+    try:
+        losses = [float(step(state, batch, gen)["loss_per_sample"]) for _ in range(3)]
+    finally:
+        encoder.quant_noise_blocks = real
+    n_blocks = sum(b for _, b in drawn.values())
+    share = sum(k for k, _ in drawn.values()) / max(n_blocks, 1)
+    sigma = math.sqrt(p * (1 - p) / max(n_blocks, 1))
+    phase("glu_qn", losses=",".join(f"{x:.3f}" for x in losses), dropped_share=f"{share:.5f}",
+          blocks=n_blocks, masks=len(drawn), p=p, four_sigma=f"{4 * sigma:.5f}")
+    if not all(np.isfinite(losses)):
+        fail(f"glu_qn: a train step is not finite: {losses}")
+    if not abs(share - p) <= 4 * sigma:
+        fail(f"glu_qn: dropped share {share} is not within 4 sigma of {p}")
+    del state, model
+    torch.cuda.empty_cache()
+
+
+LM_VOCAB, LM_TOKENS = 10_000, 160_000
+
+
+def lm_train_phase(dev):
+    """lm_train: the TransformerLM train-lm builds at its defaults (512
+    wide, 2048 FFN, 6 layers, 8 heads, dropout 0.1; block 128, batch 32),
+    bf16, on a synthetic Zipf corpus of 10,000 words from the seed through
+    TokenBlockDataset and LMIterator: 20 steps, the loss must fall; step ms
+    and tokens per second; the NeuralLMScorer's log-probs on the card
+    against the same fp32 weights on the CPU (TF32 off), rtol 1e-4."""
+    from unispeech_tpu_torch.data.dictionary import Dictionary
+    from unispeech_tpu_torch.data.lm_dataset import LMIterator, TokenBlockDataset
+    from unispeech_tpu_torch.decode.lm_fusion import NeuralLMScorer
+    from unispeech_tpu_torch.models.lm import TransformerLM, TransformerLMConfig
+    from unispeech_tpu_torch.train.optim import OptimConfig
+    from unispeech_tpu_torch.train.state import create_train_state, make_train_step
+    from unispeech_tpu_torch.train.tasks import make_lm_loss_fn
+
+    words = Dictionary()
+    for i in range(LM_VOCAB):
+        words.add_symbol(f"w{i}")
+    rng = np.random.default_rng(SEED + 31)
+    ranks = np.minimum(rng.zipf(1.2, LM_TOKENS), LM_VOCAB) - 1
+    tokens = (ranks + words.nspecial).astype(np.int32)
+    tokens[rng.random(LM_TOKENS) < 0.08] = words.eos()  # sentence ends
+    cfg = TransformerLMConfig(vocab_size=len(words), padding_idx=words.pad(),
+                              max_positions=2048)
+    model = TransformerLM(cfg, dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(SEED + 32))
+    nparams = sum(p.numel() for p in model.parameters())
+    data = iter(LMIterator(TokenBlockDataset(tokens, 128), batch_size=32,
+                           padding_idx=words.pad(), seed=SEED))
+    state = create_train_state(model, OptimConfig(lr=5e-4, schedule="fixed"), device=dev)
+    step = make_train_step(make_lm_loss_fn(model, words.pad()))
+    gen = torch.Generator().manual_seed(SEED + 33)
+    to_dev = lambda b: {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    losses = []
+    for _ in range(20):
+        losses.append(float(step(state, to_dev(next(data)), gen)["loss_per_sample"]))
+    phase("lm_train", params=nparams, learning_first=f"{losses[0]:.4f}",
+          learning_last=f"{losses[-1]:.4f}", losses=",".join(f"{x:.3f}" for x in losses))
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"lm_train: 20 steps: loss {losses[0]} -> {losses[-1]} did not fall")
+    batch = to_dev(next(data))
+    step(state, batch, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 5
+    for _ in range(n):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n
+    n_tok = int(batch["tokens"].numel())
+    phase("lm_train", step_ms=f"{step_ms:.3f}", tokens_per_step=n_tok,
+          tokens_per_s=f"{n_tok / (step_ms / 1e3):.0f}")
+
+    # the scorer on the card against the CPU, fp32, the same weights
+    fp32 = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+    scorers = []
+    for device in (dev, "cpu"):
+        m = TransformerLM(cfg)
+        m.load_state_dict(fp32)
+        scorers.append(NeuralLMScorer(m.to(device), words, window=128))
+    worst = 0.0
+    state_ = scorers[0].start()
+    for w in rng.integers(words.nspecial, len(words), 12):
+        a, b = (s._next_logprobs(state_) for s in scorers)
+        worst = max(worst, float(np.max(np.abs(a - b) / (np.abs(b) + 1e-30))))
+        if not np.allclose(a, b, rtol=1e-4, atol=0):
+            fail(f"lm_train: the scorer on the card disagrees with the CPU at {state_}")
+        state_, _ = scorers[0].score(state_, words[int(w)])
+    phase("lm_train", scorer_max_rel_err=f"{worst:.3g}", tol="rtol 1e-4", states=12)
+    del state, model, scorers
+    torch.cuda.empty_cache()
+    return dict(params=nparams, step_ms=step_ms, tokens_per_step=n_tok)
+
+
+def s2s_pipeline_phase(counters, tmp):
+    """s2s_pipeline: through the CLIs' main(argv) in-process, on the
+    pipeline phase's 12 wav files: finetune-seq2seq --arch large --w2v-path
+    <the pipeline's export> (valid WER, --best-metric wer, freeze 2,
+    --valid-decode-max-len 32) to update 2, resumed to 4; data binarize-text
+    on a word corpus, train-lm from the .bin for 10 updates with
+    --export-params; decode --decoder seq2seq of the seq2seq export; decode
+    --decoder neural of ctc_pipeline's export with a lexicon and the LM.
+    Returns the decodes' seconds."""
+    import io
+
+    from unispeech_tpu_torch.data.__main__ import main as data_main
+    from unispeech_tpu_torch.data.dictionary import Dictionary
+    from unispeech_tpu_torch.decode.__main__ import main as decode_main
+    from unispeech_tpu_torch.train.__main__ import main as train_main
+
+    man = str(tmp / "man" / "train.tsv")
+    ltr = tmp / "train.ltr"
+    n_files = len(pathlib.Path(man).read_text().splitlines()) - 1
+    ckpt = str(tmp / "s2s_ckpt")
+
+    def reset():
+        for m, attr in counters:
+            setattr(m, attr, 0)
+
+    def run(main, argv, what):
+        reset()
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(log), contextlib.redirect_stdout(io.StringIO()):
+            main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = tuple(getattr(m, attr) for m, attr in counters)
+        lines = log.getvalue().splitlines()
+        train = [json.loads(x) for x in lines if x.startswith('{"tag": "train"')]
+        valid = [json.loads(x) for x in lines if x.startswith('{"tag": "valid"')]
+        for r in train:
+            phase("s2s_pipeline", update=r["step"], wall_s=r["elapsed_s"], loss=r["loss_avg"])
+        for r in valid:
+            phase("s2s_pipeline", valid_update=r["step"], loss=r["loss_avg"], wer=r.get("wer"),
+                  uer=r.get("uer"))
+        phase("s2s_pipeline", step=what, seconds=f"{seconds:.2f}",
+              launches_l1_conv_attn_fwd_bwd=counts)
+        if not all(np.isfinite(r["loss_avg"]) for r in train + valid):
+            fail(f"s2s_pipeline: {what}: a non-finite loss")
+        return train, valid, counts, seconds
+
+    def finetune(max_updates, out):
+        argv = ["finetune-seq2seq", "--manifest", man, "--transcripts", str(ltr),
+                "--valid-manifest", man, "--valid-transcripts", str(ltr), "--arch", "large",
+                "--w2v-path", str(tmp / "export.npz"), "--best-metric", "wer",
+                "--freeze-finetune-updates", str(S2S_FREEZE), "--valid-decode-max-len", "32",
+                "--save-interval-updates", "2", "--log-interval", "1", "--lr", "5e-5",
+                "--warmup-steps", "2", "--max-updates", str(max_updates),
+                "--checkpoint-dir", ckpt, "--export-params", str(tmp / out)]
+        train, valid, counts, _ = run(train_main, argv,
+                                      f"finetune-seq2seq --max-updates {max_updates}")
+        if [r["step"] for r in valid] != [max_updates] or \
+                not all("wer" in r and np.isfinite(r["wer"]) for r in valid):
+            fail(f"s2s_pipeline: no valid WER at each validation: {valid}")
+        if counts[1] or counts[3] or not (counts[0] and counts[2] and counts[4]):
+            fail(f"s2s_pipeline: finetune launches {counts}")
+        return [r["step"] for r in train], counts
+
+    first, c_first = finetune(2, "s2s2.npz")
+    second, c_second = finetune(4, "s2s4.npz")
+    phase("s2s_pipeline", first_run_updates=first, resumed_run_updates=second)
+    if first != [1, 2] or second != [3, 4]:
+        fail(f"s2s_pipeline: the resumed run did not start at update 2: {first}, {second}")
+    if c_first[5] != 0 or c_second[5] == 0:
+        fail(f"s2s_pipeline: attention backward launches {c_first[5]}, {c_second[5]}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    # a word corpus over the transcripts' words, binarized, and an LM on it
+    texts = ltr.read_text().splitlines()
+    vocab = sorted({w.replace(" ", "") for t in texts for w in t.split("|") if w.strip()})
+    words = Dictionary()
+    for w in vocab:
+        words.add_symbol(w)
+    words.save(str(tmp / "words.txt"))
+    rng = np.random.default_rng(SEED + 34)
+    lines = [" ".join(rng.choice(vocab, int(rng.integers(4, 13)))) for _ in range(700)]
+    (tmp / "words_corpus.txt").write_text("\n".join(lines) + "\n")
+    run(data_main, ["binarize-text", "--corpus", str(tmp / "words_corpus.txt"), "--dict",
+                    str(tmp / "words.txt"), "--out", str(tmp / "lm_bin" / "corpus")],
+        "binarize-text")
+    train, _, _, _ = run(train_main, [
+        "train-lm", "--corpus", str(tmp / "lm_bin" / "corpus.bin"), "--dict",
+        str(tmp / "words.txt"), "--max-updates", "10", "--warmup-steps", "2",
+        "--log-interval", "1", "--save-interval-updates", "10", "--checkpoint-dir",
+        str(tmp / "lm_ckpt"), "--export-params", str(tmp / "lm.npz")], "train-lm")
+    if [r["step"] for r in train] != list(range(1, 11)) or \
+            not (tmp / "lm.json").exists() or not (tmp / "lm_ckpt" / "lm_config.json").exists():
+        fail("s2s_pipeline: train-lm did not run 10 updates and write its configs")
+
+    seconds = {}
+    for name, extra in (("seq2seq", ["--checkpoint", str(tmp / "s2s4.npz"), "--decoder",
+                                     "seq2seq", "--seq2seq-beam", "5", "--max-decode-len",
+                                     "32", "--no-repeat-ngram", "3"]),
+                        ("neural", ["--checkpoint", str(tmp / "ctc4.npz"), "--decoder",
+                                    "neural", "--lexicon", str(tmp / "lexicon.txt"),
+                                    "--lm-model", str(tmp / "lm.npz"), "--lm-dict",
+                                    str(tmp / "words.txt"), "--beam", "8"])):
+        out = tmp / f"decode_{name}"
+        _, _, counts, secs = run(decode_main, ["--manifest", man, "--transcripts", str(ltr),
+                                               "--arch", "large", "--results-path", str(out),
+                                               *extra], f"decode --decoder {name}")
+        rep = json.loads((out / "wer_report.json").read_text())
+        hyps = (out / "hypo.word").read_text().splitlines()
+        phase("s2s_pipeline", decode=name, seconds=f"{secs:.2f}", utterances=rep["utterances"],
+              wer=rep.get("wer"), uer=rep.get("uer"), hypo_lines=len(hyps),
+              seconds_per_file=f"{secs / max(len(hyps), 1):.3f}")
+        if not {"utterances", "wer", "uer"} <= set(rep) or rep["utterances"] != n_files \
+                or len(hyps) != n_files:
+            fail(f"s2s_pipeline: decode {name}: report {rep}, {len(hyps)} hypothesis lines")
+        if not (counts[0] and counts[2] and counts[4]) or counts[1] or counts[3] or counts[5]:
+            fail(f"s2s_pipeline: decode {name}: launches {counts}")
+        seconds[name] = secs
+    return seconds
+
+
 def unispeech_large_config():
     """The UniSpeech model of w2v_train: WavLM-Large's encoder as
     pretrain-wav2vec2 --arch large builds it (24 layers, width 1024, 16
@@ -2078,6 +2622,14 @@ def main() -> int:
         clock.done("pipeline")
         ctc_pipeline_phase(counters, tmp)
         clock.done("ctc_pipeline")
+        # seq2seq fine-tuning and decoding, the Transformer LM and its fusion
+        s2s_counts = {}
+        s2s = s2s_train_phase(dev, counters, s2s_counts, wav, lengths)
+        clock.done("s2s_train")
+        lm = lm_train_phase(dev)
+        clock.done("lm_train")
+        s2s_decode_s = s2s_pipeline_phase(counters, tmp)
+        clock.done("s2s_pipeline")
         # UniSpeech and UniSpeech-SAT pretraining at Large width: steps on
         # the padded batch, then the CLIs on the pipeline's files
         w2v_counts, sat_counts = {}, {}
@@ -2200,6 +2752,8 @@ def main() -> int:
         idx = next(i for prefix, i in family if r["name"].startswith(prefix))
         r["ctc_launches_frozen"] = 0 if idx is None else ctc_counts["frozen"][idx]
         r["ctc_launches_unfrozen"] = 0 if idx is None else ctc_counts["unfrozen"][idx]
+        r["s2s_launches_frozen"] = 0 if idx is None else s2s_counts["frozen"][idx]
+        r["s2s_launches_unfrozen"] = 0 if idx is None else s2s_counts["unfrozen"][idx]
     for r in rows:
         phase("times", **{k: (f"{v:.4f}" if isinstance(v, float) else
                               "null" if v is None else v)
@@ -2249,6 +2803,21 @@ def main() -> int:
           profiled_busy_ms_frozen=f"{fp[0]:.3f}", profiled_wall_ms_frozen=f"{fp[1]:.3f}",
           profiled_busy_ms_unfrozen=f"{up[0]:.3f}", profiled_wall_ms_unfrozen=f"{up[1]:.3f}",
           kernel_launches_frozen=fp[2], kernel_launches_unfrozen=up[2])
+    sp = s2s["profile"]
+    phase("e2e_s2s_train", params=s2s["params"], frozen_step_ms=f"{s2s['frozen_ms']:.3f}",
+          unfrozen_step_ms=f"{s2s['unfrozen_ms']:.3f}",
+          host_enqueue_frozen_ms=f"{s2s['host_frozen_ms']:.3f}",
+          host_enqueue_unfrozen_ms=f"{s2s['host_unfrozen_ms']:.3f}",
+          audio_seconds_per_step=s2s["audio_s"], padded_seconds=B * NS / SAMPLE_RATE,
+          audio_sec_per_s_frozen=f"{s2s['audio_s'] / (s2s['frozen_ms'] / 1e3):.1f}",
+          audio_sec_per_s_unfrozen=f"{s2s['audio_s'] / (s2s['unfrozen_ms'] / 1e3):.1f}",
+          peak_memory_gb=f"{s2s['peak_gb']:.2f}", profiled_busy_ms_unfrozen=f"{sp[0]:.3f}",
+          profiled_wall_ms_unfrozen=f"{sp[1]:.3f}", kernel_launches_unfrozen=sp[2],
+          greedy_decode_ms=f"{s2s['greedy_ms']:.1f}", beam1_decode_ms=f"{s2s['beam1_ms']:.1f}",
+          beam5_decode_ms=f"{s2s['beam_ms']:.1f}", decode_len=S2S_DECODE_LEN)
+    phase("e2e_lm_train", params=lm["params"], step_ms=f"{lm['step_ms']:.3f}",
+          tokens_per_s=f"{lm['tokens_per_step'] / (lm['step_ms'] / 1e3):.0f}")
+    phase("e2e_s2s_pipeline", **{f"decode_{k}_s": f"{v:.2f}" for k, v in s2s_decode_s.items()})
     for name, e in (("e2e_w2v_train", w2v), ("e2e_sat_train", sat)):
         phase(name, params=e["params"], step_ms=f"{e['step_ms']:.3f}",
               host_enqueue_ms=f"{e['host_ms']:.3f}", audio_seconds_per_step=e["audio_s"],

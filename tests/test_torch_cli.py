@@ -249,6 +249,23 @@ def decode_setup(tmp_path_factory):
         w = np.linalg.lstsq(H, margin * onehot, rcond=None)[0].astype(np.float32)
         ckpt = dict(params, proj={"kernel": w[:-1], "bias": w[-1]})
         save_params_npz(str(d_path / name), ckpt)
+
+    # a word-level TransformerLM (JAX init, seed 5) over the lexicon's words,
+    # with its config beside the export, for --decoder neural
+    from unispeech_tpu.models.lm import TransformerLM as JLM
+    from unispeech_tpu.models.lm import TransformerLMConfig as JLMConfig
+
+    words = Dictionary()
+    for w in LEXICON:
+        words.add_symbol(w)
+    words.save(str(d_path / "words.txt"))
+    lm_cfg = dict(vocab_size=len(words), embed_dim=32, ffn_dim=64, layers=2, heads=2,
+                  dropout=0.0, padding_idx=1, max_positions=256, learned_pos=False,
+                  normalize_before=True, share_input_output_embed=True)
+    lm_params = JLM(JLMConfig(**lm_cfg)).init(jax.random.PRNGKey(5),
+                                             jnp.zeros((1, 8), jnp.int32))["params"]
+    save_params_npz(str(d_path / "lm.npz"), lm_params)
+    (d_path / "lm.json").write_text(json.dumps(lm_cfg))
     return d_path
 
 
@@ -261,6 +278,166 @@ def _decode_args(d, decoder, out, *extra):
     if decoder == "kenlm":
         args += ["--lm-model", str(d / "lm.arpa")]
     return args
+
+
+@pytest.mark.parametrize("lm_weight", ["0.5", "2.0"])
+def test_neural_decode_cli_matches_jax(decode_setup, lm_weight):
+    """decode --decoder neural (the lexicon beam with the TransformerLM
+    fused) against the JAX decode CLI on the same CTC checkpoint and LM
+    export: the same hypothesis and reference files and WER/UER."""
+    from unispeech_tpu.decode.__main__ import main as jax_decode
+    from unispeech_tpu_torch.decode.__main__ import main as torch_decode
+
+    d = decode_setup
+    extra = ["--checkpoint", str(d / "ctc_a.npz"), "--lm-model", str(d / "lm.npz"),
+             "--lm-dict", str(d / "words.txt"), "--lm-weight", lm_weight]
+    tag = f"neural_{lm_weight}"
+    jax_decode(_decode_args(d, "neural", f"jax_{tag}", *extra))
+    torch_decode(_decode_args(d, "neural", f"port_{tag}", *extra, "--device", "cpu"))
+    for name in ("hypo.units", "hypo.word", "ref.units", "ref.word"):
+        assert (d / f"port_{tag}" / name).read_text() == (d / f"jax_{tag}" / name).read_text()
+    rep = json.loads((d / f"port_{tag}" / "wer_report.json").read_text())
+    jrep = json.loads((d / f"jax_{tag}" / "wer_report.json").read_text())
+    assert (rep["utterances"], rep["wer"], rep["uer"]) == (
+        jrep["utterances"], jrep["wer"], jrep["uer"])
+
+
+S2S_DEC = dict(embed_dim=64, ffn_embed_dim=128, layers=2, heads=4, learned_pos=True)
+S2S_HYPS = ["AAAA", "BBBB", "CCCC"]  # the planted hypotheses, one letter per utterance
+
+
+def _s2s_args(d):
+    return ["--checkpoint", str(d / "s2s.npz"), "--decoder-json", json.dumps(S2S_DEC),
+            "--seq2seq-beam", "3", "--max-decode-len", "8"]
+
+
+@pytest.fixture(scope="module")
+def seq2seq_export(decode_setup):
+    """A seq2seq export in the JAX layout (JAX init, CTC_TINY's encoder 96
+    wide, a decoder 64 wide with learned positions, so enc_proj) planted to
+    decode utterance u as its letter of S2S_HYPS four times, then eos, by a
+    wide margin. A random decoder's last hidden state is led by the current
+    token; position and audio reach it weakly. So the export carries
+    N(0, 1) position embeddings, identity cross-attention value and output
+    projections, and an ``enc_proj`` fitted by least squares (exact: fewer
+    frames than features) to map every valid frame of utterance u to one
+    code vector c_u (orthogonal, norm 8): the cross-attention then returns
+    c_u whatever its weights. The planted next token is a sum of a per
+    utterance term and a per position term (the letter, then eos at
+    position 4), which a ridge fit (lambda 0.1) of the output embedding to
+    the fp32 hidden states realises with logit margins of ~9 and small
+    weights: bf16 moves the logits far less, so the JAX and the port CLI
+    must find the same beams."""
+    from unispeech_tpu.models.seq2seq import Seq2SeqConfig as JConfig
+    from unispeech_tpu.models.seq2seq import Seq2SeqDecoderConfig as JDecConfig
+    from unispeech_tpu.models.seq2seq import Seq2SeqModel as JModel
+    from unispeech_tpu_torch.configs import base_encoder_config as port_base
+    from unispeech_tpu_torch.convert.from_jax import seq2seq_state_dict_from_jax
+    from unispeech_tpu_torch.data.dictionary import Dictionary
+    from unispeech_tpu_torch.data.manifest import Manifest, load_audio
+    from unispeech_tpu_torch.decode.__main__ import bucket_grid, plan_eval_batches
+    from unispeech_tpu_torch.models import seq2seq
+
+    d_path = decode_setup
+    d = Dictionary.letters()
+    dec = dict(S2S_DEC, vocab_size=len(d), padding_idx=d.pad())
+    D = dec["embed_dim"]
+    jmodel = JModel(JConfig(encoder=_ctc_enc(), decoder=JDecConfig(**dec), apply_mask=False))
+    params = jmodel.init({"params": jax.random.PRNGKey(6)}, jnp.zeros((1, 4000)),
+                         jnp.zeros((1, 8), jnp.int32), deterministic=True)["params"]
+    params = jax.tree_util.tree_map(np.array, params)
+    rng = np.random.default_rng(7)
+    dp = params["decoder"]
+    dp["embed_positions"]["embedding"] = rng.standard_normal(
+        dp["embed_positions"]["embedding"].shape).astype(np.float32)
+    for i in range(dec["layers"]):
+        for proj in ("v_proj", "out_proj"):
+            dp[f"layer_{i}"]["encoder_attn"][proj] = {"kernel": np.eye(D, dtype=np.float32),
+                                                      "bias": np.zeros(D, np.float32)}
+    enc = _ctc_enc(port_base)
+    cfg = seq2seq.Seq2SeqConfig(encoder=enc, decoder=seq2seq.Seq2SeqDecoderConfig(**dec),
+                                apply_mask=False)
+
+    def port_model():
+        model = seq2seq.Seq2SeqModel(cfg)
+        model.load_state_dict(seq2seq_state_dict_from_jax(params, enc), strict=True)
+        model.decoder.output_layer = lambda x: x.float()  # the last hidden state
+        return model
+
+    man = Manifest.load(str(d_path / "test.tsv"))
+    sizes = np.asarray(man.sizes)
+    buckets = bucket_grid(sizes)
+    batches = []
+    for batch_idx in plan_eval_batches(sizes, 1_280_000, 0, buckets):
+        wavs = [load_audio(man.abspath(int(i)), 16_000) for i in batch_idx]
+        lengths = np.asarray([len(w) for w in wavs], np.int32)
+        source = np.zeros((len(wavs), int(buckets[np.searchsorted(buckets, lengths.max())])),
+                          np.float32)
+        for r, w in enumerate(wavs):
+            source[r, :len(w)] = w
+        batches.append((batch_idx, torch.from_numpy(source), torch.from_numpy(lengths)))
+    codes = np.linalg.qr(rng.standard_normal((D, len(S2S_HYPS))))[0].T * 8.0
+    model = port_model()
+    H, C = [], []
+    for batch_idx, source, lengths in batches:
+        with torch.no_grad():
+            out = model.wavlm(source, lengths)
+        n_frames = (~out.padding_mask).sum(-1)
+        for r, i in enumerate(batch_idx):
+            H.append(out.x[r, :int(n_frames[r])].numpy())
+            C += [codes[i]] * int(n_frames[r])
+    H = np.concatenate(H).astype(np.float64)
+    H = np.concatenate([H, np.ones((len(H), 1))], axis=1)
+    assert H.shape[0] < H.shape[1]  # an exact fit
+    P = np.linalg.lstsq(H, np.asarray(C), rcond=None)[0].astype(np.float32)
+    params["enc_proj"] = {"kernel": P[:-1], "bias": P[-1]}
+    model = port_model()
+    X, Y = [], []
+    for batch_idx, source, lengths in batches:
+        with torch.no_grad():
+            h, pad, _ = model.encode(source, lengths)
+            for r, i in enumerate(batch_idx):
+                units = [d.index(S2S_HYPS[i][0])] * 4 + [d.eos()]
+                prev = torch.tensor([[d.eos()] + units[:-1]])
+                X.append(model.decoder(prev, h[r:r + 1], pad[r:r + 1])[0].numpy())
+                Y += units
+    X = np.concatenate(X).astype(np.float64)
+    target = 20.0 * np.eye(len(d))[Y]
+    w = np.linalg.solve(X.T @ X + 0.1 * np.eye(D), X.T @ target)
+    logits = X @ w
+    margin = logits[np.arange(len(Y)), Y] - np.where(np.eye(len(d))[Y] > 0, -np.inf,
+                                                     logits).max(1)
+    assert margin.min() > 5.0, margin
+    dp["embed_out"] = np.ascontiguousarray(w.T.astype(np.float32))
+    save_params_npz(str(d_path / "s2s.npz"), params)
+    return d_path
+
+
+@pytest.mark.parametrize("ngram", ["0", "4"])
+def test_seq2seq_decode_cli_matches_jax(seq2seq_export, ngram):
+    """decode --decoder seq2seq (beam 3; no-repeat-ngram 0, or 4, which
+    bans a fifth repeat of a letter but not the planted eos) of a
+    JAX-written export: the port's CLI gives the JAX CLI's hypotheses,
+    the planted ones, and its WER report."""
+    from unispeech_tpu.decode.__main__ import main as jax_decode
+    from unispeech_tpu_torch.decode.__main__ import main as torch_decode
+
+    d = seq2seq_export
+    extra = [*_s2s_args(d), "--no-repeat-ngram", ngram]
+    tag = f"s2s_{ngram}"
+    jax_decode(_decode_args(d, "seq2seq", f"jax_{tag}", *extra))
+    torch_decode(_decode_args(d, "seq2seq", f"port_{tag}", *extra, "--device", "cpu"))
+    got = (d / f"port_{tag}" / "hypo.word").read_text()
+    assert got == (d / f"jax_{tag}" / "hypo.word").read_text()
+    hyps = sorted(got.splitlines(), key=lambda l: int(l.rsplit("(", 1)[1][:-1]))
+    assert [h.rsplit(" (", 1)[0] for h in hyps] == S2S_HYPS
+    rep = json.loads((d / f"port_{tag}" / "wer_report.json").read_text())
+    jrep = json.loads((d / f"jax_{tag}" / "wer_report.json").read_text())
+    assert (rep["utterances"], rep["wer"], rep["uer"]) == (
+        jrep["utterances"], jrep["wer"], jrep["uer"])
+    assert rep["wer"] == 100.0  # one word against each reference's 2-3
+
+
 
 
 @pytest.mark.parametrize("decoder,ensemble", [("viterbi", False), ("beam", False),
@@ -292,19 +469,24 @@ def test_decode_cli_matches_jax(decode_setup, decoder, ensemble, capsys):
     assert rep["utterances"] == 3 and rep["wer"] == round(200 / 7, 4) and rep["uer"] > 0
 
 
-def test_decode_cli_not_ported_and_device(decode_setup):
+def test_decode_cli_not_ported_and_device(decode_setup, seq2seq_export):
+    """The neural-LM and seq2seq decoders run with --device cpu (one
+    hypothesis per utterance and a WER report); every decoder without
+    --device needs a CUDA device."""
     from unispeech_tpu_torch.decode.__main__ import main as torch_decode
 
     d = decode_setup
-    for dec in ("neural", "seq2seq"):
-        with pytest.raises(NotImplementedError):
-            torch_decode(_decode_args(d, "viterbi", "x", "--checkpoint",
-                                      str(d / "ctc_a.npz"), "--decoder", dec, "--device",
-                                      "cpu"))
+    for dec, extra in (("neural", ["--checkpoint", str(d / "ctc_a.npz"), "--lm-model",
+                                   str(d / "lm.npz"), "--lm-dict", str(d / "words.txt")]),
+                       ("seq2seq", _s2s_args(d))):
+        torch_decode(_decode_args(d, dec, f"port_run_{dec}", *extra, "--device", "cpu"))
+        hyps = (d / f"port_run_{dec}" / "hypo.word").read_text().splitlines()
+        rep = json.loads((d / f"port_run_{dec}" / "wer_report.json").read_text())
+        assert len(hyps) == rep["utterances"] == 3 and "wer" in rep
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            torch_decode(_decode_args(d, "viterbi", "x", "--checkpoint",
-                                      str(d / "ctc_a.npz")))
+        for dec in ("viterbi", "neural", "seq2seq"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                torch_decode(_decode_args(d, dec, "x", "--checkpoint", str(d / "ctc_a.npz")))
 
 
 def _ft_corpus(tmp_path):
@@ -567,3 +749,108 @@ def test_pretrain_wav2vec2_default_device_needs_cuda(tmp_path):
         train_cli(["pretrain-wav2vec2", "--manifest", str(d / "train.tsv"),
                    "--encoder-json", json.dumps(W2V_TINY), "--min-sample-size", "8000",
                    "--checkpoint-dir", str(tmp_path / "ckpt")])
+
+
+# ------------------------------------------------ finetune-seq2seq, train-lm
+@pytest.mark.usefixtures("one_torch_thread")
+def test_finetune_seq2seq_cli(tmp_path, capsys):
+    """finetune-seq2seq --device cpu from a pretraining export (--w2v-path,
+    JAX layout), a decoder narrower than the encoder (enc_proj), a valid set
+    scored by greedy WER, --best-metric wer, freeze 1: to update 2, then
+    resumed to 4. The export (JAX layout) decodes through the port's and the
+    JAX package's decode --decoder seq2seq to the same hypotheses."""
+    from unispeech_tpu.configs import HubertPretrainConfig as JHubertConfig
+    from unispeech_tpu.decode.__main__ import main as jax_decode
+    from unispeech_tpu.models.hubert import HubertPretrainModel as JHubert
+    from unispeech_tpu_torch.convert.from_jax import load_params_npz
+    from unispeech_tpu_torch.decode.__main__ import main as torch_decode
+    from unispeech_tpu_torch.train.__main__ import main as train_cli
+    from unispeech_tpu_torch.train.checkpoint import CheckpointManager
+
+    d = _ft_corpus(tmp_path)
+    jenc = base_encoder_config(relative_position_embedding=True, gru_rel_pos=True,
+                               **{k: tuple(map(tuple, v)) if k == "conv_layers" else v
+                                  for k, v in FT_TINY.items()})
+    jh = JHubert(JHubertConfig(encoder=jenc, num_classes=(10,), final_dim=16))
+    k = jax.random.PRNGKey(3)
+    pre = jh.init({"params": k, "mask": k}, jnp.zeros((1, 2000)),
+                  jnp.zeros((1, jenc.num_frames(2000), 1), jnp.int32), mask=True)["params"]
+    save_params_npz(str(d / "pre.npz"), pre)
+    dec_json = json.dumps(dict(embed_dim=48, ffn_embed_dim=96, layers=2, heads=4))
+    argv = ["finetune-seq2seq", "--manifest", str(d / "train.tsv"), "--transcripts",
+            str(d / "train.ltr"), "--valid-manifest", str(d / "train.tsv"),
+            "--valid-transcripts", str(d / "train.ltr"), "--best-metric", "wer",
+            "--save-interval-updates", "2", "--validate-interval-updates", "2",
+            "--freeze-finetune-updates", "1", "--valid-decode-max-len", "6",
+            "--max-tokens", "30000", "--min-sample-size", "1000", "--num-buckets", "2",
+            "--warmup-steps", "2", "--log-interval", "1", "--encoder-json",
+            json.dumps(FT_TINY), "--decoder-json", dec_json, "--w2v-path",
+            str(d / "pre.npz"), "--checkpoint-dir", str(d / "ckpt"), "--export-params",
+            str(d / "s2s.npz"), "--device", "cpu"]
+    train_cli(argv + ["--max-updates", "2"])
+    train_cli(argv + ["--max-updates", "4"])
+    err = capsys.readouterr().err.splitlines()
+    train = [json.loads(l) for l in err if l.startswith('{"tag": "train"')]
+    valid = [json.loads(l) for l in err if l.startswith('{"tag": "valid"')]
+    assert [r["step"] for r in train] == [1, 2, 3, 4]
+    assert all(np.isfinite(r["loss_avg"]) for r in train + valid)
+    assert [r["step"] for r in valid] == [2, 4]
+    assert all(0.0 <= r["wer"] and 0.0 <= r["uer"] for r in valid)
+    assert CheckpointManager(str(d / "ckpt"), best_metric="wer").best_step() in (2, 4)
+    got = load_params_npz(str(d / "s2s.npz"))
+    assert set(got) == {"wavlm", "decoder", "enc_proj"}
+    assert got["enc_proj"]["kernel"].shape == (64, 48)
+
+    args = ["--manifest", str(d / "train.tsv"), "--transcripts", str(d / "train.ltr"),
+            "--checkpoint", str(d / "s2s.npz"), "--decoder", "seq2seq", "--encoder-json",
+            json.dumps(FT_TINY), "--decoder-json", dec_json, "--seq2seq-beam", "2",
+            "--max-decode-len", "6", "--results-path"]
+    jax_decode(args + [str(d / "jax_dec")])
+    torch_decode(args + [str(d / "port_dec"), "--device", "cpu"])
+    hyps = (d / "port_dec" / "hypo.word").read_text()
+    assert len(hyps.splitlines()) == 8
+    rep = json.loads((d / "port_dec" / "wer_report.json").read_text())
+    assert rep["utterances"] == 8 and "wer" in rep and "uer" in rep
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_binarize_train_lm_and_neural_decode_cli(decode_setup, tmp_path, capsys):
+    """data binarize-text on a word corpus, then train-lm --device cpu on
+    the .bin (3 updates, resumed to 4, --export-params): finite losses, the
+    resume, lm_config.json in the checkpoint directory and <stem>.json
+    beside the export; the export then drives decode --decoder neural in
+    the port and in the JAX package to the same hypotheses."""
+    from unispeech_tpu.decode.__main__ import main as jax_decode
+    from unispeech_tpu_torch.data.__main__ import main as data_cli
+    from unispeech_tpu_torch.decode.__main__ import main as torch_decode
+    from unispeech_tpu_torch.train.__main__ import main as train_cli
+
+    d = decode_setup
+    rng = np.random.default_rng(8)
+    words = list(LEXICON)
+    lines = [" ".join(rng.choice(words, int(rng.integers(2, 7)))) for _ in range(120)]
+    (tmp_path / "corpus.txt").write_text("\n".join(lines) + "\n")
+    data_cli(["binarize-text", "--corpus", str(tmp_path / "corpus.txt"), "--dict",
+              str(d / "words.txt"), "--out", str(tmp_path / "bin" / "corpus")])
+    argv = ["train-lm", "--corpus", str(tmp_path / "bin" / "corpus.bin"), "--dict",
+            str(d / "words.txt"), "--block-size", "16", "--batch-size", "4", "--embed-dim",
+            "32", "--ffn-dim", "64", "--layers", "2", "--heads", "2", "--warmup-steps", "2",
+            "--lr", "1e-3", "--log-interval", "1", "--save-interval-updates", "3",
+            "--checkpoint-dir", str(tmp_path / "ckpt"), "--export-params",
+            str(tmp_path / "lm.npz"), "--device", "cpu"]
+    train_cli(argv + ["--max-updates", "3"])
+    train_cli(argv + ["--max-updates", "4"])
+    train = _train_records(capsys)
+    assert [r["step"] for r in train] == [1, 2, 3, 4]
+    assert all(np.isfinite(r["loss_avg"]) for r in train)
+    cfg = json.loads((tmp_path / "lm.json").read_text())
+    assert cfg == json.loads((tmp_path / "ckpt" / "lm_config.json").read_text())
+    assert cfg["vocab_size"] == len(LEXICON) + 4 and cfg["max_positions"] == 2048
+
+    extra = ["--checkpoint", str(d / "ctc_a.npz"), "--lm-model", str(tmp_path / "lm.npz"),
+             "--lm-dict", str(d / "words.txt")]
+    jax_decode(_decode_args(d, "neural", str(tmp_path / "jax"), *extra))
+    torch_decode(_decode_args(d, "neural", str(tmp_path / "port"), *extra, "--device", "cpu"))
+    for name in ("hypo.word", "hypo.units"):
+        assert (tmp_path / "port" / name).read_text() == (tmp_path / "jax" / name).read_text()
+    assert len((tmp_path / "port" / "hypo.word").read_text().splitlines()) == 3

@@ -467,6 +467,136 @@ def test_manifest_cli_matches_jax(tmp_path):
     for name in ("train.tsv", "valid.tsv"):
         assert (tmp_path / "port" / name).read_text() == (tmp_path / "jax" / name).read_text()
     assert len((tmp_path / "port" / "train.tsv").read_text().splitlines()) > 1
-    for sub in ("libri-labels", "resample", "cv-manifest", "binarize-text"):
+    for sub in ("libri-labels", "resample", "cv-manifest"):
         with pytest.raises(NotImplementedError):
             data_cli([sub, "--any", "x"])
+
+
+# ------------------------------------------------------------ seq2seq, LM
+@pytest.mark.parametrize("fixed_shapes", [True, False], ids=["fixed", "batch_by_size"])
+def test_seq2seq_iterator_bit_identical_over_two_epochs(tmp_path, fixed_shapes):
+    """Seq2SeqIterator's batches (eos-shifted prev_tokens, eos-terminated
+    targets, target_mask, S = labels + 1 in multiples of 8) equal the JAX
+    package's over two epochs, and so do the iterator states. The one
+    difference is ROADMAP 3.15: JAX gives each zero-length padding row (fixed
+    shapes only) one eos target, the port none."""
+    from unispeech_tpu.data.dataset import Seq2SeqIterator as JSeq2SeqIterator
+    from unispeech_tpu_torch.data.dataset import Seq2SeqIterator
+
+    d = _corpus(tmp_path)
+    man = Manifest.load(str(d / "train.tsv"))
+    rng = np.random.default_rng(5)
+    letters = Dictionary.letters().symbols[4:]
+    texts = [" ".join(rng.choice(letters, max(1, int(n) * 15 // 16000))) for n in man.sizes]
+    texts[3] = ""
+    over = dict(max_sample_size=32000, min_sample_size=9000, max_tokens=70000, num_buckets=4,
+                required_batch_size_multiple=2, fixed_shapes=fixed_shapes)
+    it = Seq2SeqIterator(man, DataConfig(**over), texts, Dictionary.letters(),
+                         frame_hop=FRAME_HOP, frames_fn=frames, seed=3)
+    jit = JSeq2SeqIterator(JManifest.load(str(d / "train.tsv")), JDataConfig(**over), texts,
+                           JDictionary.letters(), frame_hop=FRAME_HOP, frames_fn=frames, seed=3)
+    n_plan = len(jit._plan(1)) + len(jit._plan(2))
+    padded = 0
+    for got, want in zip(iter(it), iter(jit)):
+        assert sorted(want) == ["lengths", "prev_tokens", "source", "target_mask", "targets"]
+        zero = want["lengths"] == 0
+        padded += int(zero.sum())
+        want = dict(want, target_mask=np.where(zero[:, None], 0.0,
+                                               want["target_mask"]).astype(np.float32))
+        _assert_batches_equal(got, want)
+        assert got["targets"].shape[1] % 8 == 0
+        np.testing.assert_array_equal(got["prev_tokens"][:, 0], Dictionary.letters().eos())
+        n_plan -= 1
+        if n_plan == 0:
+            break
+    assert n_plan == 0 and it.state_dict() == jit.state_dict()
+    assert (padded > 0) == fixed_shapes
+
+
+def _lm_corpus(tmp_path, n_lines=60, seed=0):
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(30)]
+    lines = [" ".join(rng.choice(words, int(rng.integers(1, 12)))) for _ in range(n_lines)]
+    lines[5] = ""  # an empty line is skipped
+    lines[7] = "oov_word w1"
+    (tmp_path / "corpus.txt").write_text("\n".join(lines) + "\n")
+    d = Dictionary()
+    for w in words:
+        d.add_symbol(w)
+    d.save(str(tmp_path / "dict.txt"))
+    return tmp_path / "corpus.txt", tmp_path / "dict.txt"
+
+
+def test_lm_iterator_bit_identical_over_two_epochs(tmp_path):
+    """tokenize_corpus, TokenBlockDataset and LMIterator equal the JAX
+    package's: the flat ids, every block, the batches over two epochs (a
+    short tail block padded), the iterator state, and a resume from it."""
+    from unispeech_tpu.data import lm_dataset as jlm_data
+    from unispeech_tpu_torch.data import lm_dataset
+
+    corpus, dpath = _lm_corpus(tmp_path)
+    toks = lm_dataset.tokenize_corpus(str(corpus), Dictionary.load(str(dpath)))
+    jtoks = jlm_data.tokenize_corpus(str(corpus), JDictionary.load(str(dpath)))
+    np.testing.assert_array_equal(toks, jtoks)
+    assert toks.dtype == jtoks.dtype == np.int32 and (toks == 3).any()  # <unk>
+    ds, jds = lm_dataset.TokenBlockDataset(toks, 16), jlm_data.TokenBlockDataset(jtoks, 16)
+    assert len(ds) == len(jds) > 8
+    for i in range(len(ds)):
+        np.testing.assert_array_equal(ds[i], jds[i])
+    it = lm_dataset.LMIterator(ds, batch_size=4, padding_idx=1, seed=7)
+    jit = jlm_data.LMIterator(jds, batch_size=4, padding_idx=1, seed=7)
+    n = 2 * (len(ds) // 4)
+    stream, jstream = iter(it), iter(jit)
+    for k in range(n):
+        got, want = next(stream), next(jstream)
+        _assert_batches_equal(got, want)
+        np.testing.assert_array_equal(got["tokens"][:, 1:], got["targets"][:, :-1])
+        assert it.state_dict() == jit.state_dict()
+        if k == n // 2:
+            state = it.state_dict()
+            resumed = lm_dataset.LMIterator(ds, batch_size=4, padding_idx=1, seed=7)
+            resumed.load_state_dict(state)
+            after = next(iter(resumed))
+    want_after = next(iter(_resumed(jlm_data, jds, state)))
+    _assert_batches_equal(after, want_after)
+    with pytest.raises(ValueError):
+        next(iter(lm_dataset.LMIterator(ds, batch_size=len(ds) + 1, padding_idx=1)))
+
+
+def _resumed(mod, ds, state):
+    it = mod.LMIterator(ds, batch_size=4, padding_idx=1, seed=7)
+    it.load_state_dict(state)
+    return it
+
+
+@pytest.mark.parametrize("encoder", ["none", "byte"])
+def test_binarized_files_byte_identical_both_ways(tmp_path, encoder):
+    """data binarize-text of the port and of the JAX package write the same
+    .bin and .idx.npz bytes (through --encoder byte too), and each package's
+    MMapIndexedDataset reads the other's files to the same sentences."""
+    from unispeech_tpu.data.indexed_dataset import MMapIndexedDataset as JMMap
+    from unispeech_tpu_torch.data.indexed_dataset import MMapIndexedDataset
+
+    corpus, dpath = _lm_corpus(tmp_path)
+    if encoder == "byte":
+        from unispeech_tpu_torch.data.text_encoders import ByteEncoder
+
+        enc = ByteEncoder()
+        d = Dictionary()
+        for line in corpus.read_text().splitlines():
+            for tok in enc.encode(line).split():
+                d.add_symbol(tok)
+        dpath = tmp_path / "byte_dict.txt"
+        d.save(str(dpath))
+    for main, stem in ((data_cli, "port"), (jax_data_cli, "jax")):
+        main(["binarize-text", "--corpus", str(corpus), "--dict", str(dpath), "--out",
+              str(tmp_path / "bin" / stem), "--encoder", encoder])
+    for ext in (".bin", ".idx.npz"):
+        a = (tmp_path / "bin" / f"port{ext}").read_bytes()
+        assert a == (tmp_path / "bin" / f"jax{ext}").read_bytes(), ext
+    port, jx = MMapIndexedDataset(str(tmp_path / "bin" / "jax")), JMMap(str(tmp_path / "bin" / "port"))
+    assert len(port) == len(jx) == 59  # the empty line skipped
+    for i in range(len(port)):
+        np.testing.assert_array_equal(port[i], jx[i])
+    np.testing.assert_array_equal(port.flat, jx.flat)
+    assert port[0][-1] == Dictionary().eos()

@@ -160,11 +160,28 @@ def test_params_round_trip():
 
 
 def test_not_in_slice_raises():
-    """The GLU feed-forward is still not ported. Masking and dropout are:
-    they draw from an explicit generator and refuse to run without one."""
-    cfg = WavLMModelConfig.from_reference_dict(small_cfg_dict(activation_fn="glu"))
-    with pytest.raises(NotImplementedError):
-        WavLM(cfg)
+    """The GLU feed-forward (``fc1`` a Linear(d, 2F), ``a * silu(b)`` of its
+    halves, key ``fc1.linear.*``) against the JAX model, params carried by
+    from_jax both ways. Masking and dropout draw from an explicit generator
+    and refuse to run without one."""
+    cfg_dict = small_cfg_dict(activation_fn="glu")
+    jmodel, params, glu = build_pair(cfg_dict)
+    assert "encoder.layers.0.fc1.linear.weight" in glu.state_dict()
+    assert glu.state_dict()["encoder.layers.0.fc1.linear.weight"].shape == (2 * 192, 96)
+    rng = np.random.RandomState(11)
+    wav = rng.randn(2, 4000).astype(np.float32)
+    lengths = np.asarray([4000, 2600], np.int32)
+    jout = jax_extract(jmodel, params, wav, lengths)
+    out = glu.extract_features(torch.from_numpy(wav), lengths=torch.from_numpy(lengths))
+    close(out.x, jout.x)
+    enc = WavLMModelConfig.from_reference_dict(cfg_dict).encoder
+    back = jax_params_from_state_dict(glu.state_dict(), enc)
+    flat_a = jax.tree_util.tree_leaves_with_path(params)
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_a) == len(flat_b)
+    for path, leaf in flat_a:
+        np.testing.assert_array_equal(flat_b[path], leaf)
+
     model = WavLM(WavLMModelConfig.from_reference_dict(small_cfg_dict()))
     wav = torch.zeros(1, 4000)
     with pytest.raises(ValueError):
@@ -214,21 +231,124 @@ def test_training_forward_draws_from_the_generator():
     assert not torch.allclose(a, model(wav).x)
 
 
-def test_quant_noise_raises_in_training_only():
-    """iPQ quantization noise is not ported: an encoder that trains with
-    quant_noise_pq > 0 raises instead of training without the noise. Serving
-    is exact (the noise acts in training only): the same weights give the
-    same features as without the field."""
-    wav = torch.from_numpy(np.random.RandomState(6).randn(2, 4000).astype(np.float32))
-    plain = WavLM(WavLMModelConfig.from_reference_dict(small_cfg_dict()),
-                  generator=torch.Generator().manual_seed(0))
-    noisy = WavLM(WavLMModelConfig.from_reference_dict(small_cfg_dict(quant_noise_pq=0.1)))
-    noisy.load_state_dict(plain.state_dict(), strict=True)
-    with pytest.raises(NotImplementedError, match="quant_noise_pq"):
-        noisy(wav, deterministic=False, generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="quant_noise_pq"):
-        noisy(wav, mask=True, deterministic=False, generator=torch.Generator().manual_seed(0))
-    torch.testing.assert_close(noisy.extract_features(wav).x, plain.extract_features(wav).x,
+def _record_bernoulli(monkeypatch):
+    """The outputs of ``jax.random.bernoulli`` in program order (ordered
+    callbacks: unordered ones may arrive out of order under ``nn.scan``)."""
+    calls = []
+    real = jax.random.bernoulli
+
+    def wrap(*a, **k):
+        out = real(*a, **k)
+        jax.debug.callback(lambda v: calls.append(np.array(v)), out, ordered=True)
+        return out
+
+    monkeypatch.setattr(jax.random, "bernoulli", wrap)
+    return calls
+
+
+def _feed_quant_noise(monkeypatch, drops):
+    """The port's quant_noise_blocks returns JAX's recorded drops in order,
+    one per seed: a recompute (remat) of a seed gets its drop again."""
+    from unispeech_tpu_torch.models import encoder
+
+    queue = [torch.from_numpy(np.array(d)) for d in drops]
+    by_seed = {}
+
+    def fn(seed, n_blocks, out_features, p, device):
+        if seed not in by_seed:
+            by_seed[seed] = queue.pop(0)
+        d = by_seed[seed]
+        assert d.shape == (n_blocks, out_features)
+        return d.to(device)
+
+    monkeypatch.setattr(encoder, "quant_noise_blocks", fn)
+    return queue
+
+
+@pytest.mark.parametrize("block_size", [8, 4])
+def test_qndense_matches_jax(monkeypatch, block_size):
+    """QNDense at train time, JAX's recorded block mask fed to the port:
+    the output and the weight gradient agree (fp32, rtol 1e-5 / atol 1e-6;
+    the same products), and the kept weights are scaled by 1/(1-p)."""
+    from unispeech_tpu.models.encoder import QNDense
+    from unispeech_tpu_torch.models.encoder import QuantNoise, linear
+
+    p, nin, nout = 0.25, 32, 24
+    jm = QNDense(nout, p=p, block_size=block_size)
+    rng = np.random.RandomState(12)
+    x = rng.randn(3, 5, nin).astype(np.float32)
+    params = to_numpy_tree(jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"])
+    params["bias"] = (0.1 * rng.randn(nout)).astype(np.float32)
+    calls = _record_bernoulli(monkeypatch)
+    cot = rng.randn(3, 5, nout).astype(np.float32)
+    f = lambda prm: jnp.sum(jm.apply({"params": prm}, jnp.asarray(x), deterministic=False,
+                                     rngs={"dropout": jax.random.PRNGKey(5)}) * cot)
+    want_y = jm.apply({"params": params}, jnp.asarray(x), deterministic=False,
+                      rngs={"dropout": jax.random.PRNGKey(5)})
+    drop = calls[0]
+    monkeypatch.undo()
+    want_g = jax.grad(f)(params)
+    assert drop.shape == (nin // block_size, nout) and 0 < drop.mean() < 1
+    _feed_quant_noise(monkeypatch, [drop])
+    layer = torch.nn.Linear(nin, nout)
+    with torch.no_grad():
+        layer.weight.copy_(torch.from_numpy(params["kernel"].T.copy()))
+        layer.bias.copy_(torch.from_numpy(params["bias"]))
+    y = linear(torch.from_numpy(x), layer, torch.float32, QuantNoise(0, p, block_size))
+    (y * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(layer.weight.grad.numpy().T, np.asarray(want_g["kernel"]),
+                               rtol=1e-5, atol=1e-6)
+    kept = ~np.repeat(drop, block_size, axis=0)
+    np.testing.assert_array_equal(layer.weight.grad.numpy().T[~kept], 0.0)
+
+
+@pytest.mark.parametrize("activation", ["gelu", "glu"])
+def test_quant_noise_matches_jax(monkeypatch, activation):
+    """A WavLM encoder trained with iPQ noise (quant_noise_pq 0.1 on the
+    attention projections and the FFN linears; a GLU fc1 takes none):
+    with JAX's recorded block masks fed in, the training forward and the
+    gradients of every encoder parameter agree with JAX's (fp32, the
+    feature tolerance; gradients rtol 1e-4 / atol 1e-6 of their scale).
+    The port's own draws are a pure function of the generator. Serving is
+    exact: the noise acts in training only."""
+    cfg_dict = small_cfg_dict(quant_noise_pq=0.1, activation_fn=activation)
+    jmodel, params, model = build_pair(cfg_dict)
+    rng = np.random.RandomState(6)
+    wav = rng.randn(2, 4000).astype(np.float32)
+    lengths = np.asarray([4000, 3100], np.int32)
+    cot = rng.randn(2, 99, 96).astype(np.float32)
+    calls = _record_bernoulli(monkeypatch)
+    run = lambda p: jmodel.apply({"params": p}, jnp.asarray(wav), lengths=jnp.asarray(lengths),
+                                 deterministic=False, rngs={"dropout": jax.random.PRNGKey(4)})
+    want = run(params)
+    n_lin = 5 if activation == "glu" else 6
+    drops = list(calls)
+    assert len(drops) == 3 * n_lin
+    monkeypatch.undo()  # the same key draws the same masks in the gradient's run
+    jgrads = jax.grad(lambda p: jnp.sum(run(p).x * cot))(params)
+    _feed_quant_noise(monkeypatch, drops)
+    out = model(torch.from_numpy(wav), lengths=torch.from_numpy(lengths), deterministic=False,
+                generator=torch.Generator().manual_seed(0))
+    close(out.x.detach(), want.x)
+    (out.x * torch.from_numpy(cot)).sum().backward()
+    enc = WavLMModelConfig.from_reference_dict(cfg_dict).encoder
+    want_g = wavlm_state_dict_from_jax(to_numpy_tree(jgrads), enc)
+    for name, p in model.named_parameters():
+        if not name.startswith("encoder.layers."):
+            continue
+        w = want_g[name].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=1e-4,
+                                   atol=1e-6 * max(np.abs(w).max(), 1.0), err_msg=name)
+
+    monkeypatch.undo()  # the port's own draws
+    gen = lambda s: torch.Generator().manual_seed(s)
+    t = torch.from_numpy(wav)
+    a, b, c = (model(t, deterministic=False, generator=gen(s)).x for s in (0, 0, 1))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    plain = WavLM(WavLMModelConfig.from_reference_dict(small_cfg_dict(activation_fn=activation)))
+    plain.load_state_dict(model.state_dict(), strict=True)
+    torch.testing.assert_close(model.extract_features(t).x, plain.extract_features(t).x,
                                rtol=0, atol=0)
 
 

@@ -4,10 +4,7 @@ The port keeps its own copy (it imports nothing of the JAX package): the
 same dataclasses, field names and defaults, so a config built on either side
 compares equal under ``dataclasses.asdict``. Some fields name TPU-only
 choices (Pallas tiles, scan/remat); the port ignores those, since they do
-not change its math. A field that changes the math but is not ported yet
-raises ``NotImplementedError`` where it would act: ``activation_fn="glu"``
-when the layer is built, ``quant_noise_pq > 0`` when the encoder trains
-(serving such a model is exact: the noise acts in training only).
+not change its math.
 """
 
 from __future__ import annotations

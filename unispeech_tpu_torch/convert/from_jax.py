@@ -20,8 +20,11 @@ names of the JAX package's fairseq exporter (``final_proj*``,
 ``jax_params_from_wav2vec2_state_dict`` is its inverse.
 ``ctc_state_dict_from_jax`` carries a CTC fine-tune model (the backbone
 under ``wavlm.``, the ``proj`` head); ``jax_params_from_ctc_state_dict``
-is its inverse. ``jax_params_of`` is the training loop's export of a
-trained model.
+is its inverse. ``seq2seq_state_dict_from_jax`` carries a seq2seq model
+(the backbone under ``wavlm.``, ``enc_proj``, the decoder in fairseq's
+layout under ``decoder.``) and ``lm_state_dict_from_jax`` a TransformerLM
+(fairseq's LM layout less the ``decoder.`` prefix); each has its inverse.
+``jax_params_of`` is the training loop's export of a trained model.
 """
 
 from __future__ import annotations
@@ -130,8 +133,11 @@ def wavlm_state_dict_from_jax(params: Mapping, enc: EncoderConfig) -> Dict[str, 
             sd[pre + f"{ln}.weight"] = _np(layer[ln]["scale"])
             sd[pre + f"{ln}.bias"] = _np(layer[ln]["bias"])
         for fc in ("fc1", "fc2"):
-            sd[pre + f"{fc}.weight"] = _t(layer[fc]["kernel"])
-            sd[pre + f"{fc}.bias"] = _np(layer[fc]["bias"])
+            node, key = layer[fc], pre + fc
+            if "linear" in node:  # the GLU feed-forward's fc1
+                node, key = node["linear"], key + ".linear"
+            sd[key + ".weight"] = _t(node["kernel"])
+            sd[key + ".bias"] = _np(node["bias"])
     if "rel_attn_bias" in e:
         sd["encoder.layers.0.self_attn.relative_attention_bias.weight"] = _np(
             e["rel_attn_bias"])
@@ -178,7 +184,10 @@ def jax_params_from_state_dict(sd: Mapping[str, torch.Tensor], enc: EncoderConfi
         for ln in ("self_attn_layer_norm", "final_layer_norm"):
             layer[ln] = {"scale": s[pre + f"{ln}.weight"], "bias": s[pre + f"{ln}.bias"]}
         for fc in ("fc1", "fc2"):
-            layer[fc] = {"kernel": _t(s[pre + f"{fc}.weight"]), "bias": s[pre + f"{fc}.bias"]}
+            if pre + f"{fc}.linear.weight" in s:  # the GLU feed-forward's fc1
+                layer[fc] = {"linear": _dense_to_jax(s, pre + f"{fc}.linear")}
+            else:
+                layer[fc] = _dense_to_jax(s, pre + fc)
         layers.append(layer)
     e["layers"] = _stack_trees(layers)
     table = "encoder.layers.0.self_attn.relative_attention_bias.weight"
@@ -339,13 +348,146 @@ def jax_params_from_ctc_state_dict(sd: Mapping[str, torch.Tensor], enc: EncoderC
                      "bias": sd["proj.bias"].detach().cpu().float().numpy()}}
 
 
+def _ln_from_jax(sd: Dict, key: str, node: Mapping) -> None:
+    sd[key + ".weight"] = _np(node["scale"])
+    sd[key + ".bias"] = _np(node["bias"])
+
+
+def _ln_to_jax(s: Mapping, key: str) -> dict:
+    return {"scale": s[key + ".weight"], "bias": s[key + ".bias"]}
+
+
+def _n_layers(params: Mapping) -> int:
+    n = 0
+    while f"layer_{n}" in params:
+        n += 1
+    return n
+
+
+_DEC_LN = ("self_attn_layer_norm", "encoder_attn_layer_norm", "final_layer_norm")
+_LM_LN = ("self_attn_layer_norm", "final_layer_norm")
+
+
+def _embeddings_from_jax(sd: Dict, pre: str, params: Mapping) -> None:
+    sd[pre + "embed_tokens.weight"] = _np(params["embed_tokens"]["embedding"])
+    if "embed_positions" in params:
+        sd[pre + "embed_positions.weight"] = _np(params["embed_positions"]["embedding"])
+    if "layer_norm" in params:
+        _ln_from_jax(sd, pre + "layer_norm", params["layer_norm"])
+    if "embed_out" in params:
+        sd[pre + "embed_out"] = _np(params["embed_out"])
+
+
+def _embeddings_to_jax(s: Mapping, pre: str) -> dict:
+    out = {"embed_tokens": {"embedding": s[pre + "embed_tokens.weight"]}}
+    if pre + "embed_positions.weight" in s:
+        out["embed_positions"] = {"embedding": s[pre + "embed_positions.weight"]}
+    if pre + "layer_norm.weight" in s:
+        out["layer_norm"] = _ln_to_jax(s, pre + "layer_norm")
+    if pre + "embed_out" in s:
+        out["embed_out"] = s[pre + "embed_out"]
+    return out
+
+
+def decoder_state_dict_from_jax(dec: Mapping) -> Dict[str, torch.Tensor]:
+    """Port state dict of a seq2seq TransformerDecoder from its JAX params
+    (``layer_{i}`` as ``layers.{i}``)."""
+    out: Dict[str, np.ndarray] = {}
+    _embeddings_from_jax(out, "", dec)
+    for i in range(_n_layers(dec)):
+        layer, pre = dec[f"layer_{i}"], f"layers.{i}."
+        for attn in ("self_attn", "encoder_attn"):
+            for proj in _ATTN_PROJ:
+                _dense_from_jax(out, pre + f"{attn}.{proj}", layer[attn][proj])
+        for ln in _DEC_LN:
+            _ln_from_jax(out, pre + ln, layer[ln])
+        for fc in ("fc1", "fc2"):
+            _dense_from_jax(out, pre + fc, layer[fc])
+    return {k: torch.tensor(v) for k, v in out.items()}
+
+
+def seq2seq_state_dict_from_jax(params: Mapping, enc: EncoderConfig
+                                ) -> Dict[str, torch.Tensor]:
+    """Port state dict of a Seq2SeqModel from the JAX params (the backbone
+    under "wavlm", the decoder under ``decoder.``, ``enc_proj`` when
+    present)."""
+    sd = {"wavlm." + k: v for k, v in wavlm_state_dict_from_jax(params["wavlm"], enc).items()}
+    sd.update({"decoder." + k: v for k, v in decoder_state_dict_from_jax(params["decoder"]).items()})
+    if "enc_proj" in params:
+        proj: Dict[str, np.ndarray] = {}
+        _dense_from_jax(proj, "enc_proj", params["enc_proj"])
+        sd.update({k: torch.tensor(v) for k, v in proj.items()})
+    return sd
+
+
+def jax_params_from_seq2seq_state_dict(sd: Mapping[str, torch.Tensor],
+                                       enc: EncoderConfig) -> dict:
+    """Inverse of ``seq2seq_state_dict_from_jax``; the backbone's layers are
+    stacked under ``layers`` as ``nn.scan`` keeps them."""
+    s = {k: v.detach().cpu().float().numpy() for k, v in sd.items()}
+    backbone = {k[len("wavlm."):]: v for k, v in sd.items() if k.startswith("wavlm.")}
+    dec = _embeddings_to_jax(s, "decoder.")
+    i = 0
+    while f"decoder.layers.{i}.fc1.weight" in s:
+        pre = f"decoder.layers.{i}."
+        layer = {attn: {p: _dense_to_jax(s, pre + f"{attn}.{p}") for p in _ATTN_PROJ}
+                 for attn in ("self_attn", "encoder_attn")}
+        layer.update({ln: _ln_to_jax(s, pre + ln) for ln in _DEC_LN})
+        layer.update({fc: _dense_to_jax(s, pre + fc) for fc in ("fc1", "fc2")})
+        dec[f"layer_{i}"] = layer
+        i += 1
+    params = {"wavlm": jax_params_from_state_dict(backbone, enc), "decoder": dec}
+    if "enc_proj.weight" in s:
+        params["enc_proj"] = _dense_to_jax(s, "enc_proj")
+    return params
+
+
+def lm_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Port state dict of a TransformerLM from the JAX params (a layer's
+    projections under ``layers.{i}.self_attn.``)."""
+    out: Dict[str, np.ndarray] = {}
+    _embeddings_from_jax(out, "", params)
+    for i in range(_n_layers(params)):
+        layer, pre = params[f"layer_{i}"], f"layers.{i}."
+        for proj in _ATTN_PROJ:
+            _dense_from_jax(out, pre + f"self_attn.{proj}", layer[proj])
+        for ln in _LM_LN:
+            _ln_from_jax(out, pre + ln, layer[ln])
+        for fc in ("fc1", "fc2"):
+            _dense_from_jax(out, pre + fc, layer[fc])
+    return {k: torch.tensor(v) for k, v in out.items()}
+
+
+def jax_params_from_lm_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
+    """Inverse of ``lm_state_dict_from_jax``."""
+    s = {k: v.detach().cpu().float().numpy() for k, v in sd.items()}
+    params = _embeddings_to_jax(s, "")
+    i = 0
+    while f"layers.{i}.fc1.weight" in s:
+        pre = f"layers.{i}."
+        layer = {p: _dense_to_jax(s, pre + f"self_attn.{p}") for p in _ATTN_PROJ}
+        layer.update({ln: _ln_to_jax(s, pre + ln) for ln in _LM_LN})
+        layer.update({fc: _dense_to_jax(s, pre + fc) for fc in ("fc1", "fc2")})
+        params[f"layer_{i}"] = layer
+        i += 1
+    return params
+
+
 def jax_params_of(model: torch.nn.Module) -> dict:
     """The JAX params tree of a trained port model: a HubertPretrainModel
     or a Wav2Vec2PretrainModel (the backbone under "wavlm", the heads
-    beside it) or a CtcFinetuneModel (the backbone under "wavlm", ``proj``)."""
+    beside it), a CtcFinetuneModel (the backbone under "wavlm", ``proj``),
+    a Seq2SeqModel or a TransformerLM."""
     from unispeech_tpu_torch.models.ctc import CtcFinetuneModel
     from unispeech_tpu_torch.models.hubert import HubertPretrainModel
+    from unispeech_tpu_torch.models.lm import TransformerLM
+    from unispeech_tpu_torch.models.seq2seq import Seq2SeqModel
     from unispeech_tpu_torch.models.wav2vec2 import Wav2Vec2PretrainModel
+
+    if isinstance(model, Seq2SeqModel):
+        return jax_params_from_seq2seq_state_dict(model.state_dict(), model.wavlm.cfg.encoder)
+    if isinstance(model, TransformerLM):
+        return jax_params_from_lm_state_dict(model.state_dict())
 
     if isinstance(model, HubertPretrainModel):
         return jax_params_from_hubert_state_dict(model.state_dict(), model.pcfg)

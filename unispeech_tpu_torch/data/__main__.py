@@ -1,11 +1,14 @@
 """Data-prep CLI: ``python -m unispeech_tpu_torch.data <subcommand>``.
 
-  manifest   walk a directory of audio files into train.tsv / valid.tsv
-             (first line the root, then "relpath\\tnum_samples" rows)
+  manifest       walk a directory of audio files into train.tsv / valid.tsv
+                 (first line the root, then "relpath\\tnum_samples" rows)
+  binarize-text  tokenize a text corpus into the mmap format (<out>.bin,
+                 <out>.idx.npz) that train-lm reads, optionally through a
+                 text encoder (--encoder byte|char|bpe|sentencepiece)
 
 The JAX package's other data-prep subcommands (``libri-labels``,
-``resample``, ``cv-manifest``, ``binarize-text``) are not ported yet: they
-take any flags and raise ``NotImplementedError``.
+``resample``, ``cv-manifest``) are not ported yet: they take any flags and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import sys
 
 from unispeech_tpu_torch.data.manifest import audio_num_samples
 
-NOT_PORTED = ("libri-labels", "resample", "cv-manifest", "binarize-text")
+NOT_PORTED = ("libri-labels", "resample", "cv-manifest")
 
 
 def cmd_manifest(args) -> None:
@@ -45,6 +48,18 @@ def cmd_manifest(args) -> None:
     print(f"indexed {n} files -> {train_p} / {valid_p}", file=sys.stderr)
 
 
+def cmd_binarize_text(args) -> None:
+    from unispeech_tpu_torch.data.dictionary import Dictionary
+    from unispeech_tpu_torch.data.indexed_dataset import binarize_text
+    from unispeech_tpu_torch.data.text_encoders import get_text_encoder
+
+    d = Dictionary.load(args.dict)
+    enc = get_text_encoder(args.encoder, bpe_codes=args.bpe_codes, spm_model=args.spm_model)
+    n = binarize_text(args.corpus, d, args.out, append_eos=not args.no_append_eos,
+                      encode=None if enc is None else enc.encode)
+    print(f"binarized {n} sentences -> {args.out}.bin", file=sys.stderr)
+
+
 def _not_ported(args) -> None:
     raise NotImplementedError(f"{args.cmd} is not ported to PyTorch yet")
 
@@ -61,6 +76,19 @@ def main(argv=None) -> None:
     m.add_argument("--seed", type=int, default=42)
     m.add_argument("--path-must-contain", default=None)
     m.set_defaults(fn=cmd_manifest)
+
+    b = sub.add_parser("binarize-text")
+    b.add_argument("--corpus", required=True)
+    b.add_argument("--dict", required=True)
+    b.add_argument("--out", required=True, help="output stem (.bin/.idx.npz)")
+    b.add_argument("--no-append-eos", action="store_true")
+    b.add_argument("--encoder", default="none",
+                   choices=["none", "byte", "char", "bpe", "sentencepiece"],
+                   help="text encoder applied to each line before binarization")
+    b.add_argument("--bpe-codes", default=None, help="subword-nmt codes file (--encoder bpe)")
+    b.add_argument("--spm-model", default=None,
+                   help="sentencepiece model (--encoder sentencepiece)")
+    b.set_defaults(fn=cmd_binarize_text)
 
     for name in NOT_PORTED:
         sub.add_parser(name).set_defaults(fn=_not_ported)

@@ -7,11 +7,14 @@ is the whole resumable state. The same manifest, label files, transcripts
 and seed give the JAX package's batches bit for bit. ``FinetuneIterator``
 adds the CTC transcripts. ``lang_groups`` (per-language row indices, from
 ``multilingual.concat_manifests``) resample the rows of each epoch by
-language with ``multilang_alpha``. ``Seq2SeqIterator`` is not ported yet.
+language with ``multilang_alpha``. ``Seq2SeqIterator`` adds the
+teacher-forcing tokens of seq2seq fine-tuning.
 
-One reading differs on purpose: an iterator none of whose rows reaches
+Two readings differ on purpose: an iterator none of whose rows reaches
 ``min_sample_size`` raises ``ValueError`` when iterated, where the JAX
-package's plans empty epochs without end.
+package's plans empty epochs without end; and a seq2seq batch's zero-length
+padding rows have ``target_mask`` 0, where the JAX package gives each of
+them one eos target (ROADMAP 3.15).
 """
 
 from __future__ import annotations
@@ -295,4 +298,41 @@ class FinetuneIterator(PretrainIterator):
             lab_len[r] = len(l)
         batch["labels"] = labels
         batch["label_lengths"] = lab_len
+        return batch
+
+
+class Seq2SeqIterator(FinetuneIterator):
+    """Audio and teacher-forcing token batches for seq2seq fine-tuning.
+
+    Each batch gains ``prev_tokens`` (B, S) i32, the targets shifted right
+    behind an eos (fairseq conditions on </s> as bos), ``targets`` (B, S)
+    i32, the tokens then eos, and ``target_mask`` (B, S) f32 over them; pad
+    after, S the label length plus one rounded up to a multiple of 8. A
+    zero-length padding row keeps the eos of an empty transcript in
+    ``prev_tokens`` and ``targets`` but gets ``target_mask`` 0: it is no
+    utterance (the JAX package counts its eos as a target, ROADMAP 3.15).
+    A real utterance with an empty transcript keeps its eos target.
+    """
+
+    def _collate(self, idx, epoch, bi):
+        batch = super()._collate(idx, epoch, bi)
+        labels = batch.pop("labels")
+        lab_len = batch.pop("label_lengths")
+        B, S = labels.shape
+        S2 = int(np.ceil((S + 1) / 8) * 8)
+        eos, pad = self.dictionary.eos(), self.dictionary.pad()
+        tgt = np.full((B, S2), pad, np.int32)
+        prev = np.full((B, S2), pad, np.int32)
+        mask = np.zeros((B, S2), np.float32)
+        for r in range(B):
+            L = int(lab_len[r])
+            tgt[r, :L] = labels[r, :L]
+            tgt[r, L] = eos
+            prev[r, 0] = eos
+            prev[r, 1:L + 1] = labels[r, :L]
+            mask[r, :L + 1] = 1.0
+        mask[batch["lengths"] == 0] = 0.0
+        batch["targets"] = tgt
+        batch["prev_tokens"] = prev
+        batch["target_mask"] = mask
         return batch

@@ -93,10 +93,11 @@ class CtcFinetuneModel(nn.Module):
                          frame_lengths=frame_lengths, layers_dropped=out.layers_dropped)
 
 
-def load_pretrained_into(model: CtcFinetuneModel,
+def load_pretrained_into(model: nn.Module,
                          pretrained: Union[str, Mapping[str, torch.Tensor]]) -> None:
-    """Graft a pretrained backbone into ``model`` in place and drop the
-    pretraining heads (``final_proj``, ``label_embs_concat``, ...).
+    """Graft a pretrained backbone into the ``wavlm`` backbone of ``model``
+    (a CtcFinetuneModel, a Seq2SeqModel: any model with one) in place and
+    drop the pretraining heads (``final_proj``, ``label_embs_concat``, ...).
 
     ``pretrained`` is a state dict, with the backbone's keys at the top
     level (a HubertPretrainModel's) or under ``wavlm.`` (a fine-tune

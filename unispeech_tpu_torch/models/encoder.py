@@ -19,7 +19,9 @@ in both directions.
 
 Training (an encoder called with a ``generator``): dropout at the encoder
 input, on both residual branches, after the FFN activation and on the
-attention probabilities (in the fused kernel); layerdrop skips a layer's
+attention probabilities (in the fused kernel); with ``quant_noise_pq > 0``
+iPQ noise on the attention projections and the FFN linears (a GLU ``fc1``
+excepted, as in the JAX package); layerdrop skips a layer's
 compute (its parameters then get no gradient, which the train step turns
 into zeros); ``remat_ffn`` / ``remat_layers`` recompute the FFN / the whole
 layer in the backward via ``torch.utils.checkpoint``. Every random draw
@@ -46,10 +48,6 @@ from unispeech_tpu_torch.ops.kernels.conv_stack import conv_gelu_block
 from unispeech_tpu_torch.ops.kernels.flash_attention import fused_attention
 from unispeech_tpu_torch.ops.kernels.l1_frontend import l1_conv_with_stats
 from unispeech_tpu_torch.ops.rel_pos import compute_rel_pos_bias
-
-
-def not_in_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet")
 
 
 class _GradMultiply(torch.autograd.Function):
@@ -87,18 +85,68 @@ def get_activation(name: str):
         "swish": F.silu,
         "tanh": torch.tanh,
         "linear": lambda x: x,
+        "glu": lambda x: x,  # the GLU feed-forward gates inside GLULinear
     }
-    if name == "glu":
-        raise not_in_slice("the GLU feed-forward (activation_fn='glu')")
     if name not in acts:
         raise ValueError(f"unknown activation {name}")
     return acts[name]
 
 
-def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """Dense layer computed in ``dtype`` from fp32 parameters."""
+def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype,
+           noise: Optional["QuantNoise"] = None) -> torch.Tensor:
+    """Dense layer computed in ``dtype`` from fp32 parameters; with
+    ``noise`` the weight carries iPQ quantization noise."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    weight = layer.weight if noise is None else noise.apply(layer.weight)
+    return F.linear(x.to(dtype), weight.to(dtype), bias)
+
+
+def quant_noise_blocks(seed: int, n_blocks: int, out_features: int, p: float,
+                       device) -> torch.Tensor:
+    """(n_blocks, out_features) bool, True where the block of input
+    features of an output unit is dropped (probability ``p``): a pure
+    function of its arguments, so a recompute draws the mask it drew the
+    first time. The layout is the JAX package's draw (inputs first)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return torch.rand((n_blocks, out_features), generator=gen, device=device) < p
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantNoise:
+    """iPQ quantization noise of one linear in one training step: each
+    output unit drops ``block_size``-wide blocks of its inputs with
+    probability ``p``, and the whole weight is scaled by 1 / (1 - p)."""
+
+    seed: int
+    p: float
+    block_size: int
+
+    def apply(self, weight: torch.Tensor) -> torch.Tensor:  # (out, in)
+        out_f, in_f = weight.shape
+        if in_f % self.block_size:
+            raise ValueError(f"{in_f} input features are not a multiple of the "
+                             f"quant-noise block {self.block_size}")
+        drop = quant_noise_blocks(self.seed, in_f // self.block_size, out_f, self.p,
+                                  weight.device)
+        mask = drop.repeat_interleave(self.block_size, dim=0).t()
+        return torch.where(mask, torch.zeros((), dtype=weight.dtype, device=weight.device),
+                           weight) / (1.0 - self.p)
+
+
+class GLULinear(nn.Module):
+    """GLU feed-forward ``a * silu(b)`` of the two halves of one
+    Linear(d, 2 * features) (child ``linear``: key ``fc1.linear.weight``)."""
+
+    def __init__(self, d: int, features: int):
+        super().__init__()
+        self.features = features
+        self.linear = nn.Linear(d, 2 * features)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        y = linear(x, self.linear, dtype)
+        a, b = y[..., :self.features], y[..., self.features:]
+        return a * F.silu(b)
 
 
 class Fp32LayerNorm(nn.Module):
@@ -365,15 +413,18 @@ class SelfAttention(nn.Module):
         if has_rel_table:
             self.relative_attention_bias = nn.Embedding(cfg.num_buckets, H)
 
-    def forward(self, x, position_bias, key_padding_mask, attn_mask=None, dropout_seed=None):
+    def forward(self, x, position_bias, key_padding_mask, attn_mask=None, dropout_seed=None,
+                noise=None):
         """``dropout_seed`` (1-element int64 on x's device) turns on the
-        attention dropout of the config."""
+        attention dropout of the config; ``noise`` maps the projections'
+        names to their ``QuantNoise``."""
         B, T, D = x.shape
         H, hd, hq = self.num_heads, self.head_dim, self.qk_head_dim
         rate = self.cfg.attention_dropout if dropout_seed is not None else 0.0
-        q = linear(x, self.q_proj, self.dtype).view(B, T, H, hq)
-        k = linear(x, self.k_proj, self.dtype).view(B, T, H, hq)
-        v = linear(x, self.v_proj, self.dtype).view(B, T, H, hd)
+        noise = noise or {}
+        q = linear(x, self.q_proj, self.dtype, noise.get("q_proj")).view(B, T, H, hq)
+        k = linear(x, self.k_proj, self.dtype, noise.get("k_proj")).view(B, T, H, hq)
+        v = linear(x, self.v_proj, self.dtype, noise.get("v_proj")).view(B, T, H, hd)
         gate = None
         if position_bias is not None and self.cfg.gru_rel_pos:
             gate = rel_pos_gate(x, self.grep_linear.weight.t(), self.grep_linear.bias,
@@ -394,18 +445,24 @@ class SelfAttention(nn.Module):
             out = multihead_attention(q, k, v, bias=bias,
                                       key_padding_mask=key_padding_mask,
                                       dropout_rate=rate, dropout_seed=dropout_seed)
-        return linear(out.reshape(B, T, D), self.out_proj, self.dtype)
+        return linear(out.reshape(B, T, D), self.out_proj, self.dtype, noise.get("out_proj"))
+
+
+# the linears iPQ noise acts on, in the order a layer draws their seeds
+QUANT_NOISE_LINEARS = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")
 
 
 @dataclasses.dataclass
 class LayerSeeds:
     """A layer's random draws in training: the attention dropout seed
     (1-element int64 on the device, or None), the seeds of the two residual
-    dropouts and of the activation dropout (ints, or None)."""
+    dropouts and of the activation dropout (ints, or None), and the iPQ
+    noise of each noisy linear by name."""
 
     attention: Optional[torch.Tensor]
     residual: Tuple[Optional[int], Optional[int]]
     activation: Optional[int]
+    noise: Optional[dict] = None
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -419,15 +476,20 @@ class TransformerEncoderLayer(nn.Module):
         self.act = get_activation(cfg.activation_fn)
         self.self_attn = SelfAttention(cfg, dtype, has_rel_table)
         self.self_attn_layer_norm = Fp32LayerNorm(D, cfg.layer_norm_eps)
-        self.fc1 = nn.Linear(D, F_)
+        self.glu = cfg.activation_fn == "glu"
+        self.fc1 = GLULinear(D, F_) if self.glu else nn.Linear(D, F_)
         self.fc2 = nn.Linear(F_, D)
         self.final_layer_norm = Fp32LayerNorm(D, cfg.layer_norm_eps)
 
-    def _ffn(self, h, act_seed=None):
-        h = self.act(linear(h, self.fc1, self.dtype))
+    def _ffn(self, h, act_seed=None, noise=None):
+        noise = noise or {}
+        if self.glu:
+            h = self.fc1(h, self.dtype)
+        else:
+            h = self.act(linear(h, self.fc1, self.dtype, noise.get("fc1")))
         if act_seed is not None:
             h = seed_dropout(h, act_seed, self.cfg.activation_dropout)
-        return linear(h, self.fc2, self.dtype)
+        return linear(h, self.fc2, self.dtype, noise.get("fc2"))
 
     def forward(self, x, position_bias, key_padding_mask, attn_mask=None,
                 seeds: Optional[LayerSeeds] = None):
@@ -439,13 +501,14 @@ class TransformerEncoderLayer(nn.Module):
             return h if seed is None else seed_dropout(h, seed, cfg.dropout)
 
         attn = lambda h: self.self_attn(h, position_bias, key_padding_mask, attn_mask,
-                                        seeds.attention)
+                                        seeds.attention, seeds.noise)
         if cfg.remat_ffn and not cfg.remat_layers and torch.is_grad_enabled():
             # recompute fc1 + activation in the backward instead of keeping the
-            # (B, T, F) activation; the seed makes the recompute draw the same mask
-            ffn = lambda h: checkpoint(self._ffn, h, seeds.activation, use_reentrant=False)
+            # (B, T, F) activation; the seeds make the recompute draw the same masks
+            ffn = lambda h: checkpoint(self._ffn, h, seeds.activation, seeds.noise,
+                                       use_reentrant=False)
         else:
-            ffn = lambda h: self._ffn(h, seeds.activation)
+            ffn = lambda h: self._ffn(h, seeds.activation, seeds.noise)
         r1, r2 = seeds.residual
         if cfg.layer_norm_first:
             x = x + drop(attn(self.self_attn_layer_norm(x)), r1)
@@ -484,8 +547,6 @@ class TransformerEncoder(nn.Module):
         """With ``generator`` (a CPU torch.Generator) the encoder trains:
         dropout and layerdrop draw from it; without, it is deterministic."""
         cfg = self.cfg
-        if generator is not None and cfg.quant_noise_pq > 0.0:
-            raise not_in_slice("iPQ quantization noise (quant_noise_pq > 0) in training")
         if padding_mask is not None:
             x = x.masked_fill(padding_mask[..., None], 0.0)
         x = x + self.pos_conv(x)
@@ -512,6 +573,17 @@ class TransformerEncoder(nn.Module):
                     (opt(cfg.dropout, host[j]), opt(cfg.dropout, host[j + 1])),
                     opt(cfg.activation_dropout, host[j + 2]))
                 keep[i] = not (cfg.encoder_layerdrop > 0.0 and u_drop[i] <= cfg.encoder_layerdrop)
+            if cfg.quant_noise_pq > 0.0:
+                # drawn after the other seeds, so a model without the noise
+                # draws what it drew before the noise was ported
+                names = [n for n in QUANT_NOISE_LINEARS
+                         if not (n == "fc1" and cfg.activation_fn == "glu")]
+                qn = draw_seeds(generator, len(names) * n_layers).tolist()
+                for i in range(n_layers):
+                    layer_seeds[i].noise = {
+                        n: QuantNoise(qn[i * len(names) + j], cfg.quant_noise_pq,
+                                      cfg.quant_noise_pq_block_size)
+                        for j, n in enumerate(names)}
 
         position_bias = None
         if cfg.relative_position_embedding:

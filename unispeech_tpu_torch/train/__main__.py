@@ -12,12 +12,19 @@
   finetune-ctc      CTC fine-tuning on letter transcripts, from a
                     pretrained params .npz (``--w2v-path``), with valid-time
                     WER and checkpoint selection by ``--best-metric``
+  finetune-seq2seq  seq2seq fine-tuning (the backbone and a Transformer
+                    decoder, label-smoothed cross-entropy), from a
+                    pretrained params .npz, with valid-time greedy WER
+  train-lm          a Transformer LM on a text corpus or a binarized one
+                    (``data binarize-text``), for ``decode --decoder
+                    neural``; writes ``lm_config.json`` in the checkpoint
+                    directory and ``<stem>.json`` beside ``--export-params``
 
 The arguments are the JAX CLI's, plus ``--device`` (default cuda; the CPU
-only when ``--device cpu`` is given). Not ported yet, raising
-``NotImplementedError``: tensor parallelism and FSDP (``--n-model > 1``,
-``--fsdp``), the multi-host flags, and the subcommands finetune-seq2seq and
-train-lm (they take any flags).
+only when ``--device cpu`` is given). train-lm runs in bf16 whatever the
+flags (``--bf16`` is a store_true defaulting to true, as in the JAX CLI).
+Not ported yet, raising ``NotImplementedError``: tensor parallelism and
+FSDP (``--n-model > 1``, ``--fsdp``) and the multi-host flags.
 """
 
 from __future__ import annotations
@@ -30,7 +37,6 @@ import sys
 
 import torch
 
-NOT_PORTED = ("finetune-seq2seq", "train-lm")
 NO_EFFECT = " (an XLA compile choice of the JAX package: accepted, no effect here)"
 
 
@@ -109,13 +115,13 @@ def _loop_cfg(args):
         n_model=args.n_model,
         fsdp=args.fsdp,
         tensorboard_dir=args.tensorboard_dir,
-        wandb_project=args.wandb_project,
-        azureml=args.azureml,
+        wandb_project=getattr(args, "wandb_project", None),
+        azureml=getattr(args, "azureml", False),
         accum_steps=args.accum_steps,
-        inner_steps=args.inner_steps,
+        inner_steps=getattr(args, "inner_steps", 1),
         export_params=args.export_params,
         best_metric=getattr(args, "best_metric", None) or "loss_avg",
-        hang_timeout_s=args.hang_timeout,
+        hang_timeout_s=getattr(args, "hang_timeout", 0.0),
     )
 
 
@@ -289,8 +295,115 @@ def cmd_finetune_ctc(args) -> None:
                  device=args.device, data_state=data, **valid_kw)
 
 
-def _not_ported(args) -> None:
-    raise NotImplementedError(f"{args.cmd} is not ported to PyTorch yet")
+def cmd_finetune_seq2seq(args) -> None:
+    from unispeech_tpu_torch.configs import MaskConfig
+    from unispeech_tpu_torch.data.dataset import Seq2SeqIterator
+    from unispeech_tpu_torch.data.dictionary import Dictionary
+    from unispeech_tpu_torch.data.manifest import Manifest
+    from unispeech_tpu_torch.models.ctc import load_pretrained_into
+    from unispeech_tpu_torch.models.seq2seq import (
+        Seq2SeqConfig,
+        Seq2SeqDecoderConfig,
+        Seq2SeqModel,
+    )
+    from unispeech_tpu_torch.train.loop import run_training
+    from unispeech_tpu_torch.train.optim import OptimConfig
+    from unispeech_tpu_torch.train.tasks import (
+        make_seq2seq_loss_fn,
+        make_seq2seq_valid_decode_fn,
+    )
+
+    loop_cfg = _loop_cfg(args)  # raises for the mesh options not ported
+    d = Dictionary.load(args.dict) if args.dict else Dictionary.letters()
+    enc = _encoder(args, relative_position_embedding=not args.no_rel_pos,
+                   gru_rel_pos=not args.no_rel_pos)
+    dec = Seq2SeqDecoderConfig(vocab_size=len(d), embed_dim=args.decoder_embed_dim,
+                               ffn_embed_dim=args.decoder_ffn_dim, layers=args.decoder_layers,
+                               heads=args.decoder_heads, padding_idx=d.pad())
+    if args.decoder_json:
+        dec = dataclasses.replace(dec, **json.loads(args.decoder_json))
+    cfg = Seq2SeqConfig(encoder=enc, decoder=dec, apply_mask=True,
+                        time_mask=MaskConfig(mask_prob=args.mask_prob, mask_length=10),
+                        freeze_finetune_updates=args.freeze_finetune_updates)
+    model = Seq2SeqModel(cfg, dtype=torch.bfloat16 if args.bf16 else torch.float32,
+                         generator=torch.Generator().manual_seed(args.seed))
+    if args.w2v_path:
+        # a checkpoint in --checkpoint-dir, if any, replaces these weights
+        load_pretrained_into(model, args.w2v_path)
+    texts = pathlib.Path(args.transcripts).read_text().splitlines()
+    data = Seq2SeqIterator(Manifest.load(args.manifest), _data_cfg(args), texts, d,
+                           seed=args.seed)
+    valid_kw = {}
+    if args.valid_manifest and args.valid_transcripts:
+        vman = Manifest.load(args.valid_manifest)
+        vtexts = pathlib.Path(args.valid_transcripts).read_text().splitlines()
+
+        def valid_batches_fn():
+            return Seq2SeqIterator(vman, _data_cfg(args), vtexts, d,
+                                   seed=args.seed).epoch_batches(1)
+
+        valid_kw = dict(
+            valid_batches_fn=valid_batches_fn,
+            eval_loss_fn=make_seq2seq_loss_fn(model, label_smoothing=args.label_smoothing,
+                                              deterministic=True),
+            valid_decode_fn=make_seq2seq_valid_decode_fn(
+                model, d, max_len=args.valid_decode_max_len,
+                post_process_symbol=args.post_process))
+    optim = OptimConfig(lr=args.lr, warmup_steps=args.warmup_steps,
+                        total_steps=args.max_updates, clip_norm=args.clip_norm,
+                        stacked_update=args.stacked_optimizer, schedule="tri_stage",
+                        hold_steps=args.max_updates * 4 // 10)
+    run_training(model, make_seq2seq_loss_fn(model, label_smoothing=args.label_smoothing),
+                 optim, iter(data), loop_cfg, device=args.device, data_state=data, **valid_kw)
+
+
+LM_CONFIG_KEYS = ("vocab_size", "embed_dim", "ffn_dim", "layers", "heads", "dropout",
+                  "padding_idx", "max_positions", "learned_pos", "normalize_before",
+                  "share_input_output_embed")
+
+
+def cmd_train_lm(args) -> None:
+    import os
+
+    from unispeech_tpu_torch.data.dictionary import Dictionary
+    from unispeech_tpu_torch.data.lm_dataset import (
+        LMIterator,
+        TokenBlockDataset,
+        tokenize_corpus,
+    )
+    from unispeech_tpu_torch.models.lm import TransformerLM, TransformerLMConfig
+    from unispeech_tpu_torch.train.loop import run_training
+    from unispeech_tpu_torch.train.optim import OptimConfig
+    from unispeech_tpu_torch.train.tasks import make_lm_loss_fn
+
+    loop_cfg = _loop_cfg(args)  # raises for the mesh options not ported
+    d = Dictionary.load(args.dict)
+    cfg = TransformerLMConfig(vocab_size=len(d), embed_dim=args.embed_dim, ffn_dim=args.ffn_dim,
+                              layers=args.layers, heads=args.heads, padding_idx=d.pad(),
+                              max_positions=max(args.block_size * 2, 2048))
+    model = TransformerLM(cfg, dtype=torch.bfloat16 if args.bf16 else torch.float32,
+                          generator=torch.Generator().manual_seed(args.seed))
+    if args.corpus.endswith(".bin") or os.path.exists(args.corpus + ".idx.npz"):
+        from unispeech_tpu_torch.data.indexed_dataset import MMapIndexedDataset
+
+        stem = args.corpus[:-4] if args.corpus.endswith(".bin") else args.corpus
+        tokens = MMapIndexedDataset(stem).flat
+    else:
+        tokens = tokenize_corpus(args.corpus, d)
+    data = LMIterator(TokenBlockDataset(tokens, args.block_size),
+                      batch_size=args.batch_size or 32, padding_idx=d.pad(), seed=args.seed)
+    # decode --decoder neural reads the config from <stem>.json beside the
+    # export, or from lm_config.json in the checkpoint directory
+    cfg_json = {k: getattr(cfg, k) for k in LM_CONFIG_KEYS}
+    os.makedirs(args.checkpoint_dir, exist_ok=True)
+    pathlib.Path(args.checkpoint_dir, "lm_config.json").write_text(json.dumps(cfg_json))
+    if args.export_params:
+        pathlib.Path(os.path.splitext(args.export_params)[0] + ".json").write_text(
+            json.dumps(cfg_json))
+    optim = OptimConfig(lr=args.lr, warmup_steps=args.warmup_steps,
+                        total_steps=args.max_updates, clip_norm=args.clip_norm)
+    run_training(model, make_lm_loss_fn(model, d.pad()), optim, iter(data), loop_cfg,
+                 device=args.device, data_state=data)
 
 
 def main(argv=None) -> None:
@@ -355,16 +468,64 @@ def main(argv=None) -> None:
     fc.add_argument("--validate-interval-updates", type=int, default=None)
     fc.set_defaults(fn=cmd_finetune_ctc)
 
-    for name in NOT_PORTED:
-        sub.add_parser(name).set_defaults(fn=_not_ported)
+    fs = sub.add_parser("finetune-seq2seq")
+    _common(fs)
+    fs.add_argument("--transcripts", required=True,
+                    help="one letter-format line per manifest row")
+    fs.add_argument("--dict", default=None, help="target dictionary (letters by default)")
+    fs.add_argument("--w2v-path", default=None, help="pretrained params .npz")
+    fs.add_argument("--mask-prob", type=float, default=0.5)
+    fs.add_argument("--freeze-finetune-updates", type=int, default=10_000)
+    fs.add_argument("--no-rel-pos", action="store_true")
+    fs.add_argument("--label-smoothing", type=float, default=0.1)
+    fs.add_argument("--decoder-embed-dim", type=int, default=768)
+    fs.add_argument("--decoder-ffn-dim", type=int, default=3072)
+    fs.add_argument("--decoder-layers", type=int, default=6)
+    fs.add_argument("--decoder-heads", type=int, default=4)
+    fs.add_argument("--decoder-json", default=None,
+                    help="JSON dict of Seq2SeqDecoderConfig overrides")
+    fs.add_argument("--valid-transcripts", default=None,
+                    help="dev transcripts; with --valid-manifest, greedy WER/UER at each "
+                         "validation")
+    fs.add_argument("--valid-decode-max-len", type=int, default=128)
+    fs.add_argument("--best-metric", default="loss_avg", choices=["loss_avg", "wer", "uer"])
+    fs.add_argument("--post-process", default="letter")
+    fs.add_argument("--validate-interval-updates", type=int, default=None)
+    fs.set_defaults(fn=cmd_finetune_seq2seq)
 
-    # the subcommands not ported yet take any flags and raise
-    args, rest = parser.parse_known_args(argv)
-    if rest and args.fn is not _not_ported:
-        parser.error("unrecognized arguments: " + " ".join(rest))
-    if args.fn is not _not_ported and any(
-            v is not None for v in (args.coordinator_address, args.num_processes,
-                                    args.process_id)):
+    lm = sub.add_parser("train-lm")
+    lm.add_argument("--corpus", required=True,
+                    help="tokenized text file, or a binarized stem / .bin")
+    lm.add_argument("--dict", required=True, help="word/subword dictionary")
+    lm.add_argument("--block-size", type=int, default=128)
+    lm.add_argument("--batch-size", type=int, default=32)
+    lm.add_argument("--embed-dim", type=int, default=512)
+    lm.add_argument("--ffn-dim", type=int, default=2048)
+    lm.add_argument("--layers", type=int, default=6)
+    lm.add_argument("--heads", type=int, default=8)
+    lm.add_argument("--checkpoint-dir", default="checkpoints")
+    lm.add_argument("--max-updates", type=int, default=50_000)
+    lm.add_argument("--lr", type=float, default=5e-4)
+    lm.add_argument("--warmup-steps", type=int, default=4_000)
+    lm.add_argument("--clip-norm", type=float, default=0.0)
+    lm.add_argument("--seed", type=int, default=1)
+    lm.add_argument("--log-interval", type=int, default=100)
+    lm.add_argument("--save-interval-updates", type=int, default=10_000)
+    lm.add_argument("--n-model", type=int, default=1, help="(only 1 is ported)")
+    lm.add_argument("--fsdp", action="store_true", help="(not ported)")
+    lm.add_argument("--bf16", action="store_true", default=True)
+    lm.add_argument("--tensorboard-dir", default=None)
+    lm.add_argument("--accum-steps", type=int, default=1)
+    lm.add_argument("--export-params", default=None)
+    lm.add_argument("--coordinator-address", default=None, help="not ported")
+    lm.add_argument("--num-processes", type=int, default=None, help="not ported")
+    lm.add_argument("--process-id", type=int, default=None, help="not ported")
+    lm.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    lm.set_defaults(fn=cmd_train_lm)
+
+    args = parser.parse_args(argv)
+    if any(v is not None for v in (args.coordinator_address, args.num_processes,
+                                   args.process_id)):
         raise NotImplementedError("multi-host training is not ported to PyTorch yet")
     args.fn(args)
 

@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``train/tasks.py`` (``make_hubert_loss_fn``,
 ``make_wav2vec2_loss_fn``, ``make_ctc_finetune_loss_fn``,
-``make_ctc_valid_decode_fn``):
+``make_ctc_valid_decode_fn``, ``make_seq2seq_loss_fn``,
+``make_seq2seq_valid_decode_fn``, ``make_lm_loss_fn``):
 ``loss_fn(batch, generator, step)`` returns (loss sum, sample_size,
 metrics) of the model it binds (JAX passes the params; here the model holds
 them).
@@ -159,3 +160,71 @@ def make_ctc_valid_decode_fn(model: CtcFinetuneModel, dictionary,
                 "uer_errs": float(sc.c_errs), "uer_len": float(sc.c_len)}
 
     return decode_fn
+
+
+def make_seq2seq_loss_fn(model, label_smoothing: float = 0.1, deterministic: bool = False):
+    """Seq2seq fine-tuning objective: label-smoothed cross-entropy summed
+    over the valid targets, normalised by their count.
+
+    batch: {"source" (B, n), "lengths" (B,), "prev_tokens" (B, S),
+    "targets" (B, S), "target_mask" (B, S), optional "boundary_mask" (B, T)
+    precomputed time mask}. ``metrics`` gains ``layers_dropped``."""
+    from unispeech_tpu_torch.models.seq2seq import cross_entropy_loss
+
+    def loss_fn(batch, generator, step):
+        out = model(batch["source"], batch["prev_tokens"], batch.get("lengths"),
+                    deterministic=deterministic, step=step, generator=generator,
+                    boundary_mask=batch.get("boundary_mask"))
+        loss, ntokens, metrics = cross_entropy_loss(out.logits, batch["targets"],
+                                                    batch["target_mask"], label_smoothing)
+        metrics["nsentences"] = torch.tensor(float(batch["source"].shape[0]))
+        metrics["layers_dropped"] = out.layers_dropped
+        return loss, ntokens, metrics
+
+    return loss_fn
+
+
+def make_seq2seq_valid_decode_fn(model, dictionary, max_len: int = 128,
+                                 post_process_symbol: str = "letter"):
+    """Valid-time greedy decode and WER/UER sums of seq2seq fine-tuning.
+    Zero-length padding rows are no utterances and are not scored (the JAX
+    package scores their decode against an empty reference, ROADMAP
+    3.15)."""
+    from unispeech_tpu_torch.decode.wer import WerScorer, post_process
+    from unispeech_tpu_torch.models.seq2seq import greedy_decode, strip_eos
+
+    eos = dictionary.eos()  # fairseq conditions on </s> as bos too
+
+    def decode_fn(state, batch):
+        lengths = batch.get("lengths")
+        ids = greedy_decode(model, batch["source"], lengths, eos, eos,
+                            max_len=max_len).cpu().numpy()
+        tgts = batch["targets"].cpu().numpy()
+        tmask = batch["target_mask"].cpu().numpy()
+        rows = range(len(ids)) if lengths is None else \
+            (lengths.cpu().numpy() > 0).nonzero()[0]
+        sc = WerScorer()
+        for b in rows:
+            hyp = post_process(dictionary.string(strip_eos(ids[b].tolist(), eos)),
+                               post_process_symbol)
+            L = int(tmask[b].sum()) - 1  # the eos terminator
+            ref = post_process(dictionary.string(tgts[b, :max(L, 0)].tolist()),
+                               post_process_symbol)
+            sc.add(hyp, ref)
+        return {"wer_errs": float(sc.w_errs), "wer_len": float(sc.w_len),
+                "uer_errs": float(sc.c_errs), "uer_len": float(sc.c_len)}
+
+    return decode_fn
+
+
+def make_lm_loss_fn(model, padding_idx: int):
+    """Next-token cross-entropy of a TransformerLM, dropout on, summed over
+    the non-pad targets. batch: {"tokens" (B, S), "targets" (B, S)}."""
+    from unispeech_tpu_torch.models.lm import lm_loss
+
+    def loss_fn(batch, generator, step):
+        logits = model(batch["tokens"], deterministic=False, generator=generator)
+        loss, n_tokens = lm_loss(logits, batch["targets"], padding_idx)
+        return loss, n_tokens, {"loss": loss, "sample_size": n_tokens, "ntokens": n_tokens}
+
+    return loss_fn
