@@ -115,6 +115,34 @@ Phases, one line each (any failure raises and exits non-zero):
              update 2, resumed to 4; then pretrain-hubert --arch large --sat
              on the pipeline's MFCC labels for 2 updates; finite losses, the
              resume, every kernel family launched
+    convert  WavLM-Large as verification --arch large builds it (seed 0)
+             written as a reference .pt (the state dict under "model") and
+             read back through load_reference_checkpoint and
+             wavlm_state_dict_from_reference: a strict load, every tensor
+             equal; the same for a fairseq CTC checkpoint of that backbone
+             (w2v_encoder.w2v_model., w2v_encoder.proj) through
+             ctc_state_dict_from_fairseq, and its backbone through
+             strip_w2v_prefix; then the .npz files the speaker CLIs read
+             (the Large and Base+ backbones in the JAX layout, seed-0 ECAPA
+             heads, a seed-0 diarization head)
+    speaker  python -m unispeech_tpu_torch.downstream.verification --arch
+             large, in-process, on 24 synthesised wav files of 3-20 s (6
+             speakers) and 48 trials (24 same-file), batches of 8: launches
+             per batch forward (L1 1 without the sums, conv 12, attention
+             24), every trial scored and finite, same-file cosines >= 0.999,
+             the most padded file alone against its batch row within rel L2
+             5e-2, the ECAPA head on the card against the CPU (fp32, 1e-4 of
+             the output's scale), seconds per call, trials/s, peak memory;
+             the same with --arch base (Base+, the L1 with its sums: 1, 7,
+             12); then downstream.diarize --arch large on recordings of 30,
+             90 and 240 s of 2-3 speakers in turns, against their reference
+             RTTM (chunks of 2000 frames, median width 11): launches per
+             recording, frame counts, parsed RTTMs, a finite DER, peak
+             memory; the attention kernel at the 240 s length (T 11,999,
+             H*T*S > 2^31 bias elements) on its first and last 256 query
+             rows against the plain version (1 bf16 ulp); the 90 s
+             backbone's kernel path against its plain path (5e-2); the
+             diarization head on the card against the CPU on one chunk
   9 vpu      the elementwise micro-benchmark's entry point
              (python -m unispeech_tpu_torch.scripts.exp_vpu_micro) at
              (6, 49152, 512) bf16 with launch counts; each of its seven
@@ -129,9 +157,11 @@ Phases, one line each (any failure raises and exits non-zero):
              fine-tuning batch (16 heads); the attention forward and backward
              without bias on that batch with dropout (rows 1nLp, 2nLp, per
              w2v_train step); each kernel family's launches per frozen and
-             unfrozen fine-tuning step (CTC and seq2seq); audio-seconds per
-             second of the forward, of the train steps, of the fine-tuning
-             steps and of the UniSpeech and UniSpeech-SAT steps
+             unfrozen fine-tuning step (CTC and seq2seq), per verification
+             batch and per diarized recording; audio-seconds per second of
+             the forward, of the train steps, of the fine-tuning steps and
+             of the UniSpeech and UniSpeech-SAT steps; the speaker CLIs'
+             seconds per call, trials/s, DER and peak memory
 
 The line before the last is the kernels JSON, the last the device JSON.
 """
@@ -139,6 +169,7 @@ The line before the last is the kernels JSON, the last the device JSON.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -2414,6 +2445,427 @@ def w2v_pipeline_phase(counters, tmp):
     shutil.rmtree(sat_ckpt, ignore_errors=True)
 
 
+# the speaker workload: verification trials and diarized recordings
+SPK_FILES, SPK_SECONDS, SPK_TRIALS, SPK_VOICES = 24, (3.0, 20.0), 48, 6
+DIARIZE_SECONDS = (30, 90, 240)  # 240 s: a CALLHOME-length recording, T = 11,999
+CALLHOME_ROWS = 256  # query rows held at each end of its attention
+FWD_COUNTERS = ("l1_frontend", "conv_stack", "flash_attention")
+# kernels rows of the speaker path: (index in a Large forward's launch
+# counts, index in a Base+ forward's)
+SPEAKER_ROWS = {"l1_conv_with_stats": (None, 0), "l1_conv_with_stats.no_sums": (0, None),
+                "conv_gelu_block": (1, 1), "fused_attention": (2, 2)}
+
+
+def voice(rng, v: int, n: int) -> np.ndarray:
+    """n samples of synthetic speaker v: a harmonic series on its own pitch
+    at a syllable-rate loudness, over noise low-passed per speaker."""
+    t = np.arange(n) / SAMPLE_RATE
+    f0 = 90.0 + 35.0 * v
+    tone = sum(np.sin(2 * np.pi * f0 * h * t + rng.uniform(0, 2 * np.pi)) / h
+               for h in range(1, 6))
+    env = 0.6 + 0.4 * np.sin(2 * np.pi * (2.5 + 0.5 * (v % 3)) * t) ** 2
+    noise = np.convolve(rng.standard_normal(n), np.ones(v + 1) / (v + 1), "same")
+    return 0.15 * tone * env + 0.05 * noise
+
+
+def forward_counters():
+    import importlib
+
+    return [importlib.import_module(f"unispeech_tpu_torch.ops.kernels.{m}") for m in FWD_COUNTERS]
+
+
+def launch_counts():
+    return tuple(m.launches for m in forward_counters())
+
+
+def reset_launches():
+    for m in forward_counters():
+        m.launches = 0
+
+
+def convert_phase(tmp):
+    """convert: WavLM-Large as verification --arch large builds it (seed 0)
+    through a reference .pt and back (strict load, every tensor equal); a
+    fairseq CTC checkpoint of that backbone (w2v_encoder.w2v_model.) through
+    ctc_state_dict_from_fairseq and strip_w2v_prefix; then the .npz files
+    the speaker CLIs read: the Large and Base+ backbones in the JAX layout,
+    seed-0 ECAPA heads for both and a seed-0 diarization head."""
+    from unispeech_tpu_torch.configs import WavLMModelConfig
+    from unispeech_tpu_torch.convert import fairseq
+    from unispeech_tpu_torch.convert.from_jax import (
+        jax_params_from_state_dict,
+        jax_params_of,
+        save_params_npz,
+    )
+    from unispeech_tpu_torch.downstream.diarization import DiarizationConfig, TransformerDiarization
+    from unispeech_tpu_torch.downstream.ecapa_tdnn import EcapaConfig, EcapaTdnn
+    from unispeech_tpu_torch.downstream.verification import encoder_config
+    from unispeech_tpu_torch.models.ctc import CtcFinetuneConfig, CtcFinetuneModel
+    from unispeech_tpu_torch.models.wavlm import WavLM
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    enc = encoder_config("large")
+    model = WavLM(WavLMModelConfig(encoder=enc), generator=torch.Generator().manual_seed(SEED))
+    sd = model.state_dict()
+    nparams = sum(v.numel() for v in sd.values())
+
+    ref_cfg = {"encoder_layers": enc.encoder_layers, "encoder_embed_dim": enc.encoder_embed_dim}
+
+    def roundtrip(name, ref_sd, importer, want):
+        """write ref_sd as a reference .pt, read it back and import it: the
+        keys and every tensor of ``want``."""
+        path = tmp / name
+        t0 = time.perf_counter()
+        fairseq.save_reference_checkpoint(str(path), ref_sd, cfg=ref_cfg)
+        back, cfg = fairseq.load_reference_checkpoint(str(path))
+        got = importer(back)
+        seconds = time.perf_counter() - t0
+        unequal = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+        phase("convert", checkpoint=name, tensors=len(got), mbytes=path.stat().st_size >> 20,
+              seconds=f"{seconds:.2f}", unequal=len(unequal))
+        if unequal or sorted(got) != sorted(want) or cfg != ref_cfg:
+            fail(f"convert: {name} changed on the way: {unequal[:5]}")
+        path.unlink()
+        return got
+
+    got = roundtrip("WavLM-Large.pt", sd,
+                    lambda s: fairseq.wavlm_state_dict_from_reference(s, enc), sd)
+    model.load_state_dict(got, strict=True)
+    gen = torch.Generator().manual_seed(SEED + 30)
+    proj = {"weight": torch.randn(32, enc.encoder_embed_dim, generator=gen) * 0.02,
+            "bias": torch.zeros(32)}
+    ctc_sd = {"wavlm." + k: v for k, v in sd.items()}
+    ctc_sd.update({"proj." + k: v for k, v in proj.items()})
+    ctc_cfg = CtcFinetuneConfig(encoder=enc, vocab_size=32)
+    ref = fairseq.ctc_to_fairseq(ctc_sd, ctc_cfg)
+    if not all(k.startswith("w2v_encoder.") for k in ref):
+        fail("convert: a CTC key outside w2v_encoder.")
+    got = roundtrip("ctc-large.pt", ref, lambda s: fairseq.ctc_state_dict_from_fairseq(s, enc),
+                    ctc_sd)
+    with torch.device("meta"):
+        ctc = CtcFinetuneModel(ctc_cfg)
+    ctc.load_state_dict(got, strict=True, assign=True)
+    warm = fairseq.backbone_state_dict_from_fairseq(fairseq.strip_w2v_prefix(ref), enc)
+    if sorted(warm) != sorted(sd) or not all(torch.equal(warm[k], sd[k]) for k in sd):
+        fail("convert: the stripped CTC backbone differs from the WavLM")
+    del ctc, got, warm, ref, ctc_sd
+
+    t0 = time.perf_counter()
+    files = {"large": tmp / "large.npz", "base": tmp / "base.npz",
+             "ecapa_large": tmp / "ecapa_large.npz", "ecapa_base": tmp / "ecapa_base.npz",
+             "diarization": tmp / "diarization.npz"}
+    save_params_npz(str(files["large"]), jax_params_from_state_dict(sd, enc))
+    del model, sd
+    base_enc = encoder_config("base")
+    base = WavLM(WavLMModelConfig(encoder=base_enc), generator=torch.Generator().manual_seed(SEED))
+    save_params_npz(str(files["base"]), jax_params_from_state_dict(base.state_dict(), base_enc))
+    for name, e in (("ecapa_large", enc), ("ecapa_base", base_enc)):
+        head = EcapaTdnn(EcapaConfig(num_layer_feats=e.encoder_layers + 1), e.encoder_embed_dim,
+                         generator=torch.Generator().manual_seed(SEED))
+        save_params_npz(str(files[name]), jax_params_of(head))
+    head = TransformerDiarization(DiarizationConfig(), enc.encoder_embed_dim,
+                                  generator=torch.Generator().manual_seed(SEED))
+    save_params_npz(str(files["diarization"]), jax_params_of(head))
+    phase("convert", params=nparams, npz_seconds=f"{time.perf_counter() - t0:.2f}",
+          **{f"{k}_mbytes": v.stat().st_size >> 20 for k, v in files.items()})
+    return files
+
+
+@contextlib.contextmanager
+def hooked(module, name, record):
+    """Wrap ``module.name`` so each call resets the forward launch counters,
+    is timed to a synchronised end and appends (launches, seconds, args,
+    result) to ``record``."""
+    orig = getattr(module, name)
+
+    def wrapper(*args):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*args)
+        torch.cuda.synchronize()
+        record.append((launch_counts(), time.perf_counter() - t0, args, out))
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def reset_peak() -> float:
+    """Reset the peak-memory counter; returns the GB allocated now, which a
+    CLI's peak is reported above (the earlier phases' tensors)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def head_on_cpu(head, *inputs):
+    """The same head (a copy of its weights) run on the CPU, fp32."""
+    import copy
+
+    cpu = copy.deepcopy(head).cpu()
+    with torch.no_grad():
+        return cpu(*(None if x is None else x.cpu() for x in inputs))
+
+
+def card_vs_cpu(tag, got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |card - CPU| over the CPU output's scale, held at 1e-4."""
+    got, want = got.float().cpu(), want.float()
+    err = float((got - want).abs().max() / want.abs().max())
+    phase(tag, head_card_vs_cpu_max_err_over_scale=f"{err:.3g}", tol="1e-4")
+    if not (torch.isfinite(got).all() and err <= 1e-4):
+        fail(f"{tag}: the head on the card disagrees with the CPU: {err}")
+    return err
+
+
+def alone_vs_batch(tag, dev, backbone, head, src, lengths, emb):
+    """The most padded row of a verification batch embedded alone against
+    its row in the batch. Held: every layer's output on the valid frames
+    within rel L2 5e-2 (key padding in the attention kernel); the batch's
+    embeddings unchanged, within 1e-5, when its padded frames hold 99
+    instead of the backbone's values (the head's masking). Printed: the
+    embedding of the alone run's layer outputs zero-padded to the batch's
+    length against the batch row's, and of the file alone unpadded (its
+    head sees a shorter time axis: the squeeze-excitation means and the
+    convs at the last valid frames run over the padded frames too, as in
+    JAX); both carry the layers' bf16 differences through the random head.
+    Only WavLM-Large's frontend is per frame: Base+'s GroupNorm normalises
+    over the padded length, as the reference's does."""
+    from unispeech_tpu_torch.downstream import verification
+
+    r = int(lengths.argmin())
+    n = int(lengths[r])
+    alone_src = torch.zeros(1, -(-n // 320) * 320, device=dev)
+    alone_src[0, :n] = src[r, :n]
+    with torch.no_grad():
+        batch = backbone(src, lengths=lengths, collect_layer_outputs=True)
+        lay, pm = batch.layer_outputs, batch.padding_mask
+        lay_a = backbone(alone_src, lengths=lengths[r:r + 1],
+                         collect_layer_outputs=True).layer_outputs
+        t = lay_a.shape[2]
+        e_lay = max(rel_l2(lay_a[i, 0], lay[i, r, :t]) for i in range(lay_a.shape[0]))
+        e_garbage = rel_l2(head(lay.masked_fill(pm[None, ..., None], 99.0), pm), head(lay, pm))
+        padded = torch.zeros_like(lay[:, r:r + 1])
+        padded[:, :, :t] = lay_a
+        e_padded = rel_l2(head(padded, pm[r:r + 1]), head(lay[:, r:r + 1], pm[r:r + 1]))
+    alone = verification.embed_batch(backbone, head, alone_src, lengths[r:r + 1])[0]
+    e = float(np.linalg.norm(alone - emb[r]) / np.linalg.norm(alone))
+    phase(tag, valid_share=f"{n / src.shape[1]:.3f}", alone_vs_batch_layers_rel_l2=f"{e_lay:.3g}",
+          tol="5e-2", padded_frames_99_vs_backbone_rel_l2=f"{e_garbage:.3g}", tol_masking="1e-5",
+          alone_padded_vs_batch_embedding_rel_l2=f"{e_padded:.3g}",
+          alone_unpadded_vs_batch_embedding_rel_l2=f"{e:.3g}")
+    if not (e_lay <= 5e-2 and e_garbage <= 1e-5):
+        fail(f"{tag}: a file alone disagrees with its padded batch row ({e_lay}), or the "
+             f"head reads padded frames ({e_garbage})")
+    return dict(layers=e_lay, masking=e_garbage, padded=e_padded, unpadded=e)
+
+
+def verification_run(dev, tmp, files, arch, want_launches):
+    """One ``verification`` CLI call in-process on the speaker files; the
+    per-batch launch counts and the card-side checks. Returns its row."""
+    from unispeech_tpu_torch.downstream import verification
+
+    argv = ["--trials", str(tmp / "trials.txt"), "--wav-root", str(tmp / "spk"),
+            "--backbone", str(files[arch]), "--head", str(files[f"ecapa_{arch}"]),
+            "--arch", arch, "--batch-size", "8", "--scores-path", str(tmp / f"scores_{arch}.txt"),
+            "--device", str(dev)]
+    batches = []
+    out = io.StringIO()
+    base_gb = reset_peak()
+    t0 = time.perf_counter()
+    with hooked(verification, "embed_batch", batches), contextlib.redirect_stdout(out):
+        verification.main(argv)
+    seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    tag = f"verification_{arch}"
+    for counts, s, args, _ in batches:
+        phase(tag, batch_shape=tuple(args[2].shape), launches=counts, seconds=f"{s:.3f}")
+    if any(c != want_launches for c, *_ in batches):
+        fail(f"{tag}: launches per batch forward {[c for c, *_ in batches]} != {want_launches}")
+    rows = [line.split() for line in (tmp / f"scores_{arch}.txt").read_text().splitlines()]
+    scores = np.asarray([float(r[0]) for r in rows])
+    same = np.asarray([r[2] == r[3] for r in rows])
+    audio_s = sum(float(a[3].sum()) for _, _, a, _ in batches) / SAMPLE_RATE
+    embed_s = sum(s for _, s, _, _ in batches)
+    phase(tag, report=json.dumps(report).replace(" ", ""), trials=len(rows),
+          seconds_per_call=f"{seconds:.2f}", trials_per_s=f"{len(rows) / seconds:.1f}",
+          embed_seconds=f"{embed_s:.3f}", audio_sec_per_s_embed=f"{audio_s / embed_s:.1f}",
+          peak_memory_gb_above_start=f"{peak_gb:.2f}", allocated_at_start_gb=f"{base_gb:.2f}",
+          min_same_file_score=f"{scores[same].min():.5f}")
+    if (report["trials"] != SPK_TRIALS or len(rows) != SPK_TRIALS
+            or not np.isfinite(scores).all() or not np.isfinite(report["eer"])):
+        fail(f"{tag}: not every trial scored, or a non-finite score")
+    if not scores[same].min() >= 0.999:
+        fail(f"{tag}: a file scored against itself gave {scores[same].min()}")
+
+    _, _, (backbone, head, src, lengths), emb = batches[0]
+    padding = alone_vs_batch(tag, dev, backbone, head, src, lengths, emb) if arch == "large" else None
+    # the ECAPA head on the card against the CPU, the same layer features
+    with torch.no_grad():
+        feats = backbone(src, lengths=lengths, collect_layer_outputs=True)
+        got = head(feats.layer_outputs, feats.padding_mask)
+    err = card_vs_cpu(tag, got, head_on_cpu(head, feats.layer_outputs.float(), feats.padding_mask))
+    return dict(seconds=seconds, trials_per_s=len(rows) / seconds, peak_gb=peak_gb,
+                eer=report["eer"], launches=batches[0][0], head_err=err, padding=padding)
+
+
+def speaker_phase(dev, tmp, files):
+    """speaker: the verification CLI at --arch large and --arch base on 24
+    synthesised files of 3-20 s (6 speakers) and 48 trials, and the diarize
+    CLI --arch large on recordings of 30, 90 and 240 s against a reference
+    RTTM; the attention kernel at the 240 s length, the 90 s backbone's
+    kernel path against its plain path, both heads card against CPU."""
+    from unispeech_tpu_torch.convert.from_jax import (
+        diarization_state_dict_from_jax,
+        load_params_npz,
+    )
+    from unispeech_tpu_torch.downstream import diarize
+    from unispeech_tpu_torch.downstream.diarization import (
+        DiarizationConfig,
+        TransformerDiarization,
+        compute_der,
+        parse_rttm,
+    )
+    from unispeech_tpu_torch.downstream.verification import encoder_config
+    from unispeech_tpu_torch.models import encoder as encoder_mod
+    from unispeech_tpu_torch.ops.kernels import flash_attention
+
+    rng = np.random.default_rng(SEED + 31)
+    (tmp / "spk").mkdir()
+    names = []
+    for i in range(SPK_FILES):
+        n = int(rng.uniform(*SPK_SECONDS) * SAMPLE_RATE)
+        names.append(f"s{i % SPK_VOICES}_{i:02d}.wav")
+        write_wav(tmp / "spk" / names[-1], voice(rng, i % SPK_VOICES, n))
+    half = SPK_TRIALS // 2
+    pairs = [(1, a, a) for a in names[:half]]
+    while len(pairs) < SPK_TRIALS:  # different files, half of one speaker
+        a, b = rng.choice(names, 2, replace=False)
+        pairs.append((int(a[:2] == b[:2]), a, b))
+    (tmp / "trials.txt").write_text("".join(f"{l} {a} {b}\n" for l, a, b in pairs))
+    large = encoder_config("large")
+    want_large = (1, 2 * (len(large.conv_layers) - 1), large.encoder_layers)
+    ver = {"large": verification_run(dev, tmp, files, "large", want_large),
+           "base": verification_run(dev, tmp, files, "base", (1, 7, 12))}
+
+    # diarization: recordings of 2-3 speakers in turns of 2-8 s
+    (tmp / "rec").mkdir()
+    rows, ref = [], []
+    for i, seconds in enumerate(DIARIZE_SECONDS):
+        n_spk, t, parts = 2 + i % 2, 0.0, []
+        while t < seconds:
+            d = min(rng.uniform(2.0, 8.0), seconds - t)
+            spk = len(parts) % n_spk
+            parts.append(voice(rng, spk, int(round(d * SAMPLE_RATE))))
+            ref.append(f"SPEAKER rec{i} 1 {t:.3f} {d:.3f} <NA> <NA> v{spk} <NA> <NA>")
+            t += d
+        wav = np.concatenate(parts)
+        write_wav(tmp / "rec" / f"rec{i}.wav", wav)
+        rows.append(f"rec{i}.wav\t{len(wav)}")
+    (tmp / "rec.tsv").write_text(f"{tmp / 'rec'}\n" + "\n".join(rows) + "\n")
+    (tmp / "ref.rttm").write_text("\n".join(ref) + "\n")
+    argv = ["--manifest", str(tmp / "rec.tsv"), "--backbone", str(files["large"]),
+            "--head", str(files["diarization"]), "--arch", "large", "--rttm-dir",
+            str(tmp / "rttm"), "--ref-rttm", str(tmp / "ref.rttm"), "--device", str(dev)]
+    recs, infer_fns = [], []
+    first_layer = {}  # T -> the first layer's attention arguments
+    out = io.StringIO()
+    orig_attention, orig_chunked = encoder_mod.fused_attention, diarize.chunked_diarization
+
+    def chunked(infer_fn, feats, **kw):  # keeps the CLI's head on the card
+        infer_fns.append(infer_fn)
+        return orig_chunked(infer_fn, feats, **kw)
+
+    def first_layer_attention(*args, **kw):
+        # kept for the longest recording: its first layer's q, k, v, bias, gate
+        if launch_counts()[2] == 0 and args[0].shape[1] > max(first_layer, default=0):
+            first_layer.clear()
+            first_layer[args[0].shape[1]] = (args, kw)
+        return orig_attention(*args, **kw)
+
+    base_gb = reset_peak()
+    t0 = time.perf_counter()
+    encoder_mod.fused_attention = first_layer_attention
+    diarize.chunked_diarization = chunked
+    try:
+        with hooked(diarize, "recording_features", recs), contextlib.redirect_stdout(out):
+            diarize.main(argv)
+    finally:
+        encoder_mod.fused_attention = orig_attention
+        diarize.chunked_diarization = orig_chunked
+    seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    ref_all = (tmp / "ref.rttm").read_text()
+    for i, (counts, s, args, feats) in enumerate(recs):
+        n = int(rows[i].split("\t")[1])
+        rttm = (tmp / "rttm" / f"rec{i}.rttm").read_text()
+        segs = parse_rttm(rttm)
+        ref_i = "\n".join(l for l in ref_all.splitlines() if f" rec{i} " in l)
+        der = compute_der(ref_i, rttm)["der"]
+        want_frames = large.num_frames(-(-n // 320) * 320)  # = ceil(n / 320) - 1
+        phase("diarize", recording=f"rec{i}", seconds_audio=f"{n / SAMPLE_RATE:.1f}",
+              frames=feats.shape[0], forward_seconds=f"{s:.3f}", launches=counts,
+              speakers=len({sp for *_, sp in segs}), segments=len(segs), der=f"{der:.4f}")
+        if counts != want_large:
+            fail(f"diarize: rec{i} launches {counts} != {want_large}")
+        if feats.shape[0] != want_frames or not np.isfinite(feats).all():
+            fail(f"diarize: rec{i} frames {feats.shape[0]} != {want_frames} or not finite")
+        if not segs or max(st + d for _, st, d, _ in segs) > feats.shape[0] * 0.02 + 1e-6:
+            fail(f"diarize: rec{i}: no segment, or one past the recording")
+    phase("diarize", report=json.dumps(report).replace(" ", ""), seconds_per_call=f"{seconds:.2f}",
+          peak_memory_gb_above_start=f"{peak_gb:.2f}", allocated_at_start_gb=f"{base_gb:.2f}")
+    if report["recordings"] != len(DIARIZE_SECONDS) or not np.isfinite(report.get("der", np.nan)):
+        fail(f"diarize: report {report}")
+
+    # the attention kernel at the 240 s length (H T S > 2^31 bias elements):
+    # the first and last 256 query rows against all keys, by the parity rule
+    (q, k, v, bias, gate, kpm), kw = first_layer.popitem()[1]
+    T = q.shape[1]
+    out_k = flash_attention.fused_attention(q, k, v, bias, gate, kpm, **kw)
+    err_callhome = 0.0
+    for name, rows_ in (("first", slice(0, CALLHOME_ROWS)), ("last", slice(T - CALLHOME_ROWS, T))):
+        plain = flash_attention.fused_attention_plain(
+            q[:, rows_], k, v, bias[:, rows_], None if gate is None else gate[:, :, rows_], kpm)
+        err_callhome = max(err_callhome, compare(
+            f"fused_attention.T{T}.{name}_{CALLHOME_ROWS}_rows", out_k[:, rows_], plain))
+    phase("diarize", callhome_T=T, bias_elements=bias.numel(), over_2_31=bias.numel() > 2 ** 31)
+    del q, k, v, bias, gate, out_k, plain
+
+    # the 90 s recording's whole backbone: kernel path against plain path,
+    # and the diarization head card against CPU on its first chunk
+    _, _, (backbone, wav, _), feats = recs[1]
+    n = -(-len(wav) // 320) * 320
+    src = torch.zeros(1, n, device=dev)
+    src[0, :len(wav)] = torch.from_numpy(wav).to(dev)
+    with torch.no_grad():
+        x = backbone(src).x
+        with plain_ops():
+            px = backbone(src).x
+    e90 = rel_l2(x, px)
+    phase("diarize", rec1_T=x.shape[1], rel_l2_vs_plain=f"{e90:.3g}", tol="5e-2",
+          rel_l2_vs_cli=f"{rel_l2(x[0].float().cpu(), torch.from_numpy(feats)):.3g}")
+    if not e90 <= 5e-2:
+        fail("diarize: the 90 s backbone's kernel path disagrees with its plain path")
+    del x, px
+    # the CLI's head on the card against the same .npz's head on the CPU
+    head = TransformerDiarization(DiarizationConfig(), large.encoder_embed_dim)
+    head.load_state_dict(diarization_state_dict_from_jax(load_params_npz(str(files["diarization"]))),
+                         strict=True)
+    logits, spk = infer_fns[1](feats[:2000])
+    want = head_on_cpu(head.eval(), torch.from_numpy(feats[:2000])[None])
+    dia_err = max(card_vs_cpu("diarize", torch.from_numpy(logits), want.logits[0]),
+                  card_vs_cpu("diarize", torch.from_numpy(spk), want.spk_vectors[0]))
+    return dict(ver=ver, diarize_seconds=seconds, diarize_peak_gb=peak_gb, der=report["der"],
+                recs=[(c, s, f.shape[0]) for c, s, _, f in recs], err_callhome=err_callhome,
+                e90=e90, dia_err=dia_err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2642,6 +3094,16 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # the checkpoint converters, then the speaker workload through its CLIs
+    tmp = _build.BUILD_DIR / "smoke_speaker"
+    try:
+        speaker_files = convert_phase(tmp)
+        clock.done("convert")
+        spk = speaker_phase(dev, tmp, speaker_files)
+        clock.done("speaker")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
     # 9 the elementwise micro-benchmark at its full shape
     vpu_row = vpu_phase(dev)
     clock.done("vpu")
@@ -2754,6 +3216,15 @@ def main() -> int:
         r["ctc_launches_unfrozen"] = 0 if idx is None else ctc_counts["unfrozen"][idx]
         r["s2s_launches_frozen"] = 0 if idx is None else s2s_counts["frozen"][idx]
         r["s2s_launches_unfrozen"] = 0 if idx is None else s2s_counts["unfrozen"][idx]
+        # the speaker path's forward launches: per verification batch, Large
+        # and Base+ (the L1 with its sums), and per diarized recording (Large)
+        large_i, base_i = SPEAKER_ROWS.get(r["name"], (None, None))
+        r["speaker_launches_verification_batch"] = (
+            0 if large_i is None else spk["ver"]["large"]["launches"][large_i])
+        r["speaker_launches_verification_base_batch"] = (
+            0 if base_i is None else spk["ver"]["base"]["launches"][base_i])
+        r["speaker_launches_diarize_recording"] = (
+            0 if large_i is None else spk["recs"][0][0][large_i])
     for r in rows:
         phase("times", **{k: (f"{v:.4f}" if isinstance(v, float) else
                               "null" if v is None else v)
@@ -2818,6 +3289,15 @@ def main() -> int:
     phase("e2e_lm_train", params=lm["params"], step_ms=f"{lm['step_ms']:.3f}",
           tokens_per_s=f"{lm['tokens_per_step'] / (lm['step_ms'] / 1e3):.0f}")
     phase("e2e_s2s_pipeline", **{f"decode_{k}_s": f"{v:.2f}" for k, v in s2s_decode_s.items()})
+    for arch, v in spk["ver"].items():
+        phase(f"e2e_verification_{arch}", seconds_per_call=f"{v['seconds']:.2f}",
+              trials_per_s=f"{v['trials_per_s']:.1f}",
+              peak_memory_gb_above_start=f"{v['peak_gb']:.2f}",
+              eer=v["eer"], launches_per_batch=v["launches"])
+    phase("e2e_diarize", seconds_per_call=f"{spk['diarize_seconds']:.2f}",
+          forward_seconds_per_recording=",".join(f"{s:.3f}" for _, s, _ in spk["recs"]),
+          frames=",".join(str(t) for *_, t in spk["recs"]), der=spk["der"],
+          peak_memory_gb_above_start=f"{spk['diarize_peak_gb']:.2f}")
     for name, e in (("e2e_w2v_train", w2v), ("e2e_sat_train", sat)):
         phase(name, params=e["params"], step_ms=f"{e['step_ms']:.3f}",
               host_enqueue_ms=f"{e['host_ms']:.3f}", audio_seconds_per_step=e["audio_s"],

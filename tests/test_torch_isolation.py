@@ -1,8 +1,9 @@
 """The port imports neither JAX nor the JAX package, and importing it builds
 nothing: every module is imported, and a tiny CPU forward, a tiny
 pretraining step (and one with the UniSpeech-SAT branch), a UniSpeech
-multitask step, a frozen and an unfrozen CTC fine-tuning step and a beam
-decode run, in a fresh interpreter, which must end with no ``jax`` and no
+multitask step, a frozen and an unfrozen CTC fine-tuning step, a beam
+decode run, and the ECAPA-TDNN and diarization heads' forwards on the
+tiny features, in a fresh interpreter, which must end with no ``jax`` and no
 ``unispeech_tpu.`` module loaded and no kernel library built."""
 
 import subprocess
@@ -27,7 +28,9 @@ SCRIPT = textwrap.dedent("""
                 "train.loop", "train.__main__", "utils.debug", "utils.metrics",
                 "data.dictionary", "data.text_encoders", "decode", "decode.__main__",
                 "decode.arpa", "decode.beam", "decode.wer", "models.ctc", "ops.ctc",
-                "train.tasks", "ops.quantizer", "models.wav2vec2", "data.multilingual"}
+                "train.tasks", "ops.quantizer", "models.wav2vec2", "data.multilingual",
+                "convert.fairseq", "downstream", "downstream.ecapa_tdnn",
+                "downstream.diarization", "downstream.verification", "downstream.diarize"}
     missing = {"unispeech_tpu_torch." + n for n in pipeline} - names
     assert not missing, missing
 
@@ -105,6 +108,22 @@ SCRIPT = textwrap.dedent("""
         assert torch.isfinite(met["loss_per_sample"])
     lp = torch.log_softmax(ctc(b["source"], b["lengths"]).logits, -1)[0].detach().numpy()
     assert CtcBeamDecoder(beam=4).decode(lp)
+
+    from unispeech_tpu_torch.downstream.diarization import (
+        DiarizationConfig, TransformerDiarization)
+    from unispeech_tpu_torch.downstream.ecapa_tdnn import EcapaConfig, EcapaTdnn
+
+    head = EcapaTdnn(EcapaConfig(channels=16, emb_dim=8, scale=4, num_layer_feats=3), 32,
+                     generator=torch.Generator().manual_seed(0)).eval()
+    out = model.extract_features(torch.randn(2, 2000), lengths=torch.tensor([2000, 1500]),
+                                 collect_layer_outputs=True)
+    emb = head(out.layer_outputs, out.padding_mask)
+    assert emb.shape == (2, 8) and torch.isfinite(emb).all()
+    dia = TransformerDiarization(DiarizationConfig(num_speakers=2, hidden_dim=16, num_layers=1,
+                                                   num_heads=2, ffn_dim=32, emb_dim=8), 32,
+                                 generator=torch.Generator().manual_seed(0))
+    res = dia(out.x, out.padding_mask)
+    assert res.logits.shape == (2, 99, 2) and torch.isfinite(res.logits).all()
 
     bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                  or m.startswith("unispeech_tpu."))

@@ -11,8 +11,9 @@ from __future__ import annotations
 
 import ast
 import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 # Conv frontend spec: list of (dim, kernel, stride). Reference default
 # "[(512,10,5)] + [(512,3,2)] * 4 + [(512,2,2)] * 2" -> 320x downsample.
@@ -122,6 +123,17 @@ class EncoderConfig:
 def base_encoder_config(**over: Any) -> EncoderConfig:
     """WavLM/HuBERT Base shape: 12L/768d/12h/3072ffn."""
     return dataclasses.replace(EncoderConfig(), **over)
+
+
+def override_encoder(enc: EncoderConfig, encoder_json: Optional[str]) -> EncoderConfig:
+    """``enc`` with the fields an ``--encoder-json`` object names replaced
+    (``conv_layers`` given as nested lists); ``enc`` itself without one."""
+    if not encoder_json:
+        return enc
+    over = json.loads(encoder_json)
+    if "conv_layers" in over:
+        over["conv_layers"] = tuple(tuple(c) for c in over["conv_layers"])
+    return dataclasses.replace(enc, **over)
 
 
 def large_encoder_config(**over: Any) -> EncoderConfig:

@@ -24,12 +24,17 @@ is its inverse. ``seq2seq_state_dict_from_jax`` carries a seq2seq model
 (the backbone under ``wavlm.``, ``enc_proj``, the decoder in fairseq's
 layout under ``decoder.``) and ``lm_state_dict_from_jax`` a TransformerLM
 (fairseq's LM layout less the ``decoder.`` prefix); each has its inverse.
+``ecapa_state_dict_from_jax`` and ``diarization_state_dict_from_jax``
+carry the two downstream heads, whose port modules are named after the
+flax tree (conv kernels (k, in, out), attention kernels (in, heads,
+head_dim) and (heads, head_dim, out), BatchNorm's ``mean`` / ``var`` in
+``batch_stats``); each has its inverse.
 ``jax_params_of`` is the training loop's export of a trained model.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -473,11 +478,129 @@ def jax_params_from_lm_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
     return params
 
 
+_FLAX_LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
+              "var": "running_var"}
+
+
+def _head_from_jax(tree: Mapping, leaf_fn, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Flat port keys of a flax head tree: module names joined by ".",
+    ``kernel`` and ``scale`` as ``weight``, ``mean`` / ``var`` as the
+    running averages; ``leaf_fn(prefix, name, value)`` lays out each leaf."""
+    out: Dict[str, np.ndarray] = {}
+    for name, node in tree.items():
+        if isinstance(node, Mapping):
+            out.update(_head_from_jax(node, leaf_fn, f"{prefix}{name}."))
+        else:
+            out[prefix + _FLAX_LEAF.get(name, name)] = leaf_fn(prefix, name, _np(node))
+    return out
+
+
+def _nest(flat: Mapping[str, np.ndarray]) -> dict:
+    tree: Dict = {}
+    for key, v in flat.items():
+        node = tree
+        *path, leaf = key.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def _ecapa_leaf(prefix: str, name: str, v: np.ndarray) -> np.ndarray:
+    if name != "kernel":
+        return v
+    return _conv_kernel_out(v) if v.ndim == 3 else _t(v)  # convs (k, in, out); Dense
+
+
+def ecapa_state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None
+                              ) -> Dict[str, torch.Tensor]:
+    """Port ``EcapaTdnn`` state dict from the JAX head's ``params`` and,
+    when given, its ``batch_stats``. Without them every BatchNorm gets
+    flax's initial running averages (mean 0, var 1), as the JAX CLIs'
+    ``--head``, which replaces only the initialised ``params``, runs."""
+    sd = _head_from_jax(params, _ecapa_leaf)
+    if batch_stats is not None:
+        sd.update(_head_from_jax(batch_stats, _ecapa_leaf))
+    else:
+        for key in [k for k in sd if k.endswith("BatchNorm_0.weight")]:
+            stem = key[:-len("weight")]
+            sd[stem + "running_mean"] = np.zeros_like(sd[key])
+            sd[stem + "running_var"] = np.ones_like(sd[key])
+    return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+def jax_params_from_ecapa_state_dict(sd: Mapping[str, torch.Tensor]) -> Tuple[dict, dict]:
+    """Inverse of ``ecapa_state_dict_from_jax``: (params, batch_stats)."""
+    params: Dict[str, np.ndarray] = {}
+    stats: Dict[str, np.ndarray] = {}
+    for key, t in sd.items():
+        v = t.detach().cpu().float().numpy()
+        stem, leaf = key.rsplit(".", 1)
+        if leaf in ("running_mean", "running_var"):
+            stats[f"{stem}.{leaf[len('running_'):]}"] = v
+        elif leaf == "weight" and v.ndim == 1:
+            params[stem + ".scale"] = v  # a LayerNorm's or BatchNorm's scale
+        elif leaf == "weight":
+            params[stem + ".kernel"] = _conv_kernel_out(v) if v.ndim == 3 else _t(v)
+        else:
+            params[key] = v
+    return _nest(params), _nest(stats)
+
+
+_MHA_IN = ("query", "key", "value")
+
+
+def _diarization_leaf(prefix: str, name: str, v: np.ndarray) -> np.ndarray:
+    proj = prefix.rstrip(".").rsplit(".", 1)[-1]
+    if "MultiHeadDotProductAttention" in prefix:
+        if name == "kernel" and proj in _MHA_IN:
+            return _t(v.reshape(v.shape[0], -1))  # (in, heads, hd) -> (heads*hd, in)
+        if name == "kernel":
+            return _t(v.reshape(-1, v.shape[-1]))  # (heads, hd, out) -> (out, heads*hd)
+        return v.reshape(-1)
+    return _t(v) if name == "kernel" else v
+
+
+def diarization_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Port ``TransformerDiarization`` state dict from the JAX head's
+    params: Dense kernels transposed, the attention's per-head kernels and
+    biases flattened over (heads, head_dim)."""
+    return {k: torch.tensor(v) for k, v in _head_from_jax(params, _diarization_leaf).items()}
+
+
+def jax_params_from_diarization_state_dict(sd: Mapping[str, torch.Tensor],
+                                           num_heads: int) -> dict:
+    """Inverse of ``diarization_state_dict_from_jax``."""
+    flat: Dict[str, np.ndarray] = {}
+    for key, t in sd.items():
+        v = t.detach().cpu().float().numpy()
+        stem, leaf = key.rsplit(".", 1)
+        proj = stem.rsplit(".", 1)[-1]
+        if "MultiHeadDotProductAttention" in stem:
+            if leaf == "weight" and proj in _MHA_IN:
+                flat[stem + ".kernel"] = _t(v).reshape(v.shape[1], num_heads, -1)
+            elif leaf == "weight":
+                flat[stem + ".kernel"] = _t(v).reshape(num_heads, -1, v.shape[0])
+            elif proj in _MHA_IN:
+                flat[key] = v.reshape(num_heads, -1)
+            else:
+                flat[key] = v
+        elif leaf == "weight":
+            flat[stem + (".scale" if v.ndim == 1 else ".kernel")] = v if v.ndim == 1 else _t(v)
+        else:
+            flat[key] = v
+    return _nest(flat)
+
+
 def jax_params_of(model: torch.nn.Module) -> dict:
     """The JAX params tree of a trained port model: a HubertPretrainModel
     or a Wav2Vec2PretrainModel (the backbone under "wavlm", the heads
     beside it), a CtcFinetuneModel (the backbone under "wavlm", ``proj``),
-    a Seq2SeqModel or a TransformerLM."""
+    a Seq2SeqModel, a TransformerLM, or a downstream head (an EcapaTdnn's
+    ``params``, its running averages left out, as ``--head`` reads it; a
+    TransformerDiarization)."""
+    from unispeech_tpu_torch.downstream.diarization import TransformerDiarization
+    from unispeech_tpu_torch.downstream.ecapa_tdnn import EcapaTdnn
     from unispeech_tpu_torch.models.ctc import CtcFinetuneModel
     from unispeech_tpu_torch.models.hubert import HubertPretrainModel
     from unispeech_tpu_torch.models.lm import TransformerLM
@@ -488,6 +611,11 @@ def jax_params_of(model: torch.nn.Module) -> dict:
         return jax_params_from_seq2seq_state_dict(model.state_dict(), model.wavlm.cfg.encoder)
     if isinstance(model, TransformerLM):
         return jax_params_from_lm_state_dict(model.state_dict())
+    if isinstance(model, EcapaTdnn):
+        return jax_params_from_ecapa_state_dict(model.state_dict())[0]
+    if isinstance(model, TransformerDiarization):
+        return jax_params_from_diarization_state_dict(model.state_dict(),
+                                                      model.cfg.num_heads)
 
     if isinstance(model, HubertPretrainModel):
         return jax_params_from_hubert_state_dict(model.state_dict(), model.pcfg)

@@ -153,18 +153,17 @@ def plan_eval_batches(sizes: np.ndarray, max_tokens: int, max_sentences: int,
 def encoder_config(args):
     """The encoder of ``--arch``, ``--no-rel-pos`` and ``--encoder-json``,
     without dropout."""
-    from unispeech_tpu_torch.configs import base_encoder_config, large_encoder_config
+    from unispeech_tpu_torch.configs import (
+        base_encoder_config,
+        large_encoder_config,
+        override_encoder,
+    )
 
     enc_fn = base_encoder_config if args.arch == "base" else large_encoder_config
     enc = enc_fn(relative_position_embedding=not args.no_rel_pos,
                  gru_rel_pos=not args.no_rel_pos, dropout=0.0, attention_dropout=0.0,
                  activation_dropout=0.0, encoder_layerdrop=0.0)
-    if args.encoder_json:
-        over = json.loads(args.encoder_json)
-        if "conv_layers" in over:
-            over["conv_layers"] = tuple(tuple(c) for c in over["conv_layers"])
-        enc = dataclasses.replace(enc, **over)
-    return enc
+    return override_encoder(enc, args.encoder_json)
 
 
 def load_models(args, vocab_size: int, device) -> list:

@@ -20,8 +20,6 @@ Model features and k-means run on the card unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
-import dataclasses
-import json
 import math
 import os
 import sys
@@ -52,6 +50,7 @@ def _feature_fn(args):
         WavLMModelConfig,
         base_encoder_config,
         large_encoder_config,
+        override_encoder,
     )
     from unispeech_tpu_torch.convert.from_jax import (
         load_params_npz,
@@ -65,11 +64,7 @@ def _feature_fn(args):
         relative_position_embedding=True, gru_rel_pos=True,
         dropout=0.0, attention_dropout=0.0, encoder_layerdrop=0.0,
     )
-    if args.encoder_json:
-        over = json.loads(args.encoder_json)
-        if "conv_layers" in over:
-            over["conv_layers"] = tuple(tuple(c) for c in over["conv_layers"])
-        enc = dataclasses.replace(enc, **over)
+    enc = override_encoder(enc, args.encoder_json)
     model = WavLM(WavLMModelConfig(encoder=enc), dtype=torch.bfloat16)
     model.load_state_dict(
         wavlm_state_dict_from_jax(load_params_npz(args.checkpoint), enc), strict=True)

@@ -87,18 +87,17 @@ def _common(p: argparse.ArgumentParser) -> None:
 
 
 def _encoder(args, **over):
-    from unispeech_tpu_torch.configs import base_encoder_config, large_encoder_config
+    from unispeech_tpu_torch.configs import (
+        base_encoder_config,
+        large_encoder_config,
+        override_encoder,
+    )
 
     fn = base_encoder_config if args.arch == "base" else large_encoder_config
     enc = fn(**over)
     if args.unroll_layers:
         enc = dataclasses.replace(enc, scan_layers=False)
-    if args.encoder_json:
-        extra = json.loads(args.encoder_json)
-        if "conv_layers" in extra:
-            extra["conv_layers"] = tuple(tuple(c) for c in extra["conv_layers"])
-        enc = dataclasses.replace(enc, **extra)
-    return enc
+    return override_encoder(enc, args.encoder_json)
 
 
 def _loop_cfg(args):
