@@ -57,6 +57,20 @@ Phases, one line each (any failure raises and exits non-zero):
              updates, then model features of the export at layer 12,
              k-means and labels; launch counts of the training runs, label
              frame counts, finite losses, the resume at update 4
+    dist     training across processes on the one card: train pretrain-hubert
+             --arch large --fsdp with the multi-process flags (NCCL, world
+             size 1) on the pipeline's files for 2 updates, its losses
+             against the pipeline's unsharded run; the bench's Large config
+             (dropout 0, a precomputed mask) one step on 4 crops of 245,840
+             samples in one process, then in two processes on the card over
+             gloo on a (2, 1) mesh (2 rows each) and a (1, 2) mesh (tensor
+             parallel, 8 heads each): every gradient tensor against the
+             one-process step's by the train gate, sample size, loss and
+             launches per rank, ms per step, peak memory, all-reduce calls,
+             bytes and ms; the attention kernels forward and backward on 8
+             heads with a rank's bias rows and gate against their plain
+             versions; mix_batch_device on the card against the CPU on the
+             same draws (noise clips pre-cut from the pipeline's files)
     ctc_pipeline  train finetune-ctc --arch large --w2v-path <the pipeline's
              export> on letter transcripts of the 12 files (valid set the
              same, --best-metric wer, freeze 2, checkpoints every 2) to
@@ -1037,11 +1051,9 @@ def pipeline_phase(counters, tmp):
             fail(f"pipeline: {what} label out of range")
 
     def train(max_updates):
-        argv = ["pretrain-hubert", "--manifest", man, "--labels", str(lab / "mfcc.km"),
-                "--arch", "large", "--num-classes", str(PIPE_CLUSTERS), "--label-rate", "100",
-                "--mixing-prob", "0.2", "--max-updates", str(max_updates),
-                "--save-interval-updates", "2", "--log-interval", "1",
-                "--checkpoint-dir", ckpt, "--export-params", export]
+        argv = pipeline_train_argv(man, str(lab / "mfcc.km")) + [
+            "--max-updates", str(max_updates), "--checkpoint-dir", ckpt,
+            "--export-params", export]
         for m, attr in counters:
             setattr(m, attr, 0)
         log = io.StringIO()
@@ -1062,7 +1074,7 @@ def pipeline_phase(counters, tmp):
             fail(f"pipeline: a kernel family was not launched in training: {counts}")
         if not all(np.isfinite(r["loss_avg"]) for r in records):
             fail("pipeline: a non-finite loss")
-        return [r["step"] for r in records]
+        return records
 
     timed("data manifest", data_main, ["manifest", str(tmp / "wavs"), "--ext", "wav",
                                        "--valid-percent", "0", "--dest", str(tmp / "man")])
@@ -1077,8 +1089,9 @@ def pipeline_phase(counters, tmp):
            "--lab-dir", str(lab)])
     (lab / "train_0_1.km").rename(lab / "mfcc.km")
     check_labels("mfcc", mfcc_frames, "mfcc")
-    first = train(4)
-    second = train(6)
+    first_records = train(4)
+    first = [r["step"] for r in first_records]
+    second = [r["step"] for r in train(6)]
     phase("pipeline", first_run_updates=first, resumed_run_updates=second,
           checkpoints=sorted(int(n) for n in os.listdir(ckpt)))
     if first != [1, 2, 3, 4] or second != [5, 6]:
@@ -1096,6 +1109,383 @@ def pipeline_phase(counters, tmp):
            "--lab-dir", str(lab), *model_args])
     check_labels("train_0_1", model_frames, "model")
     shutil.rmtree(ckpt, ignore_errors=True)  # 11 GB of pretraining checkpoints
+    return dict(argv=pipeline_train_argv(man, str(lab / "mfcc.km")),
+                losses=[r["loss_avg"] for r in first_records])
+
+
+def pipeline_train_argv(man: str, labels: str) -> list:
+    """The pipeline's pretrain-hubert arguments, without the update count
+    and the output paths."""
+    return ["pretrain-hubert", "--manifest", man, "--labels", labels, "--arch", "large",
+            "--num-classes", str(PIPE_CLUSTERS), "--label-rate", "100", "--mixing-prob", "0.2",
+            "--save-interval-updates", "2", "--log-interval", "1"]
+
+
+# -- dist: training across processes on the one card ---------------------------
+
+DIST_B = 4  # rows of the dist phase's Large step: 2 per data rank under (2, 1)
+# loss of a step split over ranks against the one-process step: bf16 sums of
+# the two shapes in other orders
+DIST_LOSS_TOL = 1e-2
+WORKER_TIMEOUT = 400
+
+
+def dist_model_config():
+    """The bench's Large config with dropout, layerdrop and activation
+    dropout 0: one step across ranks computes what one process computes."""
+    from unispeech_tpu_torch.configs import HubertPretrainConfig, MaskConfig, large_encoder_config
+
+    enc = large_encoder_config(relative_position_embedding=True, gru_rel_pos=True,
+                               encoder_layerdrop=0.0, dropout=0.0, attention_dropout=0.0,
+                               activation_dropout=0.0, remat_ffn=True, remat_layers=False,
+                               scan_layers=False)
+    return HubertPretrainConfig(encoder=enc, time_mask=MaskConfig(mask_prob=0.8, mask_length=10),
+                                num_classes=(N_CLASSES,), final_dim=768)
+
+
+def dist_batch(pcfg):
+    """DIST_B crops of 245,840 samples, frame labels and a precomputed time
+    mask, on the CPU, from a seed."""
+    gen = torch.Generator().manual_seed(SEED + 12)
+    T = pcfg.encoder.num_frames(TRAIN_NS)
+    return {"source": torch.randn(DIST_B, TRAIN_NS, generator=gen),
+            "targets": torch.randint(0, N_CLASSES, (DIST_B, T, 1), generator=gen),
+            "boundary_mask": torch.rand(DIST_B, T, generator=gen) < 0.5}
+
+
+def kernel_counters():
+    from unispeech_tpu_torch.ops.kernels import conv_stack, flash_attention, l1_frontend
+
+    return [(l1_frontend, "launches"), (l1_frontend, "backward_launches"),
+            (conv_stack, "launches"), (conv_stack, "backward_launches"),
+            (flash_attention, "launches"), (flash_attention, "backward_launches")]
+
+
+def dist_step(dev, mesh=None):
+    """One Large train step of the dist config on ``dist_batch`` (this data
+    rank's rows on ``mesh``) through create_train_state, shard_train_state
+    and make_train_step: its numbers, launch counts, the whole gradients
+    (collective on a mesh), then ms per step and peak memory over two more
+    steps."""
+    from unispeech_tpu_torch.models.hubert import HubertPretrainModel
+    from unispeech_tpu_torch.parallel.sharding import full_grads, local_rows
+    from unispeech_tpu_torch.train.losses import HubertCriterionConfig
+    from unispeech_tpu_torch.train.optim import OptimConfig
+    from unispeech_tpu_torch.train.state import (
+        create_train_state,
+        make_train_step,
+        shard_train_state,
+    )
+    from unispeech_tpu_torch.train.tasks import make_hubert_loss_fn
+
+    pcfg = dist_model_config()
+    batch = dist_batch(pcfg)
+    if mesh is not None:
+        batch = local_rows(batch)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    model = HubertPretrainModel(pcfg, dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(SEED))
+    state = create_train_state(model, OptimConfig(lr=5e-4, schedule="fixed"), device=dev)
+    if mesh is not None:
+        state = shard_train_state(state, mesh, tensor_parallel=mesh["model"].size() > 1)
+    step = make_train_step(make_hubert_loss_fn(state.model, HubertCriterionConfig()))
+    counters = kernel_counters()
+    for m, attr in counters:
+        setattr(m, attr, 0)
+    met = step(state, batch, torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    counts = tuple(getattr(m, attr) for m, attr in counters)
+    out = dict(loss=float(met["loss_per_sample"]), grad_norm=float(met["grad_norm"]),
+               sample_size=int(met["sample_size"]), launches=counts)
+    grads = {k: v.float().cpu() for k, v in full_grads(state.model).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        step(state, batch, torch.Generator().manual_seed(SEED))
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3 / 2
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out, grads, state
+
+
+def allreduce_ms(tensors, group, iters: int = 3) -> float:
+    """CUDA-event ms of one sum of ``tensors`` over ``group`` (flat buffers)."""
+    from unispeech_tpu_torch.train.state import all_reduce_sum
+
+    bufs = [t.detach().clone() for t in tensors]
+    all_reduce_sum(bufs, group)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        all_reduce_sum(bufs, group)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def dist_worker(kind: str, rank: int, world: int, port: int, outdir: str) -> None:
+    """One rank of a dist run, started by ``dist_phase``: "fsdp_cli" runs the
+    training CLI (its arguments in outdir/fsdp_cli.json) with the launch
+    counts; "dp" and "tp" run ``dist_step`` over gloo on a (2, 1) or (1, 2)
+    mesh, rank 0 saving the whole gradients."""
+    import torch.distributed as dist
+
+    out = pathlib.Path(outdir)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = kernel_counters()
+    if kind == "fsdp_cli":
+        from unispeech_tpu_torch.train.__main__ import main as train_main
+
+        argv = json.loads((out / "fsdp_cli.json").read_text())
+        for m, attr in counters:
+            setattr(m, attr, 0)
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(log):
+            train_main(argv)
+        torch.cuda.synchronize()
+        res = dict(seconds=time.perf_counter() - t0,
+                   launches=tuple(getattr(m, attr) for m, attr in counters),
+                   records=[json.loads(line) for line in log.getvalue().splitlines()
+                            if line.startswith('{"tag": "train"')],
+                   backend=dist.get_backend(), world=dist.get_world_size(),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    else:
+        from unispeech_tpu_torch.parallel.bootstrap import maybe_initialize_distributed
+        from unispeech_tpu_torch.parallel.sharding import make_mesh
+
+        maybe_initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo")
+        mesh = make_mesh(*((2, 1) if kind == "dp" else (1, 2)), device_type="cuda")
+        # count the collectives of dist_step's three steps (alike): calls, bytes
+        calls = {"n": 0, "bytes": 0}
+        real = dist.all_reduce
+
+        def counting(t, *a, **k):
+            calls["n"] += 1
+            calls["bytes"] += t.numel() * t.element_size()
+            return real(t, *a, **k)
+
+        dist.all_reduce = counting
+        res, grads, state = dist_step(dev, mesh)
+        dist.all_reduce = real
+        res["allreduce_calls_per_step"] = calls["n"] // 3
+        res["allreduce_mbytes_per_step"] = calls["bytes"] / 3 / 2**20
+        if kind == "dp":
+            # the data ranks' gradient sync, as the step makes it
+            res["grad_allreduce_ms"] = allreduce_ms([p.grad for p in state.optimizer.params],
+                                                    mesh["data"].get_group())
+        else:
+            # one activation sum over the model ranks, as a layer makes four
+            enc = dist_model_config().encoder
+            x = torch.randn(DIST_B, enc.num_frames(TRAIN_NS), enc.encoder_embed_dim, device=dev,
+                            dtype=torch.bfloat16)
+            res["activation_allreduce_ms"] = allreduce_ms([x], mesh["model"].get_group())
+        res["peak_gb_all"] = torch.cuda.max_memory_allocated() / 1e9
+        if rank == 0:
+            torch.save(grads, out / f"grads_{kind}.pt")
+        dist.barrier()
+        dist.destroy_process_group()
+    (out / f"{kind}_rank{rank}.json").write_text(json.dumps(res))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_workers(kind: str, world: int, outdir: pathlib.Path) -> list:
+    """Start ``world`` ranks of ``dist_worker`` and wait for all; their
+    results by rank. Any rank that fails (or outlives WORKER_TIMEOUT) fails
+    the phase, after the others are stopped."""
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "dist-worker", kind,
+                               str(r), str(world), str(port), str(outdir)], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=WORKER_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            print(log[-6000:], flush=True)
+            fail(f"dist {kind}: rank {r} exited {p.returncode}")
+    return [json.loads((outdir / f"{kind}_rank{r}.json").read_text()) for r in range(world)]
+
+
+def grad_gate(tag: str, got: dict, want: dict) -> float:
+    """The per-tensor gradient gate against the one-process step; returns
+    the worst ratio to the tolerance."""
+    if sorted(got) != sorted(want):
+        fail(f"{tag}: gradient names differ")
+    total = float(torch.sqrt(sum((g * g).sum() for g in want.values())))
+    worst = []
+    for name, b in want.items():
+        a = got[name]
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            fail(f"{tag}: gradient of {name}: shape {tuple(a.shape)} or non-finite")
+        diff, ref = float((a - b).norm()), float(b.norm())
+        worst.append((diff / (GRAD_TOL * ref + GRAD_FLOOR * total), name, diff / max(ref, 1e-30)))
+    worst.sort(reverse=True)
+    for ratio, name, rel in worst[:3]:
+        phase(tag, grad_vs_one_process=name, rel_l2=f"{rel:.3g}", of_tolerance=f"{ratio:.3g}")
+    phase(tag, grad_tol=f"{GRAD_TOL} * |g| + {GRAD_FLOOR} * |global|",
+          global_grad_norm=f"{total:.4g}", tensors=len(worst))
+    if worst[0][0] > 1.0:
+        fail(f"{tag}: gradient of {worst[0][1]} disagrees with the one-process step")
+    return worst[0][0]
+
+
+def tp_attention_parity(dev):
+    """The attention kernels forward and backward on a model rank's 8 of
+    WavLM-Large's 16 heads (head dim 64), its bias rows and gate, at the
+    dist step's shapes, against their plain versions."""
+    from unispeech_tpu_torch.ops.kernels import flash_attention
+    from unispeech_tpu_torch.ops.rel_pos import compute_rel_pos_bias
+
+    enc = dist_model_config().encoder
+    B, T, H = DIST_B, enc.num_frames(TRAIN_NS), enc.encoder_attention_heads // 2
+    hd = enc.encoder_embed_dim // enc.encoder_attention_heads
+    gen = torch.Generator().manual_seed(SEED + 13)
+    q, k, v = (torch.randn(B, T, H, hd, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
+    table = (torch.randn(enc.num_buckets, 2 * H, generator=gen) * 0.5).to(dev)
+    bias = compute_rel_pos_bias(table[:, H:], T, T, enc.num_buckets, enc.max_distance,
+                                dtype=torch.bfloat16)  # model rank 1's rows
+    gate = (torch.rand(B, H, T, generator=gen) * 2 + 1).to(dev)
+    kpm = torch.zeros(B, T, dtype=torch.bool, device=dev)
+    out, lse = flash_attention.fused_attention(q, k, v, bias, gate, kpm, return_lse=True)
+    pout, plse = flash_attention.fused_attention_plain(q, k, v, bias, gate, kpm,
+                                                       return_lse=True)
+    torch.cuda.synchronize()
+    err = compare("fused_attention.tp8", out, pout)
+    dout = (torch.randn(B, T, H, hd, generator=gen) * 1e-2).to(dev, torch.bfloat16)
+    args = (q, k, v, bias, gate, kpm, None, 0.0, None, pout, plse, dout)
+    got = flash_attention.fused_attention_backward(*args)
+    want = flash_attention.fused_attention_backward_plain(*args)
+    torch.cuda.synchronize()
+    err_b = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+        err_b = max(err_b, compare(f"fused_attention_backward.tp8.{name}", a, b, tol_ulps=2.0))
+    rel_check("fused_attention_backward.tp8.dbias", got[3], want[3], 2e-3)
+    rel_check("fused_attention_backward.tp8.dgate", got[4], want[4], 2e-3)
+    return err, err_b
+
+
+def mixing_on_card(dev, tmp):
+    """mix_batch_device's math on the card against the CPU on the same
+    draws, at the pretraining batch's shape, noise clips pre-cut from the
+    pipeline's files; ms per call on each."""
+    from unispeech_tpu_torch.data.mixing import (
+        MixingConfig,
+        NoiseStore,
+        mix_batch_device,
+        mix_with_draws,
+        mixing_draws,
+    )
+
+    B, T = TRAIN_B, TRAIN_NS
+    cfg = MixingConfig(mixing_prob=0.5, mixing_noise_prob=0.5, normalize_after=True)
+    clips = NoiseStore(str(tmp / "man" / "train.tsv")).precut(np.random.default_rng(SEED), 4, T)
+    gen = torch.Generator().manual_seed(SEED + 14)
+    audio = torch.randn(B, T, generator=gen) * 0.1
+    draws = mixing_draws(gen, B, T, cfg, n_noise=len(clips))
+    noise = torch.from_numpy(clips)
+    want = mix_with_draws(audio, draws, cfg, noise)
+    audio_d, noise_d = audio.to(dev), noise.to(dev)
+    draws_d = {k: v.to(dev) for k, v in draws.items()}
+    got = mix_with_draws(audio_d, draws_d, cfg, noise_d)
+    torch.cuda.synchronize()
+    err = float((got.cpu() - want).abs().max())
+    tol = 1e-5 * float(want.abs().max())
+    mixed = int((draws["u_sel"] < cfg.mixing_prob).sum())
+    card_ms = cuda_ms(lambda: mix_batch_device(gen, audio_d, None, cfg, noise_d), iters=10)
+    t0 = time.perf_counter()
+    mix_with_draws(audio, draws, cfg, noise)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    phase("dist", mix_batch_device_max_abs_err=f"{err:.3g}", tol=f"{tol:.3g}", rows_mixed=mixed,
+          card_ms=f"{card_ms:.3f}", cpu_ms=f"{cpu_ms:.1f}", shape=(B, T))
+    if not (torch.isfinite(got).all() and err <= tol and 0 < mixed < B):
+        fail("dist: mix_batch_device on the card disagrees with the CPU")
+    return card_ms
+
+
+def dist_phase(dev, tmp, pipe):
+    """(a) pretrain-hubert --arch large --fsdp over NCCL at world size 1 on
+    the pipeline's files, 2 updates, against the pipeline's unsharded run;
+    (b) two processes on the card over gloo, mesh (2, 1), one Large step on
+    2 of the 4 rows each; (c) the same on mesh (1, 2), tensor parallel on 8
+    heads each; each against the one-process step on the 4 rows (per-tensor
+    gradient gate, sample size, loss, launches per rank); the attention
+    kernels on 8 heads; (d) mix_batch_device on the card against the CPU."""
+    out = tmp / "dist"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    # (a)
+    argv = pipe["argv"] + ["--max-updates", "2", "--checkpoint-dir", str(out / "ckpt"), "--fsdp",
+                           "--coordinator-address", f"127.0.0.1:{free_port()}",
+                           "--num-processes", "1", "--process-id", "0"]
+    (out / "fsdp_cli.json").write_text(json.dumps(argv))
+    (a,) = run_workers("fsdp_cli", 1, out)
+    losses = [r["loss_avg"] for r in a["records"]]
+    phase("dist", run="fsdp_cli", backend=a["backend"], world=a["world"],
+          seconds=f"{a['seconds']:.2f}", losses=",".join(f"{x:.5f}" for x in losses),
+          unsharded_losses=",".join(f"{x:.5f}" for x in pipe["losses"][:2]),
+          launches_l1_conv_attn_fwd_bwd=tuple(a["launches"]), peak_gb=f"{a['peak_gb']:.2f}")
+    if a["backend"] != "nccl" or len(losses) != 2 or not all(a["launches"]) or not all(
+            abs(x - y) <= DIST_LOSS_TOL * abs(y) for x, y in zip(losses, pipe["losses"])):
+        fail("dist (a): the FSDP CLI run disagrees with the unsharded pipeline run")
+    shutil.rmtree(out / "ckpt", ignore_errors=True)
+
+    # the one-process step on all 4 rows, then (b) and (c)
+    ref, ref_grads, state = dist_step(dev)
+    del state
+    torch.cuda.empty_cache()
+    if not all(ref["launches"]):
+        fail(f"dist: a kernel family was not launched in the one-process step: "
+             f"{ref['launches']}")
+    phase("dist", run="one_process", rows=DIST_B, loss=f"{ref['loss']:.5f}",
+          sample_size=ref["sample_size"], grad_norm=f"{ref['grad_norm']:.4f}",
+          launches_l1_conv_attn_fwd_bwd=tuple(ref["launches"]), step_ms=f"{ref['step_ms']:.1f}",
+          peak_gb=f"{ref['peak_gb']:.2f}")
+    res = {"fsdp_cli": a, "one_process": ref}
+    for kind in ("dp", "tp"):
+        ranks = run_workers(kind, 2, out)
+        grads = torch.load(out / f"grads_{kind}.pt", weights_only=True)
+        (out / f"grads_{kind}.pt").unlink()
+        ratio = grad_gate(f"dist_{kind}", grads, ref_grads)
+        del grads
+        for r, x in enumerate(ranks):
+            phase("dist", run=kind, rank=r, loss=f"{x['loss']:.5f}", sample_size=x["sample_size"],
+                  grad_norm=f"{x['grad_norm']:.4f}",
+                  launches_l1_conv_attn_fwd_bwd=tuple(x["launches"]),
+                  step_ms=f"{x['step_ms']:.1f}", peak_gb=f"{x['peak_gb']:.2f}",
+                  allreduce_calls_per_step=x["allreduce_calls_per_step"],
+                  allreduce_mbytes_per_step=f"{x['allreduce_mbytes_per_step']:.1f}",
+                  **{k: f"{x[k]:.2f}" for k in ("grad_allreduce_ms", "activation_allreduce_ms")
+                     if k in x})
+            if x["sample_size"] != ref["sample_size"] or tuple(x["launches"]) != tuple(
+                    ref["launches"]) or abs(x["loss"] - ref["loss"]) > DIST_LOSS_TOL * abs(
+                    ref["loss"]):
+                fail(f"dist ({kind}) rank {r}: sample size, launches or loss differ from "
+                     "the one-process step")
+        res[kind] = dict(ranks=ranks, grad_gate=ratio)
+    res["tp_attention_err"] = tp_attention_parity(dev)
+    res["mix_card_ms"] = mixing_on_card(dev, tmp)
+    shutil.rmtree(out, ignore_errors=True)
+    return res
 
 
 LETTERS = "| E T A O N I H S R D L U M W C F G Y P B V K ' X J Q Z".split()
@@ -3070,8 +3460,11 @@ def main() -> int:
     # fine-tuning of its export and decoding to a WER
     tmp = _build.BUILD_DIR / "smoke_pipeline"
     try:
-        pipeline_phase(counters, tmp)
+        pipe = pipeline_phase(counters, tmp)
         clock.done("pipeline")
+        # training across processes on the one card
+        dist = dist_phase(dev, tmp, pipe)
+        clock.done("dist")
         ctc_pipeline_phase(counters, tmp)
         clock.done("ctc_pipeline")
         # seq2seq fine-tuning and decoding, the Transformer LM and its fusion
@@ -3225,6 +3618,13 @@ def main() -> int:
             0 if base_i is None else spk["ver"]["base"]["launches"][base_i])
         r["speaker_launches_diarize_recording"] = (
             0 if large_i is None else spk["recs"][0][0][large_i])
+        # the dist phase's launches: the FSDP CLI run (2 updates), and one
+        # rank's step on the (2, 1) and (1, 2) meshes (Large, its forms)
+        r["dist_launches_fsdp_cli"] = 0 if idx is None else dist["fsdp_cli"]["launches"][idx]
+        r["dist_launches_dp_rank"] = (0 if idx is None
+                                      else dist["dp"]["ranks"][0]["launches"][idx])
+        r["dist_launches_tp_rank"] = (0 if idx is None
+                                      else dist["tp"]["ranks"][0]["launches"][idx])
     for r in rows:
         phase("times", **{k: (f"{v:.4f}" if isinstance(v, float) else
                               "null" if v is None else v)
@@ -3305,6 +3705,21 @@ def main() -> int:
               audio_sec_per_s=f"{e['audio_s'] / (e['step_ms'] / 1e3):.1f}",
               peak_memory_gb=f"{e['peak_gb']:.2f}", profiled_busy_ms=f"{e['busy_ms']:.3f}",
               profiled_wall_ms=f"{e['wall_ms']:.3f}", kernel_launches_per_step=e["launches"])
+    one = dist["one_process"]
+    phase("e2e_dist", one_process_step_ms=f"{one['step_ms']:.1f}",
+          one_process_peak_gb=f"{one['peak_gb']:.2f}",
+          dp_step_ms=",".join(f"{x['step_ms']:.1f}" for x in dist["dp"]["ranks"]),
+          dp_peak_gb=",".join(f"{x['peak_gb']:.2f}" for x in dist["dp"]["ranks"]),
+          dp_grad_allreduce_ms=",".join(f"{x['grad_allreduce_ms']:.2f}"
+                                        for x in dist["dp"]["ranks"]),
+          tp_step_ms=",".join(f"{x['step_ms']:.1f}" for x in dist["tp"]["ranks"]),
+          tp_peak_gb=",".join(f"{x['peak_gb']:.2f}" for x in dist["tp"]["ranks"]),
+          tp_activation_allreduce_ms=",".join(f"{x['activation_allreduce_ms']:.2f}"
+                                              for x in dist["tp"]["ranks"]),
+          tp_allreduce_calls_per_step=dist["tp"]["ranks"][0]["allreduce_calls_per_step"],
+          fsdp_cli_seconds=f"{dist['fsdp_cli']['seconds']:.1f}",
+          mix_batch_device_ms=f"{dist['mix_card_ms']:.3f}", backend_dp_tp="gloo",
+          backend_fsdp_cli="nccl")
     clock.done("times")
 
     print(json.dumps({"kernels": rows}), flush=True)
@@ -3315,4 +3730,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["dist-worker"]:
+        dist_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]),
+                    sys.argv[6])
+        sys.exit(0)
     sys.exit(main())

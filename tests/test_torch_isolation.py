@@ -4,7 +4,8 @@ pretraining step (and one with the UniSpeech-SAT branch), a UniSpeech
 multitask step, a frozen and an unfrozen CTC fine-tuning step, a beam
 decode run, and the ECAPA-TDNN and diarization heads' forwards on the
 tiny features, in a fresh interpreter, which must end with no ``jax`` and no
-``unispeech_tpu.`` module loaded and no kernel library built."""
+``unispeech_tpu.`` module loaded, no kernel library (CUDA or native host)
+built, and no process group made."""
 
 import subprocess
 import sys
@@ -30,7 +31,10 @@ SCRIPT = textwrap.dedent("""
                 "decode.arpa", "decode.beam", "decode.wer", "models.ctc", "ops.ctc",
                 "train.tasks", "ops.quantizer", "models.wav2vec2", "data.multilingual",
                 "convert.fairseq", "downstream", "downstream.ecapa_tdnn",
-                "downstream.diarization", "downstream.verification", "downstream.diarize"}
+                "downstream.diarization", "downstream.verification", "downstream.diarize",
+                "parallel", "parallel.bootstrap", "parallel.sharding",
+                "parallel.tensor_parallel", "native", "data.s2t", "data.chunk_stream",
+                "data.feats"}
     missing = {"unispeech_tpu_torch." + n for n in pipeline} - names
     assert not missing, missing
 
@@ -129,6 +133,10 @@ SCRIPT = textwrap.dedent("""
                  or m.startswith("unispeech_tpu."))
     assert not bad, bad
     assert _build._lib is None
+    from unispeech_tpu_torch import native
+    assert native._lib is None
+    import torch.distributed as dist
+    assert not dist.is_initialized()
     print("ok")
 """)
 

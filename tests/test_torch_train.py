@@ -21,6 +21,8 @@ eps = 1e-6 bounds the normalised step of a near-zero gradient).
 """
 
 import dataclasses
+import os
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +52,8 @@ from unispeech_tpu_torch.train import optim
 from unispeech_tpu_torch.train.losses import HubertCriterionConfig, hubert_loss
 from unispeech_tpu_torch.train.state import create_train_state, make_train_step
 from unispeech_tpu_torch.train.tasks import make_hubert_loss_fn
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
 
 ENC = dict(
     conv_layers=((32, 10, 5), (32, 3, 2), (32, 2, 2)),
@@ -354,14 +358,21 @@ def test_dropout_training_is_reproducible_and_random():
 
 
 def test_not_ported_raise(tmp_path):
-    """What is still not ported raises: sharding, pretrain-hubert's
-    --n-model > 1, --fsdp and multi-host flags. The GLU feed-forward and
-    training with iPQ noise (quant_noise_pq) now run: a train step of each
-    is finite and moves the parameters."""
+    """What once raised as not ported runs: the GLU feed-forward and
+    training with iPQ noise (quant_noise_pq), a train step of each finite
+    and moving the parameters; and pretrain-hubert with --fsdp and the
+    multi-process flags (one process, a world of one, so
+    shard_train_state's FSDP through the loop) and with --n-model 2 over
+    two processes launched as torchrun launches them (its environment
+    variables; tensor parallelism), each to a finite loss logged by rank 0
+    alone and a checkpoint. Its multi-process half runs the CLI in
+    subprocesses, each with a timeout of its own."""
     import dataclasses as dc
-
-    from unispeech_tpu_torch.train import __main__ as train_cli
-    from unispeech_tpu_torch.train.state import shard_train_state
+    import json
+    import socket
+    import subprocess
+    import sys
+    import wave
 
     _, cfg = configs()
     for over in (dict(activation_fn="glu"), dict(quant_noise_pq=0.1)):
@@ -376,13 +387,61 @@ def test_not_ported_raise(tmp_path):
         assert np.isfinite(float(met["grad_norm"])) and float(met["grad_norm"]) > 0, over
         moved = [k for k, v in model.state_dict().items() if not torch.equal(v, before[k])]
         assert "encoder.layers.0.fc2.weight" in moved, over
-    with pytest.raises(NotImplementedError):
-        shard_train_state(None)
-    (tmp_path / "m.tsv").write_text(f"{tmp_path}\n")
-    (tmp_path / "l.km").write_text("")
-    base = ["pretrain-hubert", "--manifest", str(tmp_path / "m.tsv"), "--labels",
-            str(tmp_path / "l.km"), "--device", "cpu"]
-    for extra in (["--n-model", "2"], ["--fsdp"],
-                  ["--coordinator-address", "localhost:1234"]):
-        with pytest.raises(NotImplementedError):
-            train_cli.main(base + extra)
+    rng = np.random.default_rng(0)
+    rows, labs = [], []
+    for i in range(4):
+        m = int(rng.integers(12000, 20000))
+        pcm = np.clip(rng.standard_normal(m) * 3000, -32768, 32767).astype(np.int16)
+        with wave.open(str(tmp_path / f"u{i}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(pcm.tobytes())
+        rows.append(f"u{i}.wav\t{m}")
+        labs.append(" ".join(str(x) for x in rng.integers(0, 10, 1 + (m - 400) // 160)))
+    (tmp_path / "m.tsv").write_text(f"{tmp_path}\n" + "\n".join(rows) + "\n")
+    (tmp_path / "l.km").write_text("\n".join(labs) + "\n")
+    tiny = dict(conv_layers=[[32, 10, 5], [32, 3, 2], [32, 3, 2], [32, 2, 2]],
+                encoder_layers=2, encoder_embed_dim=32, encoder_ffn_embed_dim=64,
+                encoder_attention_heads=2, conv_pos=8, conv_pos_groups=2, num_buckets=16,
+                max_distance=32)
+    base = [sys.executable, "-m", "unispeech_tpu_torch.train", "pretrain-hubert",
+            "--manifest", str(tmp_path / "m.tsv"), "--labels", str(tmp_path / "l.km"),
+            "--label-rate", "100", "--num-classes", "10", "--arch", "large",
+            "--encoder-json", json.dumps(tiny), "--max-tokens", "40000",
+            "--max-sample-size", "20000", "--min-sample-size", "8000", "--max-updates", "2",
+            "--log-interval", "1", "--save-interval-updates", "2", "--device", "cpu"]
+
+    def port():
+        with socket.socket() as so:
+            so.bind(("127.0.0.1", 0))
+            return str(so.getsockname()[1])
+
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    # the FSDP run takes the flags, the two TP ranks torchrun's variables
+    runs = {"fsdp": (["--fsdp", "--coordinator-address", f"127.0.0.1:{port()}",
+                      "--num-processes", "1", "--process-id", "0"], env)}
+    tp_env = dict(env, MASTER_ADDR="127.0.0.1", MASTER_PORT=port(), WORLD_SIZE="2")
+    for r in range(2):
+        runs[f"tp{r}"] = (["--n-model", "2"], dict(tp_env, RANK=str(r), LOCAL_RANK=str(r)))
+    procs = {name: subprocess.Popen(base + extra + ["--checkpoint-dir",
+                                                    str(tmp_path / name.rstrip("01"))],
+                                    cwd=REPO, env=penv, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, (extra, penv) in runs.items()}
+    logs = {}
+    for name, proc in procs.items():
+        try:
+            _, err = proc.communicate(timeout=240)
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+            raise
+        assert proc.returncode == 0, (name, err[-3000:])
+        logs[name] = [json.loads(line) for line in err.splitlines()
+                      if line.startswith('{"tag": "train"')]
+    for name in ("fsdp", "tp0"):
+        assert [r["step"] for r in logs[name]] == [1, 2], name
+        assert all(np.isfinite(r["loss_avg"]) for r in logs[name]), name
+        assert sorted(os.listdir(tmp_path / name.rstrip("0"))) == ["2"], name
+    assert logs["tp1"] == []

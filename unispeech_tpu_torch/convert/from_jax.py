@@ -606,23 +606,25 @@ def jax_params_of(model: torch.nn.Module) -> dict:
     from unispeech_tpu_torch.models.lm import TransformerLM
     from unispeech_tpu_torch.models.seq2seq import Seq2SeqModel
     from unispeech_tpu_torch.models.wav2vec2 import Wav2Vec2PretrainModel
+    from unispeech_tpu_torch.parallel.sharding import full_state_dict
 
+    # a model placed on a mesh gives its tensors whole (collective)
+    sd = full_state_dict(model)
     if isinstance(model, Seq2SeqModel):
-        return jax_params_from_seq2seq_state_dict(model.state_dict(), model.wavlm.cfg.encoder)
+        return jax_params_from_seq2seq_state_dict(sd, model.wavlm.cfg.encoder)
     if isinstance(model, TransformerLM):
-        return jax_params_from_lm_state_dict(model.state_dict())
+        return jax_params_from_lm_state_dict(sd)
     if isinstance(model, EcapaTdnn):
-        return jax_params_from_ecapa_state_dict(model.state_dict())[0]
+        return jax_params_from_ecapa_state_dict(sd)[0]
     if isinstance(model, TransformerDiarization):
-        return jax_params_from_diarization_state_dict(model.state_dict(),
-                                                      model.cfg.num_heads)
+        return jax_params_from_diarization_state_dict(sd, model.cfg.num_heads)
 
     if isinstance(model, HubertPretrainModel):
-        return jax_params_from_hubert_state_dict(model.state_dict(), model.pcfg)
+        return jax_params_from_hubert_state_dict(sd, model.pcfg)
     if isinstance(model, Wav2Vec2PretrainModel):
-        return jax_params_from_wav2vec2_state_dict(model.state_dict(), model.wcfg)
+        return jax_params_from_wav2vec2_state_dict(sd, model.wcfg)
     if isinstance(model, CtcFinetuneModel):
-        return jax_params_from_ctc_state_dict(model.state_dict(), model.wavlm.cfg.encoder)
+        return jax_params_from_ctc_state_dict(sd, model.wavlm.cfg.encoder)
     raise NotImplementedError(f"no params export for {type(model).__name__} yet")
 
 

@@ -1,11 +1,11 @@
 """Token-budget batch packing and static-shape bucketing (host numpy).
 
-Counterpart of the JAX package's ``data/batching.py``: ``batch_by_size`` is
-its Python scan (one linear pass over caller-ordered indices, closing a
-batch when the token budget max_len * bsz or the sentence cap would
-overflow, aligned down to a bsz multiple); the JAX package's native packer
-(``native/packer.cpp``) gives the same batches faster and is not ported
-yet. Bucket lengths, the per-epoch orders and the per-host batch shards
+Counterpart of the JAX package's ``data/batching.py``: ``batch_by_size``
+runs the native packer (``native/packer.cpp``), one linear pass over
+caller-ordered indices closing a batch when the token budget max_len * bsz
+or the sentence cap would overflow, aligned down to a bsz multiple;
+``batch_by_size_plain`` is the same scan in Python, its plain version.
+Bucket lengths, the per-epoch orders and the per-data-rank batch shards
 are the JAX package's.
 """
 
@@ -36,6 +36,17 @@ def batch_by_size(
 ) -> List[np.ndarray]:
     """Consecutive runs of ``indices`` whose padded size stays within the
     budget; raises when one index alone exceeds ``max_tokens``."""
+    from unispeech_tpu_torch.native import batch_by_size_native
+
+    indices, sizes = _checked(indices, sizes, max_tokens)
+    out, start = [], 0
+    for end in batch_by_size_native(sizes, max_tokens, max_sentences, bsz_mult):
+        out.append(indices[start:end])
+        start = end
+    return out
+
+
+def _checked(indices, sizes, max_tokens):
     indices = np.asarray(indices)
     sizes = np.asarray(sizes)
     if max_tokens > 0 and len(sizes) and int(sizes.max()) > max_tokens:
@@ -43,6 +54,18 @@ def batch_by_size(
         raise AssertionError(
             f"sentence at index {bad} of size {int(sizes.max())} exceeds "
             f"max_tokens limit of {max_tokens}")
+    return indices, sizes
+
+
+def batch_by_size_plain(
+    indices: np.ndarray,
+    sizes: np.ndarray,
+    max_tokens: int = 0,
+    max_sentences: int = 0,
+    bsz_mult: int = 1,
+) -> List[np.ndarray]:
+    """The Python scan of ``batch_by_size``: its plain version."""
+    indices, sizes = _checked(indices, sizes, max_tokens)
     batches: List[np.ndarray] = []
     start = 0
     sample_len = 0  # max size within the current batch

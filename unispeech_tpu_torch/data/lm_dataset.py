@@ -53,11 +53,17 @@ class TokenBlockDataset:
 class LMIterator:
     """Endless fixed-shape batches ``{"tokens": (B, block) inputs,
     "targets": (B, block) next tokens}``; a short block is padded with
-    ``padding_idx``, which the loss masks."""
+    ``padding_idx``, which the loss masks. With ``num_shards`` > 1 this
+    iterator yields every num_shards-th batch of each epoch from
+    ``shard_id`` (the data ranks' shares, the tail that does not fill a
+    round dropped), ``batch_offset`` counting this shard's batches."""
 
     def __init__(self, dataset: TokenBlockDataset, batch_size: int, padding_idx: int,
-                 seed: int = 1, epoch: int = 0, batch_offset: int = 0):
+                 seed: int = 1, epoch: int = 0, batch_offset: int = 0, num_shards: int = 1,
+                 shard_id: int = 0):
         self.dataset = dataset
+        self.num_shards = num_shards
+        self.shard_id = shard_id
         self.batch_size = batch_size
         self.padding_idx = padding_idx
         self.seed = seed
@@ -74,15 +80,17 @@ class LMIterator:
     def __iter__(self) -> Iterator[dict]:
         n = len(self.dataset)
         block = self.dataset.block_size
-        if n // self.batch_size == 0:
+        if n // self.batch_size < self.num_shards:
             raise ValueError(
                 f"corpus too small: {n} blocks of {block} tokens cannot fill one batch of "
-                f"{self.batch_size}; reduce --batch-size/--block-size or add data")
+                f"{self.batch_size} for each of {self.num_shards} data rank(s); reduce "
+                "--batch-size/--block-size or add data")
         while True:
             order = np.random.default_rng(
                 np.random.SeedSequence([self.seed, self.epoch])).permutation(n)
-            for bi in range(self.batch_offset, n // self.batch_size):
-                idx = order[bi * self.batch_size:(bi + 1) * self.batch_size]
+            for bi in range(self.batch_offset, n // self.batch_size // self.num_shards):
+                gi = bi * self.num_shards + self.shard_id
+                idx = order[gi * self.batch_size:(gi + 1) * self.batch_size]
                 buf = np.full((self.batch_size, block + 1), self.padding_idx, np.int32)
                 for r, i in enumerate(idx):
                     chunk = self.dataset[int(i)]

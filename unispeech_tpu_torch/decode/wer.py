@@ -1,8 +1,9 @@
 """Edit distance and WER/UER scoring.
 
-Counterpart of the JAX package's ``decode/wer.py``: a numpy Levenshtein
-row DP (the JAX package first tries its C++ kernel; the distances are the
-same integers) and fairseq's ``post_process`` detokenization.
+Counterpart of the JAX package's ``decode/wer.py``: Levenshtein distances
+from the native kernel (``native/packer.cpp``), with the numpy row DP
+``edit_distance_plain`` as its plain version, and fairseq's
+``post_process`` detokenization.
 """
 
 from __future__ import annotations
@@ -15,6 +16,19 @@ import numpy as np
 
 def edit_distance(a: Sequence, b: Sequence) -> int:
     """Levenshtein distance between two sequences of hashables."""
+    from unispeech_tpu_torch.native import edit_distance_native
+
+    if len(a) == 0:
+        return len(b)
+    if len(b) == 0:
+        return len(a)
+    vocab: dict = {}
+    return edit_distance_native([vocab.setdefault(x, len(vocab)) for x in a],
+                                [vocab.setdefault(x, len(vocab)) for x in b])
+
+
+def edit_distance_plain(a: Sequence, b: Sequence) -> int:
+    """The numpy row DP of ``edit_distance``: its plain version."""
     if len(a) == 0:
         return len(b)
     if len(b) == 0:

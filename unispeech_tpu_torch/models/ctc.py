@@ -24,7 +24,7 @@ from torch import nn
 from unispeech_tpu_torch.configs import EncoderConfig, MaskConfig, WavLMModelConfig
 from unispeech_tpu_torch.models.encoder import linear, reset_parameters
 from unispeech_tpu_torch.models.wavlm import WavLM
-from unispeech_tpu_torch.ops.dropout import draw_seeds, seed_dropout
+from unispeech_tpu_torch.ops.dropout import row_seed, seed_dropout
 
 
 @dataclass(frozen=True)
@@ -82,7 +82,7 @@ class CtcFinetuneModel(nn.Module):
                              deterministic=deterministic, generator=generator)
         h = out.x
         if cfg.final_dropout > 0.0 and not deterministic:
-            h = seed_dropout(h, int(draw_seeds(generator, 1)), cfg.final_dropout)
+            h = seed_dropout(h, row_seed(generator), cfg.final_dropout)
         logits = linear(h, self.proj, self.dtype).float()
         if out.padding_mask is not None:
             frame_lengths = (~out.padding_mask).sum(-1)

@@ -28,6 +28,25 @@ layer in the backward via ``torch.utils.checkpoint``. Every random draw
 comes from the host-side generator before the layers run: the seeds are
 arguments of the checkpointed functions, so a recompute draws the masks it
 drew the first time.
+
+Across processes (``parallel/``) every rank gets the step's generator from
+the same (seed, update), and the draws keep three rules:
+
+- a draw that decides control flow or touches a tensor the model ranks
+  hold alike is the same on every rank: layerdrop's ``keep``, the iPQ
+  seeds, and (within a data rank) the residual-stream dropout. A rank that
+  skipped a layer the others run would hang FSDP's all-gather; replicated
+  activations that differ across model ranks break tensor parallelism
+  silently;
+- a draw on a tensor split over the model ranks differs by model rank: the
+  local heads' attention dropout and the FFN slice's activation dropout
+  fold the model rank into their seeds;
+- a draw on batch rows differs by data rank: the dropout seeds of rows fold
+  the data rank in, and the samplers of the models (masks, negatives,
+  codebook draws) draw from ``ops.dropout.row_generator``.
+
+With one data rank and one model rank every draw is the single-process
+one, bit for bit (``fold_ranks`` of rank 0 is the seed itself).
 """
 
 from __future__ import annotations
@@ -43,11 +62,13 @@ from torch.utils.checkpoint import checkpoint
 
 from unispeech_tpu_torch.configs import EncoderConfig
 from unispeech_tpu_torch.ops.attention import multihead_attention, rel_pos_gate
-from unispeech_tpu_torch.ops.dropout import draw_seeds, seed_dropout
+from unispeech_tpu_torch.ops.dropout import draw_seeds, fold_ranks, seed_dropout
 from unispeech_tpu_torch.ops.kernels.conv_stack import conv_gelu_block
 from unispeech_tpu_torch.ops.kernels.flash_attention import fused_attention
 from unispeech_tpu_torch.ops.kernels.l1_frontend import l1_conv_with_stats
 from unispeech_tpu_torch.ops.rel_pos import compute_rel_pos_bias
+from unispeech_tpu_torch.parallel.sharding import data_rank
+from unispeech_tpu_torch.parallel.tensor_parallel import copy_to_model, reduce_from_model
 
 
 class _GradMultiply(torch.autograd.Function):
@@ -95,9 +116,15 @@ def get_activation(name: str):
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype,
            noise: Optional["QuantNoise"] = None) -> torch.Tensor:
     """Dense layer computed in ``dtype`` from fp32 parameters; with
-    ``noise`` the weight carries iPQ quantization noise."""
+    ``noise`` the weight carries iPQ quantization noise. A linear whose
+    input columns are split over the model ranks (``tp_split`` dim 1) sums
+    its partial products over them and adds its bias after."""
+    split = getattr(layer, "tp_split", None)
+    weight = layer.weight if noise is None else noise.apply(layer.weight, split)
+    if split is not None and split[0] == 1:
+        y = reduce_from_model(F.linear(x.to(dtype), weight.to(dtype)), split[1])
+        return y if layer.bias is None else y + layer.bias.to(dtype)
     bias = None if layer.bias is None else layer.bias.to(dtype)
-    weight = layer.weight if noise is None else noise.apply(layer.weight)
     return F.linear(x.to(dtype), weight.to(dtype), bias)
 
 
@@ -122,14 +149,21 @@ class QuantNoise:
     p: float
     block_size: int
 
-    def apply(self, weight: torch.Tensor) -> torch.Tensor:  # (out, in)
+    def apply(self, weight: torch.Tensor, split=None) -> torch.Tensor:  # (out, in)
+        """``split`` (the linear's ``tp_split``): ``weight`` is this model
+        rank's slice, and its mask the same slice of the whole weight's."""
         out_f, in_f = weight.shape
+        if split is not None:
+            dim, tp = split
+            out_f, in_f = (out_f * tp.size, in_f) if dim == 0 else (out_f, in_f * tp.size)
         if in_f % self.block_size:
             raise ValueError(f"{in_f} input features are not a multiple of the "
                              f"quant-noise block {self.block_size}")
         drop = quant_noise_blocks(self.seed, in_f // self.block_size, out_f, self.p,
                                   weight.device)
         mask = drop.repeat_interleave(self.block_size, dim=0).t()
+        if split is not None:
+            mask = mask.chunk(tp.size, dim=dim)[tp.rank]
         return torch.where(mask, torch.zeros((), dtype=weight.dtype, device=weight.device),
                            weight) / (1.0 - self.p)
 
@@ -399,7 +433,8 @@ class SelfAttention(nn.Module):
         self.dtype = dtype
         D = cfg.encoder_embed_dim
         H = cfg.encoder_attention_heads
-        self.num_heads = H
+        self.num_heads = H  # this model rank's heads under tensor parallelism
+        self.tp = None  # the ModelGroup once tensor_parallel.py splits the heads
         self.head_dim = D // H
         self.qk_head_dim = (cfg.expand_attention_head_size
                             if cfg.expand_attention_head_size > 0 else self.head_dim)
@@ -422,13 +457,20 @@ class SelfAttention(nn.Module):
         H, hd, hq = self.num_heads, self.head_dim, self.qk_head_dim
         rate = self.cfg.attention_dropout if dropout_seed is not None else 0.0
         noise = noise or {}
+        tp = self.tp
+        x = copy_to_model(x, tp)
         q = linear(x, self.q_proj, self.dtype, noise.get("q_proj")).view(B, T, H, hq)
         k = linear(x, self.k_proj, self.dtype, noise.get("k_proj")).view(B, T, H, hq)
         v = linear(x, self.v_proj, self.dtype, noise.get("v_proj")).view(B, T, H, hd)
         gate = None
         if position_bias is not None and self.cfg.gru_rel_pos:
-            gate = rel_pos_gate(x, self.grep_linear.weight.t(), self.grep_linear.bias,
-                                self.grep_a, H)
+            w, b, a, xg = (self.grep_linear.weight, self.grep_linear.bias, self.grep_a, x)
+            if tp is not None:  # this rank's heads: their gate scales, their chunks of x
+                h0 = tp.rank * H
+                w, b = copy_to_model(w, tp), copy_to_model(b, tp)
+                a = copy_to_model(a, tp)[:, h0:h0 + H]
+                xg = x[..., h0 * hd:(h0 + H) * hd]
+            gate = rel_pos_gate(xg, w.t(), b, a, H)
         if self.cfg.use_flash_attention and hq == hd:
             out = fused_attention(q, k, v, position_bias, gate, key_padding_mask,
                                   attn_mask=attn_mask, dropout_rate=rate,
@@ -445,7 +487,8 @@ class SelfAttention(nn.Module):
             out = multihead_attention(q, k, v, bias=bias,
                                       key_padding_mask=key_padding_mask,
                                       dropout_rate=rate, dropout_seed=dropout_seed)
-        return linear(out.reshape(B, T, D), self.out_proj, self.dtype, noise.get("out_proj"))
+        return linear(out.reshape(B, T, H * hd), self.out_proj, self.dtype,
+                      noise.get("out_proj"))
 
 
 # the linears iPQ noise acts on, in the order a layer draws their seeds
@@ -480,9 +523,11 @@ class TransformerEncoderLayer(nn.Module):
         self.fc1 = GLULinear(D, F_) if self.glu else nn.Linear(D, F_)
         self.fc2 = nn.Linear(F_, D)
         self.final_layer_norm = Fp32LayerNorm(D, cfg.layer_norm_eps)
+        self.tp = None  # the ModelGroup once tensor_parallel.py splits the FFN
 
     def _ffn(self, h, act_seed=None, noise=None):
         noise = noise or {}
+        h = copy_to_model(h, self.tp)
         if self.glu:
             h = self.fc1(h, self.dtype)
         else:
@@ -540,6 +585,7 @@ class TransformerEncoder(nn.Module):
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(cfg, dtype, cfg.relative_position_embedding and i == 0)
             for i in range(cfg.encoder_layers))
+        self.tp = None  # the ModelGroup of tensor-parallel layers
 
     def forward(self, x, padding_mask=None, collect_layer_outputs: bool = False,
                 output_layer: Optional[int] = None, attn_mask=None,
@@ -561,17 +607,21 @@ class TransformerEncoder(nn.Module):
         if generator is not None:
             seeds = draw_seeds(generator, 4 * n_layers + 1)
             u_drop = torch.rand(n_layers, generator=generator).tolist()
+            dr, mr = data_rank(), self.tp.rank if self.tp is not None else 0
+            if dr or mr:  # this rank's heads and FFN units: their own masks
+                seeds[1:1 + n_layers] = torch.tensor(
+                    [fold_ranks(s, dr, mr) for s in seeds[1:1 + n_layers].tolist()])
             attn_seeds = seeds[1:1 + n_layers].to(x.device, non_blocking=True)
             host = seeds.tolist()
             if cfg.dropout > 0.0:
-                x = seed_dropout(x, host[0], cfg.dropout)
-            opt = lambda rate, seed: seed if rate > 0.0 else None
+                x = seed_dropout(x, fold_ranks(host[0], dr), cfg.dropout)
+            opt = lambda rate, seed, *ranks: fold_ranks(seed, *ranks) if rate > 0.0 else None
             for i in range(n_layers):
                 j = 1 + n_layers + 3 * i
                 layer_seeds[i] = LayerSeeds(
                     attn_seeds[i:i + 1] if cfg.attention_dropout > 0.0 else None,
-                    (opt(cfg.dropout, host[j]), opt(cfg.dropout, host[j + 1])),
-                    opt(cfg.activation_dropout, host[j + 2]))
+                    (opt(cfg.dropout, host[j], dr), opt(cfg.dropout, host[j + 1], dr)),
+                    opt(cfg.activation_dropout, host[j + 2], dr, mr))
                 keep[i] = not (cfg.encoder_layerdrop > 0.0 and u_drop[i] <= cfg.encoder_layerdrop)
             if cfg.quant_noise_pq > 0.0:
                 # drawn after the other seeds, so a model without the noise
@@ -588,6 +638,9 @@ class TransformerEncoder(nn.Module):
         position_bias = None
         if cfg.relative_position_embedding:
             table = self.layers[0].self_attn.relative_attention_bias.weight
+            if self.tp is not None:  # the bias rows of this rank's heads
+                h = table.shape[1] // self.tp.size
+                table = copy_to_model(table, self.tp)[:, self.tp.rank * h:(self.tp.rank + 1) * h]
             T = x.shape[1]
             position_bias = compute_rel_pos_bias(
                 table, T, T, cfg.num_buckets, cfg.max_distance, dtype=self.dtype)

@@ -29,7 +29,8 @@ from unispeech_tpu_torch.models.seq2seq import (
     make_positions,
     sinusoidal_positions,
 )
-from unispeech_tpu_torch.ops.dropout import draw_seeds, seed_dropout
+from unispeech_tpu_torch.ops.dropout import draw_seeds, fold_ranks, seed_dropout
+from unispeech_tpu_torch.parallel.sharding import data_rank
 
 
 @dataclass(frozen=True)
@@ -141,7 +142,8 @@ class TransformerLM(nn.Module):
             x = x + embed_lookup(pos, self.embed_positions, self.dtype)
         else:
             x = x + self.sin_table[pos].to(self.dtype)
-        seeds = draw_seeds(generator, 1 + 2 * len(self.layers)).tolist() if train else None
+        seeds = ([fold_ranks(s, data_rank()) for s in
+                  draw_seeds(generator, 1 + 2 * len(self.layers)).tolist()] if train else None)
         if train:
             x = seed_dropout(x, seeds[0], c.dropout)
         causal = torch.triu(torch.full((S, S), NEG_INF, device=x.device), 1)[None, None]

@@ -37,7 +37,8 @@ from torch import nn
 from unispeech_tpu_torch.configs import EncoderConfig, MaskConfig, WavLMModelConfig
 from unispeech_tpu_torch.models.encoder import Fp32LayerNorm, gelu_fp32, linear, reset_parameters
 from unispeech_tpu_torch.models.wavlm import WavLM
-from unispeech_tpu_torch.ops.dropout import draw_seeds, seed_dropout
+from unispeech_tpu_torch.ops.dropout import draw_seeds, fold_ranks, row_seed, seed_dropout
+from unispeech_tpu_torch.parallel.sharding import data_rank
 
 NEG_INF = -1e30
 
@@ -231,7 +232,7 @@ class TransformerDecoder(nn.Module):
         x = self.embed(prev_tokens)
         train = generator is not None
         if train and c.dropout > 0.0:
-            x = seed_dropout(x, int(draw_seeds(generator, 1)), c.dropout)
+            x = seed_dropout(x, row_seed(generator), c.dropout)
         causal = torch.triu(torch.full((S, S), NEG_INF, device=dev), 1)[None, None]
         enc_mask = None
         if enc_padding_mask is not None:
@@ -241,7 +242,8 @@ class TransformerDecoder(nn.Module):
             enc_k, enc_v = layer.encoder_attn.kv(enc_out)
             seeds = None
             if train:
-                seeds = dict(zip(DROP_SITES, draw_seeds(generator, len(DROP_SITES)).tolist()))
+                seeds = dict(zip(DROP_SITES, [fold_ranks(s, data_rank()) for s in
+                                               draw_seeds(generator, len(DROP_SITES)).tolist()]))
             y = layer(x, self_k, self_v, causal, enc_k, enc_v, enc_mask, seeds)
             if train and c.layerdrop > 0.0:
                 if not float(torch.rand((), generator=generator)) > c.layerdrop:

@@ -40,7 +40,7 @@ from unispeech_tpu_torch.configs import Wav2Vec2PretrainConfig, WavLMModelConfig
 from unispeech_tpu_torch.models.encoder import linear, reset_parameters
 from unispeech_tpu_torch.models.hubert import GLUProj, gathered_cosine_logits, unit_norm
 from unispeech_tpu_torch.models.wavlm import WavLM
-from unispeech_tpu_torch.ops.dropout import device_generator, draw_seeds, seed_dropout
+from unispeech_tpu_torch.ops.dropout import device_generator, row_seed, seed_dropout
 from unispeech_tpu_torch.ops.quantizer import GumbelVectorQuantizer
 
 NEG_IS_POS = -(2.0 ** 30)  # the logit of a negative equal to its positive
@@ -152,7 +152,7 @@ class Wav2Vec2PretrainModel(WavLM):
         # projection), with dropout_features
         unmasked = out.conv_features
         if cfg.encoder.dropout_features > 0.0 and not deterministic:
-            unmasked = seed_dropout(unmasked, int(draw_seeds(generator, 1)),
+            unmasked = seed_dropout(unmasked, row_seed(generator),
                                     cfg.encoder.dropout_features)
         B, T, _ = unmasked.shape
         vq_result = vq_ids = cb_negs = cb_ids = None
@@ -199,7 +199,7 @@ class Wav2Vec2PretrainModel(WavLM):
                 rep = replace_mask(generator, cfg.replace_prob, (B, T), h.device)
                 h = torch.where(rep[..., None], q_stream.to(h.dtype), h)
             if cfg.final_dropout > 0.0 and not deterministic:
-                h = seed_dropout(h, int(draw_seeds(generator, 1)), cfg.final_dropout)
+                h = seed_dropout(h, row_seed(generator), cfg.final_dropout)
             ctc_logits = linear(h, self.proj, self.dtype).float()
         return Wav2Vec2Output(contrastive_logits=logits, vq_result=vq_result,
                               ctc_logits=ctc_logits, q_stream=q_stream, **res)

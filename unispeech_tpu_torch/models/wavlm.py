@@ -22,7 +22,7 @@ from unispeech_tpu_torch.models.encoder import (
     linear,
     reset_parameters,
 )
-from unispeech_tpu_torch.ops.dropout import draw_seeds, seed_dropout
+from unispeech_tpu_torch.ops.dropout import row_generator, row_seed, seed_dropout
 from unispeech_tpu_torch.ops.masking import (
     apply_channel_mask,
     apply_time_mask,
@@ -128,7 +128,7 @@ class WavLM(nn.Module):
         if self.post_extract_proj is not None:
             features = linear(conv_features, self.post_extract_proj, self.dtype)
         if enc.dropout_input > 0.0 and not deterministic:
-            features = seed_dropout(features, int(draw_seeds(generator, 1)), enc.dropout_input)
+            features = seed_dropout(features, row_seed(generator), enc.dropout_input)
 
         mask_indices = None
         x = features
@@ -140,11 +140,11 @@ class WavLM(nn.Module):
             x = apply_time_mask(features, mask_indices, self.mask_emb)
         elif mask and self.cfg.time_mask.mask_prob > 0:
             frame_lengths = None if padding_mask is None else (~padding_mask).sum(-1)
-            mask_indices = sample_span_mask(generator, B, T, self.cfg.time_mask,
+            mask_indices = sample_span_mask(row_generator(generator), B, T, self.cfg.time_mask,
                                             frame_lengths, device=features.device)
             x = apply_time_mask(features, mask_indices, self.mask_emb)
         if mask and self.cfg.channel_mask.mask_prob > 0:
-            ch_mask = sample_span_mask(generator, B, C, self.cfg.channel_mask, None,
+            ch_mask = sample_span_mask(row_generator(generator), B, C, self.cfg.channel_mask, None,
                                        device=features.device)
             x = apply_channel_mask(x, ch_mask)
 

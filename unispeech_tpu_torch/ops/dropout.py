@@ -15,7 +15,10 @@ scaled by 1 / (1 - rate).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from unispeech_tpu_torch.parallel.sharding import data_rank, data_size
 
 SEED_HIGH = 2**62  # seeds are drawn uniformly from [0, SEED_HIGH)
 
@@ -28,12 +31,40 @@ def draw_seeds(generator: torch.Generator, n: int) -> torch.Tensor:
     return torch.randint(0, SEED_HIGH, (n,), generator=generator, dtype=torch.int64)
 
 
+def fold_ranks(seed: int, *ranks: int) -> int:
+    """``seed`` mixed with mesh ranks (``models/encoder.py`` sets out which
+    draws take which); ranks all 0 give ``seed`` itself."""
+    if not any(ranks):
+        return int(seed)
+    state = np.random.SeedSequence([int(seed), *map(int, ranks)]).generate_state(2, np.uint32)
+    return ((int(state[0]) << 32) | int(state[1])) % SEED_HIGH
+
+
+def row_seed(generator: torch.Generator) -> int:
+    """One seed for a dropout on batch rows: a draw from ``generator``, the
+    data rank folded in."""
+    return fold_ranks(int(draw_seeds(generator, 1)), data_rank())
+
+
+def row_generator(generator: torch.Generator) -> torch.Generator:
+    """The host generator a sampler of batch rows draws from: ``generator``
+    itself with one data rank; with more, a generator of its own seeded by
+    one draw with the data rank folded in, so the shared stream advances by
+    one draw whatever this rank's batch shape."""
+    if data_size() == 1:
+        return generator
+    gen = torch.Generator()
+    gen.manual_seed(row_seed(generator))
+    return gen
+
+
 def device_generator(generator: torch.Generator, device=None) -> torch.Generator:
     """A generator on ``device`` seeded by one draw from ``generator`` (a
-    host-side CPU generator): the samplers draw on the tensor's device, and
-    the host generator's stream stays one seed per draw."""
+    host-side CPU generator), the data rank folded in: the samplers of
+    batch rows draw on the tensor's device, and the host generator's stream
+    stays one seed per draw."""
     gen = torch.Generator(device=device if device is not None else "cpu")
-    gen.manual_seed(int(draw_seeds(generator, 1)))
+    gen.manual_seed(row_seed(generator))
     return gen
 
 

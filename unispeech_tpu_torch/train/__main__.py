@@ -23,8 +23,15 @@
 The arguments are the JAX CLI's, plus ``--device`` (default cuda; the CPU
 only when ``--device cpu`` is given). train-lm runs in bf16 whatever the
 flags (``--bf16`` is a store_true defaulting to true, as in the JAX CLI).
-Not ported yet, raising ``NotImplementedError``: tensor parallelism and
-FSDP (``--n-model > 1``, ``--fsdp``) and the multi-host flags.
+
+Across processes: one process per card, launched by ``torchrun`` (or
+SLURM's ``srun``, with ``MASTER_ADDR``/``MASTER_PORT``), or by hand with
+``--coordinator-address host:port --num-processes N --process-id i`` in
+each; the process group is joined before anything else
+(``parallel/bootstrap.py``). ``--n-model`` ranks split each encoder layer
+(tensor parallelism), the world size // n_model data ranks split the batch,
+``--fsdp`` shards the parameters over them. Every iterator's shard is the
+data rank, so the model ranks of one data rank read the same batches.
 """
 
 from __future__ import annotations
@@ -61,8 +68,9 @@ def _common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--encoder-json", default=None,
                    help="JSON dict of EncoderConfig overrides")
     p.add_argument("--n-model", type=int, default=1,
-                   help="tensor-parallel mesh axis (only 1 is ported)")
-    p.add_argument("--fsdp", action="store_true", help="ZeRO-3 param sharding (not ported)")
+                   help="tensor-parallel mesh axis: ranks that split each encoder layer")
+    p.add_argument("--fsdp", action="store_true",
+                   help="ZeRO-3 param sharding over the data ranks")
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--tensorboard-dir", default=None)
     p.add_argument("--wandb-project", default=None,
@@ -79,11 +87,28 @@ def _common(p: argparse.ArgumentParser) -> None:
                    help="write the final params as a flat .npz in the JAX package's layout")
     p.add_argument("--hang-timeout", type=float, default=0.0,
                    help="dump stacks if a step exceeds this many seconds (0 disables)")
+    _launch(p)
+
+
+def _launch(p: argparse.ArgumentParser) -> None:
     p.add_argument("--coordinator-address", default=None,
-                   help="host:port of process 0 for multi-host runs (not ported)")
-    p.add_argument("--num-processes", type=int, default=None, help="not ported")
-    p.add_argument("--process-id", type=int, default=None, help="not ported")
+                   help="host:port of process 0 for a run of several processes")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="processes in the run (one per card)")
+    p.add_argument("--process-id", type=int, default=None, help="this process's rank")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+
+def _shard(args) -> dict:
+    """The iterator shard of this process: its data rank among n_data."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return dict(num_shards=1, shard_id=0)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world % args.n_model:
+        raise ValueError(f"--n-model {args.n_model} does not divide {world} processes")
+    return dict(num_shards=world // args.n_model, shard_id=rank // args.n_model)
 
 
 def _encoder(args, **over):
@@ -144,7 +169,7 @@ def cmd_pretrain_hubert(args) -> None:
     from unispeech_tpu_torch.train.optim import OptimConfig
     from unispeech_tpu_torch.train.tasks import make_hubert_loss_fn
 
-    loop_cfg = _loop_cfg(args)  # raises for the mesh options not ported
+    loop_cfg = _loop_cfg(args)
     enc = _encoder(args, relative_position_embedding=not args.no_rel_pos,
                    gru_rel_pos=not args.no_rel_pos, encoder_layerdrop=0.05)
     labels = [LabelFile(p, args.label_rate) for p in args.labels]
@@ -172,6 +197,7 @@ def cmd_pretrain_hubert(args) -> None:
         mixing=mixing,
         noise=NoiseStore(args.noise_path) if args.noise_path else None,
         seed=args.seed,
+        **_shard(args),
     )
     optim = OptimConfig(lr=args.lr, warmup_steps=args.warmup_steps,
                         total_steps=args.max_updates, clip_norm=args.clip_norm,
@@ -192,7 +218,7 @@ def cmd_pretrain_wav2vec2(args) -> None:
     from unispeech_tpu_torch.train.optim import OptimConfig
     from unispeech_tpu_torch.train.tasks import make_wav2vec2_loss_fn
 
-    loop_cfg = _loop_cfg(args)  # raises for the mesh options not ported
+    loop_cfg = _loop_cfg(args)
     enc = _encoder(args)
     unispeech = args.mtlalpha > 0
     if unispeech and not (args.dict and args.transcripts):
@@ -214,7 +240,8 @@ def cmd_pretrain_wav2vec2(args) -> None:
         man, lang_groups = concat_manifests([Manifest.load(p) for p in man_paths])
     else:
         man = Manifest.load(args.manifest)
-    kw = dict(seed=args.seed, lang_groups=lang_groups, multilang_alpha=args.multilang_alpha)
+    kw = dict(seed=args.seed, lang_groups=lang_groups, multilang_alpha=args.multilang_alpha,
+              **_shard(args))
     if unispeech:
         texts = []
         for p in args.transcripts.split(","):
@@ -246,7 +273,7 @@ def cmd_finetune_ctc(args) -> None:
         make_ctc_valid_decode_fn,
     )
 
-    loop_cfg = _loop_cfg(args)  # raises for the mesh options not ported
+    loop_cfg = _loop_cfg(args)
     d = Dictionary.load(args.dict) if args.dict else Dictionary.letters()
     enc = _encoder(args, relative_position_embedding=not args.no_rel_pos,
                    gru_rel_pos=not args.no_rel_pos)
@@ -261,7 +288,7 @@ def cmd_finetune_ctc(args) -> None:
         load_pretrained_into(model, args.w2v_path)
     texts = pathlib.Path(args.transcripts).read_text().splitlines()
     data = FinetuneIterator(Manifest.load(args.manifest), _data_cfg(args), texts, d,
-                            seed=args.seed)
+                            seed=args.seed, **_shard(args))
 
     valid_kw = {}
     if args.valid_manifest and args.valid_transcripts:
@@ -269,8 +296,8 @@ def cmd_finetune_ctc(args) -> None:
         vtexts = pathlib.Path(args.valid_transcripts).read_text().splitlines()
 
         def valid_batches_fn():
-            return FinetuneIterator(vman, _data_cfg(args), vtexts, d,
-                                    seed=args.seed).epoch_batches(1)
+            return FinetuneIterator(vman, _data_cfg(args), vtexts, d, seed=args.seed,
+                                    **_shard(args)).epoch_batches(1)
 
         lexicon = None
         if args.valid_lexicon:
@@ -312,7 +339,7 @@ def cmd_finetune_seq2seq(args) -> None:
         make_seq2seq_valid_decode_fn,
     )
 
-    loop_cfg = _loop_cfg(args)  # raises for the mesh options not ported
+    loop_cfg = _loop_cfg(args)
     d = Dictionary.load(args.dict) if args.dict else Dictionary.letters()
     enc = _encoder(args, relative_position_embedding=not args.no_rel_pos,
                    gru_rel_pos=not args.no_rel_pos)
@@ -331,15 +358,15 @@ def cmd_finetune_seq2seq(args) -> None:
         load_pretrained_into(model, args.w2v_path)
     texts = pathlib.Path(args.transcripts).read_text().splitlines()
     data = Seq2SeqIterator(Manifest.load(args.manifest), _data_cfg(args), texts, d,
-                           seed=args.seed)
+                           seed=args.seed, **_shard(args))
     valid_kw = {}
     if args.valid_manifest and args.valid_transcripts:
         vman = Manifest.load(args.valid_manifest)
         vtexts = pathlib.Path(args.valid_transcripts).read_text().splitlines()
 
         def valid_batches_fn():
-            return Seq2SeqIterator(vman, _data_cfg(args), vtexts, d,
-                                   seed=args.seed).epoch_batches(1)
+            return Seq2SeqIterator(vman, _data_cfg(args), vtexts, d, seed=args.seed,
+                                   **_shard(args)).epoch_batches(1)
 
         valid_kw = dict(
             valid_batches_fn=valid_batches_fn,
@@ -364,6 +391,8 @@ LM_CONFIG_KEYS = ("vocab_size", "embed_dim", "ffn_dim", "layers", "heads", "drop
 def cmd_train_lm(args) -> None:
     import os
 
+    import torch.distributed as dist
+
     from unispeech_tpu_torch.data.dictionary import Dictionary
     from unispeech_tpu_torch.data.lm_dataset import (
         LMIterator,
@@ -375,7 +404,7 @@ def cmd_train_lm(args) -> None:
     from unispeech_tpu_torch.train.optim import OptimConfig
     from unispeech_tpu_torch.train.tasks import make_lm_loss_fn
 
-    loop_cfg = _loop_cfg(args)  # raises for the mesh options not ported
+    loop_cfg = _loop_cfg(args)
     d = Dictionary.load(args.dict)
     cfg = TransformerLMConfig(vocab_size=len(d), embed_dim=args.embed_dim, ffn_dim=args.ffn_dim,
                               layers=args.layers, heads=args.heads, padding_idx=d.pad(),
@@ -390,15 +419,17 @@ def cmd_train_lm(args) -> None:
     else:
         tokens = tokenize_corpus(args.corpus, d)
     data = LMIterator(TokenBlockDataset(tokens, args.block_size),
-                      batch_size=args.batch_size or 32, padding_idx=d.pad(), seed=args.seed)
+                      batch_size=args.batch_size or 32, padding_idx=d.pad(), seed=args.seed,
+                      **_shard(args))
     # decode --decoder neural reads the config from <stem>.json beside the
     # export, or from lm_config.json in the checkpoint directory
     cfg_json = {k: getattr(cfg, k) for k in LM_CONFIG_KEYS}
-    os.makedirs(args.checkpoint_dir, exist_ok=True)
-    pathlib.Path(args.checkpoint_dir, "lm_config.json").write_text(json.dumps(cfg_json))
-    if args.export_params:
-        pathlib.Path(os.path.splitext(args.export_params)[0] + ".json").write_text(
-            json.dumps(cfg_json))
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        os.makedirs(args.checkpoint_dir, exist_ok=True)
+        pathlib.Path(args.checkpoint_dir, "lm_config.json").write_text(json.dumps(cfg_json))
+        if args.export_params:
+            pathlib.Path(os.path.splitext(args.export_params)[0] + ".json").write_text(
+                json.dumps(cfg_json))
     optim = OptimConfig(lr=args.lr, warmup_steps=args.warmup_steps,
                         total_steps=args.max_updates, clip_norm=args.clip_norm)
     run_training(model, make_lm_loss_fn(model, d.pad()), optim, iter(data), loop_cfg,
@@ -510,22 +541,23 @@ def main(argv=None) -> None:
     lm.add_argument("--seed", type=int, default=1)
     lm.add_argument("--log-interval", type=int, default=100)
     lm.add_argument("--save-interval-updates", type=int, default=10_000)
-    lm.add_argument("--n-model", type=int, default=1, help="(only 1 is ported)")
-    lm.add_argument("--fsdp", action="store_true", help="(not ported)")
+    lm.add_argument("--n-model", type=int, default=1,
+                    help="model ranks (the LM's layers stay whole on each)")
+    lm.add_argument("--fsdp", action="store_true",
+                    help="ZeRO-3 param sharding over the data ranks")
     lm.add_argument("--bf16", action="store_true", default=True)
     lm.add_argument("--tensorboard-dir", default=None)
     lm.add_argument("--accum-steps", type=int, default=1)
     lm.add_argument("--export-params", default=None)
-    lm.add_argument("--coordinator-address", default=None, help="not ported")
-    lm.add_argument("--num-processes", type=int, default=None, help="not ported")
-    lm.add_argument("--process-id", type=int, default=None, help="not ported")
-    lm.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    _launch(lm)
     lm.set_defaults(fn=cmd_train_lm)
 
     args = parser.parse_args(argv)
-    if any(v is not None for v in (args.coordinator_address, args.num_processes,
-                                   args.process_id)):
-        raise NotImplementedError("multi-host training is not ported to PyTorch yet")
+    # before anything else, so every process sees the whole mesh
+    from unispeech_tpu_torch.parallel.bootstrap import maybe_initialize_distributed
+
+    maybe_initialize_distributed(args.coordinator_address, args.num_processes,
+                                 args.process_id, device=args.device)
     args.fn(args)
 
 

@@ -15,6 +15,12 @@ policy). A save without the metric (no validation ran since the last save)
 scores as the worst value, so it never becomes best. A second save of an
 existing step is skipped, as orbax skips it. The flat-``.npz`` params
 export stays in ``convert/from_jax.py`` (``save_params_npz``).
+
+A state placed on a mesh (``train/state.py``) saves its full layout: every
+rank takes part in gathering the tensors whole (``parallel.sharding``),
+rank 0 writes them in the one-process keys, and the others wait. A
+checkpoint of any mesh therefore restores on any other, one process
+included; the directory must be one that every rank reads.
 """
 
 from __future__ import annotations
@@ -25,6 +31,14 @@ import shutil
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from unispeech_tpu_torch.parallel.sharding import (
+    full_optimizer_state,
+    full_state_dict,
+    load_full_optimizer_state,
+    load_full_state_dict,
+)
 
 STATE_FILE, META_FILE = "state.pt", "meta.json"
 
@@ -39,6 +53,7 @@ class CheckpointManager:
         self.keep_last = keep_last
         self.best_metric = best_metric
         self.maximize_best = maximize_best
+        self.writer = not dist.is_initialized() or dist.get_rank() == 0
         # step -> metrics, read back from the checkpoints already there
         self._metrics: Dict[int, Dict[str, float]] = {}
         for step in self.all_steps():
@@ -68,20 +83,26 @@ class CheckpointManager:
         if step in self._metrics:
             return False
         metrics = {k: float(v) for k, v in (metrics or {}).items()}
+        opt = state.optimizer
+        sharded = state.mesh is not None
         payload = {
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.adamw.state_dict(),
-            "optimizer_count": state.optimizer.count,
+            "model": full_state_dict(state.model) if sharded else state.model.state_dict(),
+            "optimizer": (full_optimizer_state(state.model, opt.adamw, opt.params) if sharded
+                          else opt.adamw.state_dict()),
+            "optimizer_count": opt.count,
             "step": state.step,
             "data": data_state,
         }
-        tmp = self._path(step) + ".tmp"
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save(payload, os.path.join(tmp, STATE_FILE))
-        with open(os.path.join(tmp, META_FILE), "w") as f:
-            json.dump({"step": step, "metrics": metrics}, f)
-        os.replace(tmp, self._path(step))
+        if self.writer:
+            tmp = self._path(step) + ".tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save(payload, os.path.join(tmp, STATE_FILE))
+            with open(os.path.join(tmp, META_FILE), "w") as f:
+                json.dump({"step": step, "metrics": metrics}, f)
+            os.replace(tmp, self._path(step))
+        if sharded:
+            dist.barrier()
         self._metrics[step] = metrics
         self._prune()
         return True
@@ -96,7 +117,8 @@ class CheckpointManager:
             keep.add(best)
         for step in steps:
             if step not in keep:
-                shutil.rmtree(self._path(step))
+                if self.writer:
+                    shutil.rmtree(self._path(step))
                 del self._metrics[step]
 
     def restore(self, state, step: Optional[int] = None) -> Tuple[Optional[Dict], int]:
@@ -109,8 +131,13 @@ class CheckpointManager:
         device = next(state.model.parameters()).device
         payload = torch.load(os.path.join(self._path(step), STATE_FILE),
                              map_location=device, weights_only=True)
-        state.model.load_state_dict(payload["model"])
-        state.optimizer.adamw.load_state_dict(payload["optimizer"])
+        if state.mesh is not None:
+            load_full_state_dict(state.model, payload["model"])
+            load_full_optimizer_state(state.model, state.optimizer.adamw,
+                                      state.optimizer.params, payload["optimizer"])
+        else:
+            state.model.load_state_dict(payload["model"])
+            state.optimizer.adamw.load_state_dict(payload["optimizer"])
         state.optimizer.count = payload["optimizer_count"]
         state.step = payload["step"]
         return payload["data"], step

@@ -1,9 +1,17 @@
 """The training loop: epoch-free updates with a validate/save cadence.
 
-Counterpart of the JAX package's ``train/loop.py``. One process drives the
-train step (``train/state.py``) on one device; batches come from an
+Counterpart of the JAX package's ``train/loop.py``. Each process drives the
+train step (``train/state.py``) on its device; batches come from an
 epoch-checkpointable host iterator through a prefetch thread; checkpoints
 are ``train/checkpoint.py``'s.
+
+Across processes (a process group, ``n_model > 1`` or ``fsdp``) the loop
+builds the ("data", "model") mesh and places the state on it; each rank's
+iterator is its data shard. Rank 0 alone logs, writes the progress sinks,
+the checkpoints and the params export (every rank takes part in gathering
+them); validation sums are all-reduced over the data ranks. Every data
+rank's iterator state goes into a checkpoint, and a rank resumes from its
+own.
 
 Determinism: the generator of the dispatch that starts at update ``u`` is
 seeded from (seed, u), and a checkpoint stores a data state from which the
@@ -15,8 +23,7 @@ their group fills. So the loop numbers every draw, and a checkpoint stores
 the data state from before the oldest draw not yet trained on, with the
 later draws that were (``skip``), which the resumed run draws again and
 drops. A run resumed from a checkpoint therefore repeats the uninterrupted
-run exactly, on the CPU. Tensor parallelism and FSDP (``n_model > 1``,
-``fsdp``) wait for the port of ``parallel/``.
+run exactly, on the CPU.
 """
 
 from __future__ import annotations
@@ -27,12 +34,20 @@ from typing import Callable, Dict, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from unispeech_tpu_torch.convert.from_jax import jax_params_of, save_params_npz
 from unispeech_tpu_torch.data.prefetch import prefetch
+from unispeech_tpu_torch.parallel.bootstrap import rank_device
+from unispeech_tpu_torch.parallel.sharding import data_rank, make_mesh, shard_batch
 from unispeech_tpu_torch.train.checkpoint import CheckpointManager
 from unispeech_tpu_torch.train.optim import OptimConfig
-from unispeech_tpu_torch.train.state import TrainState, create_train_state, make_train_step
+from unispeech_tpu_torch.train.state import (
+    TrainState,
+    create_train_state,
+    make_train_step,
+    shard_train_state,
+)
 from unispeech_tpu_torch.utils.debug import HangWatchdog, nonfinite_paths
 from unispeech_tpu_torch.utils.metrics import MetricsAggregator, ProgressLogger, StopwatchMeter
 
@@ -53,7 +68,8 @@ class LoopConfig:
     best_metric: str = "loss_avg"
     maximize_best: bool = False
     seed: int = 1
-    # mesh (not ported: anything but 1 / False raises)
+    # mesh: the tensor-parallel axis (data = world size // n_model) and
+    # ZeRO-3 parameter sharding over the data axis
     n_model: int = 1
     fsdp: bool = False
     tensorboard_dir: Optional[str] = None
@@ -69,11 +85,6 @@ class LoopConfig:
     # dump all thread stacks when a step takes longer than this; 0 disables
     hang_timeout_s: float = 0.0
     hang_kill: bool = False
-
-    def __post_init__(self):
-        if self.n_model > 1 or self.fsdp:
-            raise NotImplementedError("tensor parallelism and FSDP (parallel/) are not "
-                                      "ported to PyTorch yet")
 
 
 def update_generator(seed: int, update: int) -> torch.Generator:
@@ -101,8 +112,35 @@ def _number_draws(batches: Iterable[Dict], data_obj, states: Dict, skip) -> Iter
             yield {**b, DRAW_KEY: np.asarray(i)}
 
 
-def _to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
+class _Silent:
+    """The progress logger of a rank that does not log."""
+
+    def log(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
+
+
+def _gather_data_states(snapshot, mesh):
+    """Every data rank's data snapshot, in data-rank order, on every rank
+    (one snapshot as it is without data parallelism)."""
+    if mesh is None or mesh["data"].size() == 1:
+        return snapshot
+    out = [None] * mesh["data"].size()
+    dist.all_gather_object(out, snapshot, group=mesh["data"].get_group())
+    return {"ranks": out}
+
+
+def _own_data_state(restored):
+    """This data rank's part of a restored data state."""
+    if restored is None or "ranks" not in restored:
+        return restored
+    ranks = restored["ranks"]
+    if len(ranks) <= data_rank():
+        raise ValueError(f"the checkpoint holds {len(ranks)} data ranks' iterator states; "
+                         f"this is data rank {data_rank()}")
+    return ranks[data_rank()]
 
 
 def run_training(
@@ -119,12 +157,20 @@ def run_training(
 ) -> TrainState:
     """Train ``model`` (moved to ``device``; default the card) from the
     latest checkpoint in ``cfg.checkpoint_dir``, if any, to
-    ``cfg.max_updates``; returns the final state."""
-    state = create_train_state(model, optimizer_cfg, device=device)
+    ``cfg.max_updates``; returns the final state. In a process group (or
+    with ``cfg.n_model > 1`` or ``cfg.fsdp``) the state is placed on the
+    mesh first; the device is then this rank's card."""
+    state = create_train_state(model, optimizer_cfg, device=rank_device(device))
     device = next(model.parameters()).device
+    mesh = None
+    if cfg.n_model > 1 or cfg.fsdp or (dist.is_initialized() and dist.get_world_size() > 1):
+        mesh = make_mesh(n_model=cfg.n_model, device_type=device.type)
+        state = shard_train_state(state, mesh, tensor_parallel=cfg.n_model > 1, fsdp=cfg.fsdp)
+    lead = mesh is None or dist.get_rank() == 0
     ckpt = CheckpointManager(cfg.checkpoint_dir, keep_last=cfg.keep_last_checkpoints,
                              best_metric=cfg.best_metric, maximize_best=cfg.maximize_best)
     restored_data, num_updates = ckpt.restore(state)
+    restored_data = _own_data_state(restored_data)
     skip = set()
     if restored_data is not None and data_state is not None:
         data_state.load_state_dict(restored_data["iterator"])
@@ -148,8 +194,8 @@ def run_training(
 
     agg = MetricsAggregator()
     sinks = dict(wandb_project=cfg.wandb_project, azureml=cfg.azureml)
-    train_log = ProgressLogger("train", cfg.tensorboard_dir, **sinks)
-    valid_log = ProgressLogger("valid", cfg.tensorboard_dir, **sinks)
+    train_log = ProgressLogger("train", cfg.tensorboard_dir, **sinks) if lead else _Silent()
+    valid_log = ProgressLogger("valid", cfg.tensorboard_dir, **sinks) if lead else _Silent()
     timer = StopwatchMeter()
     hang = HangWatchdog(cfg.hang_timeout_s, kill=cfg.hang_kill) if cfg.hang_timeout_s > 0 \
         else None
@@ -163,7 +209,7 @@ def run_training(
             if num_updates >= cfg.max_updates:
                 break
             draws = batch.pop(DRAW_KEY)
-            device_batch = _to_device(batch, device)
+            device_batch = shard_batch(batch, device)
             timer.start()
             if hang is not None:
                 hang.arm()
@@ -211,7 +257,8 @@ def run_training(
 
             if cfg.save_interval_updates and _crossed(num_updates, k_steps,
                                                       cfg.save_interval_updates):
-                ckpt.save(num_updates, state, data_state=data_snapshot,
+                ckpt.save(num_updates, state,
+                          data_state=_gather_data_states(data_snapshot, mesh),
                           metrics=pending_val_metrics)
                 pending_val_metrics = None
     finally:
@@ -219,9 +266,14 @@ def run_training(
             train_batches.close()
         train_log.close()
         valid_log.close()
-    ckpt.save(num_updates, state, data_state=data_snapshot, metrics=pending_val_metrics)
+    ckpt.save(num_updates, state, data_state=_gather_data_states(data_snapshot, mesh),
+              metrics=pending_val_metrics)
     if cfg.export_params:
-        save_params_npz(cfg.export_params, jax_params_of(state.model))
+        params = jax_params_of(state.model)
+        if lead:
+            save_params_npz(cfg.export_params, params)
+        if mesh is not None:
+            dist.barrier()
     return state
 
 
@@ -258,15 +310,20 @@ def run_validation(state: TrainState, eval_loss_fn, batches, max_steps: int = 0,
                    decode_fn=None) -> Dict:
     """Aggregated eval-loss metrics and, with ``decode_fn(state, batch) ->
     {metric: sum}``, decode-and-score sums whose ratios (wer, uer) are
-    derived at the end. The eval generator is seeded 0."""
+    derived at the end. The eval generator is seeded 0. On a mesh each data
+    rank scores its shard of the batches and the sums are all-reduced; an
+    FSDP model keeps its root parameters gathered throughout, as a decode
+    may call the model's parts outside its forward."""
     agg = MetricsAggregator()
     agg.add_derived("wer", lambda s: 100.0 * s["wer_errs"] / max(s["wer_len"], 1))
     agg.add_derived("uer", lambda s: 100.0 * s["uer_errs"] / max(s["uer_len"], 1))
     device = next(state.model.parameters()).device
+    if state.fsdp:
+        state.model.unshard()
     for i, batch in enumerate(batches):
         if max_steps and i >= max_steps:
             break
-        device_batch = _to_device(batch, device)
+        device_batch = shard_batch(batch, device)
         with torch.no_grad():
             _, _, metrics = eval_loss_fn(device_batch, torch.Generator().manual_seed(0),
                                          state.step)
@@ -274,4 +331,21 @@ def run_validation(state: TrainState, eval_loss_fn, batches, max_steps: int = 0,
         if decode_fn is not None:
             metrics.update(decode_fn(state, device_batch))
         agg.update(metrics)
+    if state.fsdp:
+        state.model.reshard()
+    if state.mesh is not None and state.mesh["data"].size() > 1:
+        _all_reduce_sums(agg, state.mesh["data"].get_group(), device)
     return agg.snapshot()
+
+
+def _all_reduce_sums(agg: MetricsAggregator, group, device) -> None:
+    """Sum the aggregator's sums and step count over ``group``."""
+    keys = [None] * dist.get_world_size(group)
+    dist.all_gather_object(keys, sorted(agg.sums), group=group)
+    names = sorted(set().union(*keys))
+    flat = torch.tensor([agg.sums.get(k, 0.0) for k in names] + [agg.n_steps],
+                        dtype=torch.float64, device=device)
+    dist.all_reduce(flat, group=group)
+    for k, v in zip(names, flat.tolist()):
+        agg.sums[k] = v
+    agg.n_steps = int(flat[-1])

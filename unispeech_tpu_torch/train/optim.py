@@ -17,6 +17,8 @@ from typing import Callable, Iterable, Tuple
 
 import torch
 
+from unispeech_tpu_torch.parallel.sharding import local_tensor
+
 
 @dataclass(frozen=True)
 class OptimConfig:
@@ -126,7 +128,8 @@ class Optimizer:
         if self.cfg.clip_norm and self.cfg.clip_norm > 0:
             clip = grad_norm >= self.cfg.clip_norm
             for p in self.params:
-                p.grad.copy_(torch.where(clip, p.grad / grad_norm * self.cfg.clip_norm, p.grad))
+                g = local_tensor(p.grad)  # an FSDP gradient's own shard
+                g.copy_(torch.where(clip, g / grad_norm * self.cfg.clip_norm, g))
         lr = self.schedule(self.count)
         for group in self.adamw.param_groups:
             group["lr"] = lr
