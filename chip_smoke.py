@@ -80,6 +80,26 @@ Phases, one line each (any failure raises and exits non-zero):
              validation, the best checkpoint by WER, the resume, one
              hypothesis per file, the WER report, attention backward only
              from update 3 on
+    xlarge   HuBERT X-Large (fairseq hubert_xlarge_lv60k.yaml: 48 layers,
+             width 1280, FFN 5120, 16 heads of 80, no rel-pos bias) through
+             --arch large --encoder-json: (a) the attention kernels at head
+             dims 16, 24, 32, 36 (a copy padded to 40), 80, 120 and 128
+             against their plain versions on 3 rows of 333 frames (one of
+             length 0, dO 0 on it), 4 heads, gated bias + key padding
+             (forward 1 bf16 ulp) and key padding + dropout 0.1 (2 ulps),
+             lse 1e-3, backward dq/dk/dv 2 ulps, dbias/dgate 2e-3; (b) the
+             CTC model finetune-ctc builds at full width and depth (seed-0
+             weights, bf16, ~0.96 B parameters) on the padded smoke batch:
+             the eval forward's kernel path against its plain path (5e-2)
+             with its launches, 5 steps (2 frozen) with launch counts
+             (attention 48/96 forward, 0/96 backward), one unfrozen step's
+             gradients against the plain path, step ms, host enqueue,
+             audio-seconds per second, peak memory, 10 unfrozen steps of
+             falling loss; rows 1X / 2X (the hd-80 attention forward per
+             eval forward, its backward per unfrozen step, with SDPA); (c)
+             finetune-ctc 2 updates on the pipeline's files with
+             --export-params and decode --decoder viterbi of the export:
+             finite losses, launches, one hypothesis per file, the WER report
     s2s_train  seq2seq fine-tuning at WavLM-Large's full width (the model
              finetune-seq2seq --arch large builds: the encoder as ctc_train,
              the default decoder 768 wide, 3072 FFN, 6 layers, 4 heads,
@@ -1915,6 +1935,396 @@ def ctc_pipeline_phase(counters, tmp):
 
 
 
+# HuBERT X-Large (fairseq examples/hubert/config/pretrain/hubert_xlarge_lv60k.yaml,
+# the hubert_xlarge_ll60k_finetune_ls960 release): WavLM-Large's structure at
+# 48 layers, width 1280, FFN 5120, 16 heads of 80, no relative position bias
+XLARGE_JSON = json.dumps(dict(encoder_layers=48, encoder_embed_dim=1280,
+                              encoder_ffn_embed_dim=5120, encoder_attention_heads=16,
+                              relative_position_embedding=False, gru_rel_pos=False))
+XL_HEAD_DIMS = (16, 24, 32, 36, 80, 120, 128)  # 36 runs on a copy padded to 40
+XL_FREEZE, XL_STEPS, XL_LEARN_STEPS = 2, 5, 10
+
+
+def xlarge_config(freeze: int):
+    """The CtcFinetuneModel finetune-ctc --arch large --encoder-json
+    XLARGE_JSON builds: X-Large's encoder (dropout 0.1, attention dropout
+    0.1, remat_layers), time mask 0.65/10, final dropout 0.1, the letter
+    dictionary."""
+    from unispeech_tpu_torch.configs import MaskConfig, large_encoder_config, override_encoder
+    from unispeech_tpu_torch.models.ctc import CtcFinetuneConfig
+
+    enc = override_encoder(large_encoder_config(relative_position_embedding=True,
+                                                gru_rel_pos=True), XLARGE_JSON)
+    return CtcFinetuneConfig(encoder=enc, vocab_size=len(LETTERS) + 4, apply_mask=True,
+                             time_mask=MaskConfig(mask_prob=0.65, mask_length=10),
+                             freeze_finetune_updates=freeze, final_dropout=0.1)
+
+
+def xlarge_head_dims(dev):
+    """xlarge (a): the attention kernels at the head dims other than 64
+    against their plain versions on 3 rows of T = S = 333 (lengths 333, 200
+    and 0, dO 0 on the row of length 0) and 4 heads, in two forms: the
+    gated bias with key padding (forward 1 bf16 ulp) and key padding with
+    dropout 0.1 and no bias (forward 2 ulps); lse within 1e-3 on the rows
+    with a key; the backward of the plain forward's out and lse on both
+    sides (the row of length 0 adds nothing: its dO is 0, ROADMAP 3.5),
+    dq/dk/dv within 2 bf16 ulps, dbias/dgate relative L2 2e-3. Returns the
+    max abs error of the forwards and of the backwards."""
+    from unispeech_tpu_torch.ops.kernels import flash_attention
+
+    gen = torch.Generator().manual_seed(SEED + 31)
+    B, T, H = 3, 333, 4
+    frames = torch.tensor([T, 200, 0], device=dev)
+    kpm = torch.arange(T, device=dev)[None, :] >= frames[:, None]
+    err_f = err_b = 0.0
+    for hd in XL_HEAD_DIMS:
+        q, kk, v = (torch.randn(B, T, H, hd, generator=gen).to(dev, torch.bfloat16)
+                    for _ in range(3))
+        bias = torch.randn(H, T, T, generator=gen).to(dev, torch.bfloat16)
+        gate = (torch.rand(B, H, T, generator=gen) * 2 + 1).to(dev)
+        seed = torch.randint(0, 2**62, (1,), generator=gen, dtype=torch.int64).to(dev)
+        dout = (torch.randn(B, T, H, hd, generator=gen) * 1e-2).to(dev, torch.bfloat16)
+        dout[2] = 0  # the row of length 0, as training's padding rows
+        for form, kw, ulps in (
+                ("bias_gate_kpm", dict(bias=bias, gate=gate, key_padding_mask=kpm), 1.0),
+                ("nobias_kpm_drop", dict(key_padding_mask=kpm, dropout_rate=0.1,
+                                         dropout_seed=seed), 2.0)):
+            name = f"fused_attention.hd{hd}.{form}"
+            out, lse = flash_attention.fused_attention(q, kk, v, **kw, return_lse=True)
+            pout, plse = flash_attention.fused_attention_plain(q, kk, v, **kw, return_lse=True)
+            torch.cuda.synchronize()
+            err_f = max(err_f, compare(name, out, pout, tol_ulps=ulps))
+            e_lse = float((lse - plse)[frames > 0].abs().max())
+            phase("parity", kernel=f"{name}.lse", max_abs_err=f"{e_lse:.3g}", tol="1e-3")
+            if not e_lse <= 1e-3:
+                fail(f"{name}: lse {e_lse}")
+            args = (q, kk, v, kw.get("bias"), kw.get("gate"), kpm, None,
+                    kw.get("dropout_rate", 0.0), kw.get("dropout_seed"))
+            got = flash_attention.fused_attention_backward(*args, pout, plse, dout)
+            want = flash_attention.fused_attention_backward_plain(*args, pout, plse, dout)
+            torch.cuda.synchronize()
+            for gname, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+                err_b = max(err_b, compare(f"{name}.backward.{gname}", a, b, tol_ulps=2.0))
+            for gname, a, b in zip(("dbias", "dgate"), got[3:], want[3:]):
+                if (a is None) != (b is None):
+                    fail(f"{name}: {gname} present on one side only")
+                if a is not None:
+                    rel_check(f"{name}.backward.{gname}", a, b, 2e-3)
+    return err_f, err_b
+
+
+def xlarge_train_phase(dev, counters, wav, lengths, card):
+    """xlarge (b): HuBERT X-Large CTC fine-tuning at full width and depth
+    (the model finetune-ctc --arch large --encoder-json XLARGE_JSON builds,
+    seed-0 weights, bf16) on the padded smoke batch with random letter
+    transcripts: the eval forward's kernel path against its plain path
+    (relative L2 5e-2) with its launches; 5 steps, the first 2 frozen, with
+    launch counts per step; one unfrozen step's gradients, kernel path
+    against plain path (GRAD_TOL, GRAD_FLOOR); step ms, host enqueue,
+    audio-seconds per second, peak memory; 10 unfrozen steps on one batch
+    from a fresh head, the loss must fall. Returns the counts and numbers."""
+    from unispeech_tpu_torch.data.dictionary import Dictionary
+    from unispeech_tpu_torch.models.ctc import CtcFinetuneModel
+    from unispeech_tpu_torch.models.encoder import reset_parameters
+    from unispeech_tpu_torch.ops.kernels import flash_attention
+    from unispeech_tpu_torch.train.optim import OptimConfig
+    from unispeech_tpu_torch.train.state import create_train_state, make_train_step
+    from unispeech_tpu_torch.train.tasks import make_ctc_finetune_loss_fn
+
+    d = Dictionary.letters()
+    cfg = xlarge_config(XL_FREEZE)
+    enc = cfg.encoder
+    if enc.encoder_embed_dim // enc.encoder_attention_heads != 80:
+        fail("xlarge: the head dim is not 80")
+    t0 = time.perf_counter()
+    model = CtcFinetuneModel(cfg, dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(SEED)).to(dev)
+    build_s = time.perf_counter() - t0
+    nparams = sum(p.numel() for p in model.parameters())
+    B = wav.shape[0]
+    rng = np.random.default_rng(SEED + 32)
+    texts = [letter_transcript(rng, float(n) / SAMPLE_RATE) for n in lengths.cpu()]
+    enc_texts = [d.encode_line(t) for t in texts]
+    S = int(np.ceil(max(len(e) for e in enc_texts) / 8) * 8)
+    labels = np.full((B, S), d.pad(), np.int32)
+    for r, e in enumerate(enc_texts):
+        labels[r, :len(e)] = e
+    batch = {"source": wav, "lengths": lengths.to(torch.int32),
+             "labels": torch.from_numpy(labels).to(dev),
+             "label_lengths": torch.tensor([len(e) for e in enc_texts], dtype=torch.int32,
+                                           device=dev)}
+    L = enc.encoder_layers
+
+    def reset():
+        for m, attr in counters:
+            setattr(m, attr, 0)
+
+    # the eval forward (serving): kernel path against plain path
+    model.eval()
+    reset()
+    with torch.no_grad():
+        logits = model(wav, lengths, deterministic=True, step=XL_FREEZE).logits
+    torch.cuda.synchronize()
+    fwd_counts = tuple(getattr(m, attr) for m, attr in counters)
+    with torch.no_grad(), plain_ops():
+        plain_logits = model(wav, lengths, deterministic=True, step=XL_FREEZE).logits
+    e_fwd = rel_l2(logits, plain_logits)
+    if not torch.isfinite(logits).all() or fwd_counts != (1, 0, 12, 0, L, 0):
+        fail(f"xlarge: eval forward launches {fwd_counts} or non-finite logits")
+    phase("xlarge", params=nparams, build_s=f"{build_s:.1f}", logits=tuple(logits.shape),
+          eval_launches_l1_conv_attn_fwd_bwd=fwd_counts, rel_l2_vs_plain=f"{e_fwd:.3g}",
+          tol="5e-2")
+    if not e_fwd <= 5e-2:
+        fail("xlarge: the forward's kernel path disagrees with the plain path")
+    del logits, plain_logits
+    model.train()
+
+    state = create_train_state(model, OptimConfig(lr=5e-5, warmup_steps=2, total_steps=100,
+                                                  schedule="tri_stage", hold_steps=40),
+                               device=dev)
+    step = make_train_step(make_ctc_finetune_loss_fn(model))
+    gen = torch.Generator().manual_seed(SEED + 33)
+    xl_counts = {}
+    for i in range(XL_STEPS):
+        reset()
+        frozen = model.frozen(state.step)
+        met = step(state, batch, gen)
+        torch.cuda.synchronize()
+        counts = tuple(getattr(m, attr) for m, attr in counters)
+        kept = L - met["layers_dropped"]
+        want = (1, 0, 12, 0) + ((kept, 0) if frozen else (2 * kept, 2 * kept))
+        loss, gnorm = float(met["loss_per_sample"]), float(met["grad_norm"])
+        phase("xlarge", step=i, frozen=frozen, loss_per_token=f"{loss:.4f}",
+              grad_norm=f"{gnorm:.4f}", ntokens=int(met["sample_size"]),
+              layers_dropped=met["layers_dropped"], launches_l1_conv_attn_fwd_bwd=counts)
+        if counts != want:
+            fail(f"xlarge step {i}: launches {counts} != {want}")
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            fail(f"xlarge step {i}: loss {loss}, grad_norm {gnorm}")
+        xl_counts.setdefault("frozen" if frozen else "unfrozen", counts)
+
+    # one unfrozen step's gradients, kernel path against plain path: no
+    # masks, no dropout (the eval loss), the same weights
+    loss_eval = make_ctc_finetune_loss_fn(model, deterministic=True)
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, ss, _ = loss_eval(batch, None, XL_FREEZE)
+        (loss / torch.clamp(ss, min=1.0)).backward()
+        return [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
+                else p.grad.float().clone() for p in model.parameters()]
+
+    gk = grads()
+    with plain_ops():
+        gp = grads()
+    model.zero_grad(set_to_none=True)
+    total = float(torch.sqrt(sum((g * g).sum() for g in gp)))
+    worst = []
+    for (name, _), a, b in zip(model.named_parameters(), gk, gp):
+        diff, ref = float((a - b).norm()), float(b.norm())
+        worst.append((diff / (GRAD_TOL * ref + GRAD_FLOOR * total), name, diff / max(ref, 1e-30)))
+    del gk, gp
+    worst.sort(reverse=True)
+    for ratio, name, rel in worst[:5]:
+        phase("xlarge", grad_vs_plain=name, rel_l2=f"{rel:.3g}", of_tolerance=f"{ratio:.3g}")
+    phase("xlarge", grad_tol=f"{GRAD_TOL} * |g| + {GRAD_FLOOR} * |global|",
+          global_grad_norm=f"{total:.4g}", tensors=len(worst))
+    if worst[0][0] > 1.0:
+        fail(f"xlarge: gradient of {worst[0][1]}: kernel path disagrees with the plain path")
+
+    # ms per step (back to back), host enqueue on an idle queue, peak memory
+    def timed(frozen, n=3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state.step = 0 if frozen else XL_FREEZE
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        state.step = 0 if frozen else XL_FREEZE
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        return ms, host
+
+    frozen_ms, host_frozen = timed(True)
+    torch.cuda.reset_peak_memory_stats()
+    unfrozen_ms, host_unfrozen = timed(False)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # learning: 10 unfrozen steps on one batch at a fixed learning rate, from
+    # a fresh head
+    fresh = torch.nn.Linear(model.proj.in_features, model.proj.out_features)
+    reset_parameters(fresh, torch.Generator().manual_seed(SEED + 34))
+    model.proj.load_state_dict(fresh.state_dict())
+    del state
+    state = create_train_state(model, OptimConfig(lr=5e-5, schedule="fixed"), device=dev)
+    state.step = XL_FREEZE
+    losses = [float(step(state, batch, gen)["loss_per_sample"]) for _ in range(XL_LEARN_STEPS)]
+    phase("xlarge", learning_first=f"{losses[0]:.4f}", learning_last=f"{losses[-1]:.4f}",
+          steps=len(losses), losses=",".join(f"{x:.3f}" for x in losses))
+    if not losses[-1] < losses[0]:
+        fail(f"xlarge: {XL_LEARN_STEPS} steps on one batch: loss {losses[0]} -> "
+             f"{losses[-1]} did not fall")
+    audio_s = float(lengths.sum()) / SAMPLE_RATE
+    phase("xlarge", frozen_step_ms=f"{frozen_ms:.3f}", unfrozen_step_ms=f"{unfrozen_ms:.3f}",
+          host_enqueue_frozen_ms=f"{host_frozen:.3f}",
+          host_enqueue_unfrozen_ms=f"{host_unfrozen:.3f}",
+          audio_sec_per_s_frozen=f"{audio_s / (frozen_ms / 1e3):.1f}",
+          audio_sec_per_s_unfrozen=f"{audio_s / (unfrozen_ms / 1e3):.1f}",
+          peak_memory_gb=f"{peak_gb:.2f}", card=card.replace(" ", "_"))
+    del state, model
+    torch.cuda.empty_cache()
+    return dict(params=nparams, counts=xl_counts, fwd_counts=fwd_counts, e_fwd=e_fwd,
+                frozen_ms=frozen_ms, unfrozen_ms=unfrozen_ms, host_frozen_ms=host_frozen,
+                host_unfrozen_ms=host_unfrozen, peak_gb=peak_gb, audio_s=audio_s)
+
+
+def xlarge_attention_rows(dev, lengths, xl):
+    """Rows 1X and 2X: the attention forward as X-Large serves (key
+    padding, no bias, no dropout, hd 80, 16 heads) per eval forward, and
+    its backward as X-Large fine-tunes (dropout 0.1) per unfrozen step, on
+    the padded smoke batch (4 rows of 799 frames, 599/349/149 valid keys
+    in three), against their plain versions (forward 1 bf16 ulp; dropout
+    forward and dq/dk/dv 2), with bound, plain time and SDPA (the same
+    boolean key mask; dropout_p for the backward)."""
+    from unispeech_tpu_torch.ops.kernels import flash_attention
+
+    enc = xlarge_config(0).encoder
+    gen = torch.Generator().manual_seed(SEED + 35)
+    B, T = len(lengths), enc.num_frames(int(lengths.max()))
+    H, hd = enc.encoder_attention_heads, enc.encoder_embed_dim // enc.encoder_attention_heads
+    q, kk, v = (torch.randn(B, T, H, hd, generator=gen).to(dev, torch.bfloat16)
+                for _ in range(3))
+    frames = torch.tensor([enc.num_frames(int(n)) for n in lengths.cpu()], device=dev)
+    kpm = torch.arange(T, device=dev)[None, :] >= frames[:, None]
+    seed = torch.randint(0, 2**62, (1,), generator=gen, dtype=torch.int64).to(dev)
+    rate = enc.attention_dropout
+    out = flash_attention.fused_attention(q, kk, v, key_padding_mask=kpm)
+    pout = flash_attention.fused_attention_plain(q, kk, v, key_padding_mask=kpm)
+    torch.cuda.synchronize()
+    err_f = compare(f"fused_attention.nobias.hd{hd}.h{H}.padded", out, pout)
+    drop = dict(key_padding_mask=kpm, dropout_rate=rate, dropout_seed=seed)
+    dout_k, dlse = flash_attention.fused_attention(q, kk, v, **drop, return_lse=True)
+    dpout, dplse = flash_attention.fused_attention_plain(q, kk, v, **drop, return_lse=True)
+    torch.cuda.synchronize()
+    err_f = max(err_f, compare(f"fused_attention.nobias.hd{hd}.h{H}.padded.dropout", dout_k,
+                               dpout, tol_ulps=2.0))
+    dout = (torch.randn(B, T, H, hd, generator=gen) * 1e-2).to(dev, torch.bfloat16)
+    args = (q, kk, v, None, None, kpm, None, rate, seed, dpout, dplse, dout)
+    got = flash_attention.fused_attention_backward(*args)
+    want = flash_attention.fused_attention_backward_plain(*args)
+    torch.cuda.synchronize()
+    err_b = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+        err_b = max(err_b, compare(f"fused_attention_backward.nobias.hd{hd}.h{H}.padded.{name}",
+                                   a, b, tol_ulps=2.0))
+    del got, want, out, pout, dout_k, dlse
+    n_fwd = xl["fwd_counts"][4]  # calls per eval forward
+    n_bwd = xl["counts"]["unfrozen"][5] // 2  # backward calls per unfrozen step
+    keys = int(frames.sum())
+    f_bound = bound(4 * B * T * H * hd * 2 + B * T, 4 * H * T * keys * hd, BF16_TC_FLOPS)
+    b_bound = bound(8 * B * T * H * hd * 2 + 3 * B * H * T * 4 + B * T,
+                    10 * H * T * keys * hd, BF16_TC_FLOPS)
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, kk, v))
+    attend = ~kpm[:, None, None, :]
+    ya = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=attend, dropout_p=rate)
+    fwd = dict(key_padding_mask=kpm)
+    return [dict(
+        name=f"fused_attention.nobias.hd{hd}.h{H}.padded_xlarge", route="cuda",
+        source="unispeech_tpu_torch/csrc/flash_attention.cu",
+        replaces="unispeech_tpu/ops/pallas/flash_attention.py:217",
+        launches=n_fwd, max_abs_err=err_f,
+        ms=n_fwd * cuda_ms(lambda: flash_attention.fused_attention(q, kk, v, **fwd)),
+        device_ms=n_fwd * device_ms(lambda: flash_attention.fused_attention(q, kk, v, **fwd)),
+        plain_ms=n_fwd * cuda_ms(lambda: flash_attention.fused_attention_plain(q, kk, v, **fwd),
+                                 iters=2, warmup=1),
+        bound_ms=n_fwd * f_bound[0], bound_by=f_bound[1],
+        **library_row(lambda: F.scaled_dot_product_attention(
+            qh.detach(), kh.detach(), vh.detach(), attn_mask=attend), n_fwd),
+    ), dict(
+        name=f"fused_attention_backward.nobias.hd{hd}.h{H}.padded_xlarge", route="cuda",
+        source="unispeech_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="unispeech_tpu/ops/pallas/flash_attention.py:583",
+        launches=xl["counts"]["unfrozen"][5], max_abs_err=err_b,
+        ms=n_bwd * cuda_ms(lambda: flash_attention.fused_attention_backward(*args)),
+        device_ms=n_bwd * device_ms(lambda: flash_attention.fused_attention_backward(*args)),
+        plain_ms=n_bwd * cuda_ms(lambda: flash_attention.fused_attention_backward_plain(*args),
+                                 iters=2, warmup=1),
+        bound_ms=n_bwd * b_bound[0], bound_by=b_bound[1],
+        **library_row(grad_fn(ya, (qh, kh, vh), dout.transpose(1, 2).contiguous()), n_bwd))]
+
+
+def xlarge_cli_phase(counters, tmp):
+    """xlarge (c): train finetune-ctc --arch large --encoder-json
+    XLARGE_JSON on the pipeline's 12 files and ctc_pipeline's letter
+    transcripts, 2 updates (the first frozen), --export-params; then decode
+    --arch large --encoder-json XLARGE_JSON --decoder viterbi of that export
+    (the CLIs' main(argv) in-process): finite losses, launches (an
+    attention backward in update 2 only, no L1 or conv backward), one
+    hypothesis per file, the WER report. The loop's final checkpoint (the
+    full state, AdamW's moments too) is removed as soon as the run ends."""
+    from unispeech_tpu_torch.decode.__main__ import main as decode_main
+    from unispeech_tpu_torch.train.__main__ import main as train_main
+
+    man = str(tmp / "man" / "train.tsv")
+    ltr = str(tmp / "train.ltr")
+    n_files = len(pathlib.Path(man).read_text().splitlines()) - 1
+    ckpt, export = tmp / "xl_ckpt", tmp / "xl.npz"
+    argv = ["finetune-ctc", "--manifest", man, "--transcripts", ltr, "--arch", "large",
+            "--encoder-json", XLARGE_JSON, "--freeze-finetune-updates", "1",
+            "--max-updates", "2", "--log-interval", "1", "--lr", "5e-5", "--warmup-steps", "2",
+            "--save-interval-updates", "1000", "--checkpoint-dir", str(ckpt),
+            "--export-params", str(export)]
+    for m, attr in counters:
+        setattr(m, attr, 0)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(log):
+        train_main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    counts = tuple(getattr(m, attr) for m, attr in counters)
+    train = [json.loads(x) for x in log.getvalue().splitlines()
+             if x.startswith('{"tag": "train"')]
+    for r in train:
+        phase("xlarge_cli", update=r["step"], wall_s=r["elapsed_s"], loss=r["loss_avg"],
+              ntokens=r.get("ntokens"))
+    phase("xlarge_cli", step="finetune-ctc --max-updates 2", seconds=f"{train_s:.2f}",
+          export_gb=f"{export.stat().st_size / 1e9:.2f}", launches_l1_conv_attn_fwd_bwd=counts)
+    if [r["step"] for r in train] != [1, 2] or \
+            not all(np.isfinite(r["loss_avg"]) for r in train):
+        fail(f"xlarge_cli: finetune-ctc records {train}")
+    if counts[1] or counts[3] or not (counts[0] and counts[2] and counts[4] and counts[5]):
+        fail(f"xlarge_cli: finetune-ctc launches {counts}")
+
+    out = tmp / "xl_decode"
+    for m, attr in counters:
+        setattr(m, attr, 0)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        decode_main(["--manifest", man, "--transcripts", ltr, "--arch", "large",
+                     "--encoder-json", XLARGE_JSON, "--checkpoint", str(export),
+                     "--decoder", "viterbi", "--results-path", str(out)])
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    export.unlink()
+    counts = tuple(getattr(m, attr) for m, attr in counters)
+    rep = json.loads((out / "wer_report.json").read_text())
+    hyps = (out / "hypo.word").read_text().splitlines()
+    phase("xlarge_cli", decode="viterbi", seconds=f"{decode_s:.2f}",
+          utterances=rep.get("utterances"), wer=rep.get("wer"), uer=rep.get("uer"),
+          hypo_lines=len(hyps), launches_l1_conv_attn_fwd_bwd=counts)
+    if not {"utterances", "wer", "uer"} <= set(rep) or rep["utterances"] != n_files \
+            or len(hyps) != n_files:
+        fail(f"xlarge_cli: decode report {rep}, {len(hyps)} hypothesis lines")
+    if not (counts[0] and counts[2] and counts[4]) or counts[1] or counts[3] or counts[5]:
+        fail(f"xlarge_cli: decode launches {counts}")
+    return dict(train_s=train_s, decode_s=decode_s)
+
+
 S2S_FREEZE, S2S_STEPS, S2S_DECODE_LEN, S2S_BEAM = 2, 5, 64, 5
 
 
@@ -3467,6 +3877,13 @@ def main() -> int:
         clock.done("dist")
         ctc_pipeline_phase(counters, tmp)
         clock.done("ctc_pipeline")
+        # HuBERT X-Large (head dim 80): the attention kernels at the other
+        # head dims, CTC fine-tuning at full width and depth, the CLIs
+        xlarge_head_dims(dev)
+        xl = xlarge_train_phase(dev, counters, wav, lengths, smi)
+        xl_rows = xlarge_attention_rows(dev, lengths, xl)
+        xl.update(xlarge_cli_phase(counters, tmp))
+        clock.done("xlarge")
         # seq2seq fine-tuning and decoding, the Transformer LM and its fusion
         s2s_counts = {}
         s2s = s2s_train_phase(dev, counters, s2s_counts, wav, lengths)
@@ -3595,6 +4012,7 @@ def main() -> int:
     rows += backward_times(bw_large, large_counts)
     rows.append(finetune_attention_backward(dev, lengths, ctc_counts))
     rows += nobias_attention_rows(dev, lengths, w2v_counts)
+    rows += xl_rows
     rows.append(vpu_row)
     del bw, bw_large
     # each kernel family's launches in one frozen and one unfrozen CTC
@@ -3609,6 +4027,8 @@ def main() -> int:
         r["ctc_launches_unfrozen"] = 0 if idx is None else ctc_counts["unfrozen"][idx]
         r["s2s_launches_frozen"] = 0 if idx is None else s2s_counts["frozen"][idx]
         r["s2s_launches_unfrozen"] = 0 if idx is None else s2s_counts["unfrozen"][idx]
+        r["xlarge_launches_frozen"] = 0 if idx is None else xl["counts"]["frozen"][idx]
+        r["xlarge_launches_unfrozen"] = 0 if idx is None else xl["counts"]["unfrozen"][idx]
         # the speaker path's forward launches: per verification batch, Large
         # and Base+ (the L1 with its sums), and per diarized recording (Large)
         large_i, base_i = SPEAKER_ROWS.get(r["name"], (None, None))
@@ -3674,6 +4094,15 @@ def main() -> int:
           profiled_busy_ms_frozen=f"{fp[0]:.3f}", profiled_wall_ms_frozen=f"{fp[1]:.3f}",
           profiled_busy_ms_unfrozen=f"{up[0]:.3f}", profiled_wall_ms_unfrozen=f"{up[1]:.3f}",
           kernel_launches_frozen=fp[2], kernel_launches_unfrozen=up[2])
+    phase("e2e_xlarge_train", params=xl["params"], frozen_step_ms=f"{xl['frozen_ms']:.3f}",
+          unfrozen_step_ms=f"{xl['unfrozen_ms']:.3f}",
+          host_enqueue_frozen_ms=f"{xl['host_frozen_ms']:.3f}",
+          host_enqueue_unfrozen_ms=f"{xl['host_unfrozen_ms']:.3f}",
+          audio_seconds_per_step=xl["audio_s"], padded_seconds=B * NS / SAMPLE_RATE,
+          audio_sec_per_s_frozen=f"{xl['audio_s'] / (xl['frozen_ms'] / 1e3):.1f}",
+          audio_sec_per_s_unfrozen=f"{xl['audio_s'] / (xl['unfrozen_ms'] / 1e3):.1f}",
+          peak_memory_gb=f"{xl['peak_gb']:.2f}", finetune_cli_s=f"{xl['train_s']:.1f}",
+          decode_cli_s=f"{xl['decode_s']:.1f}", card=smi.replace(" ", "_"))
     sp = s2s["profile"]
     phase("e2e_s2s_train", params=s2s["params"], frozen_step_ms=f"{s2s['frozen_ms']:.3f}",
           unfrozen_step_ms=f"{s2s['unfrozen_ms']:.3f}",

@@ -167,13 +167,13 @@ def test_vpu_micro_ragged(dev, n, variant, offset):
     assert ((got.float() - want.float()).abs() <= ulp).all()
 
 
-def _attn_inputs(dev, B, T, H, seed, fused_qkv=False):
+def _attn_inputs(dev, B, T, H, seed, fused_qkv=False, hd=64):
     g = torch.Generator().manual_seed(seed)
-    if fused_qkv:  # q/k/v as strided views of one (B, T, 3, H, 64) projection
-        qkv = torch.randn(B, T, 3, H, 64, generator=g).to(dev, torch.bfloat16)
+    if fused_qkv:  # q/k/v as strided views of one (B, T, 3, H, hd) projection
+        qkv = torch.randn(B, T, 3, H, hd, generator=g).to(dev, torch.bfloat16)
         q, k, v = qkv.unbind(2)
     else:
-        q, k, v = (torch.randn(B, T, H, 64, generator=g).to(dev, torch.bfloat16)
+        q, k, v = (torch.randn(B, T, H, hd, generator=g).to(dev, torch.bfloat16)
                    for _ in range(3))
     bias = torch.randn(H, T, T, generator=g).to(dev, torch.bfloat16)
     gate = (torch.rand(B, H, T, generator=g) * 2 + 1).to(dev)
@@ -227,6 +227,87 @@ def test_attention_edges(dev, B, T, H, case):
     assert (lse - plse).abs().max().item() <= 1e-3
 
 
+# head dims: multiples of 8 on either side of the 64-wide box (one box, two
+# boxes of which the second is partly or wholly past hd), hd 80 (HuBERT
+# X-Large, XLS-R 1B), 120 (XLS-R 2B), 128 (two whole boxes), and 36 and 100,
+# which the wrapper runs on a copy zero-padded to 40 and 104
+HEAD_DIMS = [8, 16, 24, 32, 36, 48, 72, 80, 100, 120, 128]
+HD_FWD_CASES = ["gate+kpm", "none+kpm+drop", "bias+mask", "gate+kpm+mask+drop", "strided"]
+
+
+def _hd_kwargs(dev, case, T, H, bias, gate, kpm):
+    kw = dict(bias=bias, gate=gate, key_padding_mask=kpm)
+    if case == "strided":
+        return kw
+    parts = case.split("+")
+    if parts[0] == "none":
+        kw = dict(bias=None, gate=None)
+    elif parts[0] == "bias":
+        kw["gate"] = None
+    kw["key_padding_mask"] = kpm if "kpm" in parts else None
+    if "mask" in parts:
+        idx = torch.arange(T, device=dev)
+        kw["attn_mask"] = torch.where((idx[:, None] - idx[None, :]).abs() > 20, -1e4, 0.0)
+    if "drop" in parts:
+        kw["dropout_rate"] = 0.1
+        kw["dropout_seed"] = torch.tensor([T * 1000 + 29 + H], dtype=torch.int64, device=dev)
+    return kw
+
+
+@pytest.mark.parametrize("B,T,H", [(2, 65, 2), (1, 200, 3)])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("case", HD_FWD_CASES)
+def test_attention_head_dims(dev, B, T, H, hd, case):
+    """The forward kernel at head dims other than 64 against its plain
+    version (q pre-scaled in bf16 where the scale is not a power of two):
+    out within 2 bf16 ulps, lse within 1e-3, one launch."""
+    q, k, v, bias, gate, kpm = _attn_inputs(dev, B, T, H, seed=T * 11 + hd,
+                                            fused_qkv=case == "strided", hd=hd)
+    kw = _hd_kwargs(dev, case, T, H, bias, gate, kpm)
+    before = flash_attention.launches
+    out, lse = flash_attention.fused_attention(q, k, v, **kw, return_lse=True)
+    assert flash_attention.launches == before + 1
+    pout, plse = flash_attention.fused_attention_plain(q, k, v, **kw, return_lse=True)
+    _close(out, pout, ulps=2.0)
+    assert (lse - plse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("B,T,H", [(2, 65, 2), (1, 200, 3)])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("case", ["full", "no_bias", "dropout", "attn_mask", "strided"])
+def test_attention_backward_head_dims(dev, B, T, H, hd, case):
+    """The backward kernel at head dims other than 64 against its plain
+    version: dq/dk/dv within 2 bf16 ulps, dbias/dgate relative L2 2e-3,
+    two launches (the pre-pass and the kernel)."""
+    q, k, v, bias, gate, kpm = _attn_inputs(dev, B, T, H, seed=T * 13 + hd,
+                                            fused_qkv=case == "strided", hd=hd)
+    kw = dict(bias=bias, gate=gate)
+    amask, rate, seed = None, 0.0, None
+    if case == "no_bias":
+        kw = dict(bias=None, gate=None)
+    elif case == "attn_mask":
+        idx = torch.arange(T, device=dev)
+        amask = torch.where((idx[:, None] - idx[None, :]).abs() > 20, -1e4, 0.0)
+    elif case == "dropout":
+        rate, seed = 0.1, torch.tensor([T * 1000 + 31], dtype=torch.int64, device=dev)
+    out, lse = flash_attention.fused_attention_plain(q, k, v, **kw, key_padding_mask=kpm,
+                                                     attn_mask=amask, dropout_rate=rate,
+                                                     dropout_seed=seed, return_lse=True)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(T + hd)).to(
+        dev, torch.bfloat16)
+    args = (q, k, v, kw["bias"], kw["gate"], kpm, amask, rate, seed, out, lse, dout)
+    before = flash_attention.backward_launches
+    got = flash_attention.fused_attention_backward(*args)
+    assert flash_attention.backward_launches == before + 2
+    want = flash_attention.fused_attention_backward_plain(*args)
+    for a, b in zip(got[:3], want[:3]):
+        _close(a, b, ulps=2.0)
+    for a, b in zip(got[3:], want[3:]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            _rel(a, b, tol=2e-3)
+
+
 def test_wrappers_reject(dev):
     x = torch.zeros(1, 64, 128, device=dev)
     w = torch.zeros(3, 128, 128, device=dev)
@@ -235,8 +316,8 @@ def test_wrappers_reject(dev):
     with pytest.raises(ValueError):  # 96 channels: not a multiple of 128
         conv_stack.conv_gelu_block(torch.zeros(1, 64, 96, device=dev, dtype=torch.bfloat16),
                                    torch.zeros(3, 96, 96, device=dev), 64)
-    q = torch.zeros(1, 8, 2, 32, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):  # head dim 32
+    q = torch.zeros(1, 8, 2, 136, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # head dim 136: above the kernels' 128
         flash_attention.fused_attention(q, q, q)
     q = torch.zeros(1, 8, 2, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # dropout needs a 1-element int64 seed

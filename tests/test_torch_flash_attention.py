@@ -2,8 +2,10 @@
 and the JAX XLA attention, on the CPU (the port's plain version).
 
 hd=32, H=4 makes the JAX wrapper take its packed (B, T, H*hd) layout and
-hd=16, H=2 its head-major one. Tolerance rtol/atol 2e-5 in fp32: the same
-function summed in other orders (the JAX repo's own kernel tests use it).
+hd=16, H=2 its head-major one; hd=80 (HuBERT X-Large's head) and hd=24, H=2,
+whose 128 % hd != 0, take the head-major one too, with a q scale that is
+not a power of two. Tolerance rtol/atol 2e-5 in fp32: the same function
+summed in other orders (the JAX repo's own kernel tests use it).
 """
 
 import jax
@@ -17,13 +19,20 @@ from unispeech_tpu.ops.pallas.flash_attention import fused_attention as jax_fuse
 from unispeech_tpu.ops.rel_pos import compute_rel_pos_bias as jax_rel_pos_bias
 from unispeech_tpu_torch.ops.attention import multihead_attention
 from unispeech_tpu_torch.ops.kernels.flash_attention import (
+    MAX_HEAD_DIM,
+    _check_cuda,
     fused_attention,
     fused_attention_backward_plain,
     fused_attention_plain,
+    kernel_head_dim,
+    kernel_q,
+    pad_head,
 )
 from unispeech_tpu_torch.ops.rel_pos import compute_rel_pos_bias
 
 TOL = 2e-5
+LAYOUTS = [(4, 32), (2, 16), (2, 80), (2, 24)]
+LAYOUT_IDS = ["packed", "head_major", "head_major_hd80", "head_major_hd24"]
 
 
 def _make(B=2, T=100, H=4, hd=32, bias=True, gate=True, mask=True, amask=False, seed=0):
@@ -59,7 +68,7 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("layout", [(4, 32), (2, 16)], ids=["packed", "head_major"])
+@pytest.mark.parametrize("layout", LAYOUTS, ids=LAYOUT_IDS)
 @pytest.mark.parametrize("case", list(CASES))
 def test_fused_matches_pallas(case, layout):
     H, hd = layout
@@ -123,7 +132,7 @@ BWD_CASES = {
 }
 
 
-@pytest.mark.parametrize("layout", [(4, 32), (2, 16)], ids=["packed", "head_major"])
+@pytest.mark.parametrize("layout", LAYOUTS, ids=LAYOUT_IDS)
 @pytest.mark.parametrize("case", list(BWD_CASES))
 def test_backward_matches_pallas(case, layout):
     """The plain merged backward (dq, dk, dv, dbias, dgate) against jax.grad
@@ -169,7 +178,7 @@ def test_backward_matches_pallas(case, layout):
         np.testing.assert_allclose(l.grad.numpy(), w, rtol=1e-4, atol=1e-5 * np.abs(w).max())
 
 
-@pytest.mark.parametrize("layout", [(4, 32), (2, 16)], ids=["packed", "head_major"])
+@pytest.mark.parametrize("layout", LAYOUTS, ids=LAYOUT_IDS)
 def test_padded_bias_view_matches_pallas(layout):
     """compute_rel_pos_bias's (H, T, S) bias, a view of rows padded to 8
     keys (S = 97), through the plain forward and the op's backward (into the
@@ -202,3 +211,77 @@ def test_padded_bias_view_matches_pallas(layout):
     for leaf, w in zip(leaves, grads):
         w = np.asarray(w)
         np.testing.assert_allclose(leaf.grad.numpy(), w, rtol=1e-4, atol=1e-5 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("hd", [16, 24, 36, 64, 80, 120])
+def test_bf16_prescaled_q_matches_jax(hd):
+    """In bf16, q as the kernels read it times the scale they fold in is,
+    bit for bit, the JAX wrapper's pre-scaled q, bf16(q * bf16(hd**-0.5)):
+    q itself and the scale where that is a power of two (hd 16, 64), else
+    the rounded product and 1. The plain bf16 forward (which the kernels
+    are held to on the card) against the Pallas kernel in bf16, interpret
+    mode: within 2 bf16 ulps of the output's scale (both round P to bf16,
+    against a running max in the kernel, the final one in the plain
+    version)."""
+    q, k, v, args = _make(B=2, T=40, H=2, hd=hd)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want_qs = np.asarray((jq * jnp.asarray(hd ** -0.5, jnp.bfloat16)).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16)
+                  for a in (jq, jk, jv))
+    kq, kscale = kernel_q(tq)
+    assert kq.dtype == torch.bfloat16
+    assert (kscale != 1.0) == (hd in (16, 64))
+    np.testing.assert_array_equal((kq.float() * kscale).numpy(), want_qs)
+
+    jargs = {n: None if a is None else jnp.asarray(a) for n, a in args.items()}
+    targs = {n: None if a is None else torch.from_numpy(np.asarray(a)) for n, a in args.items()}
+    want = np.asarray(jax_fused(jq, jk, jv, interpret=True, **jargs).astype(jnp.float32))
+    got = fused_attention(tq, tk, tv, **targs).float().numpy()
+    assert np.abs(got - want).max() <= 2 * 2.0 ** -7 * np.abs(want).max()
+
+
+def test_kernel_head_dim_contract():
+    """The wrapper's guard and padding on CPU tensors: every multiple of 8
+    from 8 to 128 goes to the kernels as it is; another hd <= 128 runs on a
+    copy zero-padded to the next multiple of 8; above 128 raises."""
+    def q_of(hd):
+        return torch.zeros(1, 8, 2, hd, dtype=torch.bfloat16)
+
+    for hd in range(8, MAX_HEAD_DIM + 1, 8):
+        assert kernel_head_dim(hd) == hd
+        q = q_of(hd)
+        _check_cuda(q, q, q, None, None, None, None, None)
+    for hd, want in ((1, 8), (36, 40), (100, 104), (127, 128)):
+        assert kernel_head_dim(hd) == want
+        with pytest.raises(ValueError):  # unpadded: rows are not whole 16-byte units
+            _check_cuda(q_of(hd), q_of(hd), q_of(hd), None, None, None, None, None)
+        q = pad_head(q_of(hd), want)
+        _check_cuda(q, q, q, None, None, None, None, None)
+    for hd in (136, 192):
+        with pytest.raises(ValueError):
+            kernel_head_dim(hd)
+        with pytest.raises(ValueError):
+            _check_cuda(q_of(hd), q_of(hd), q_of(hd), None, None, None, None, None)
+
+
+def test_padded_head_dim_route_matches_plain():
+    """hd 36 as the CUDA wrapper runs it: q pre-scaled (36**-0.5 is not a
+    power of two, so the kernels take scale 1), q/k/v zero-padded to 40
+    columns, the kernels' function on the copy (fp32 products times that
+    scale, the gated bias and the key mask, softmax, P.V), the output
+    sliced back to 36 columns: the plain version of the unpadded inputs at
+    TOL, and zeros in the padded columns."""
+    q, k, v, args = _make(B=2, T=40, H=2, hd=36)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    targs = {n: None if a is None else torch.from_numpy(np.asarray(a)) for n, a in args.items()}
+    kq, kscale = kernel_q(tq)
+    assert kscale == 1.0 and kernel_head_dim(36) == 40
+    qp, kp, vp = (pad_head(t, 40) for t in (kq, tk, tv))
+    assert qp.shape == (2, 40, 2, 40) and not qp[..., 36:].any() and not vp[..., 36:].any()
+    s = torch.einsum("bthd,bshd->bhts", qp, kp) * kscale
+    s = s + targs["gate"][..., None] * targs["bias"][None]
+    s = s + torch.where(targs["key_padding_mask"], -1e30, 0.0)[:, None, None, :]
+    out = torch.einsum("bhts,bshd->bthd", torch.softmax(s, -1), vp)
+    assert not out[..., 36:].any()
+    want = fused_attention_plain(tq, tk, tv, **targs)
+    np.testing.assert_allclose(out[..., :36].numpy(), want.numpy(), rtol=TOL, atol=TOL)

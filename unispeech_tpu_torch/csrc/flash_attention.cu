@@ -13,37 +13,48 @@
 // one call does 7.85 GFLOP (8 us at the bf16 tensor-core peak) but must
 // read q, k, v and the (H, T, S) bf16 bias and write out, about 35 MB
 // (10.5 us at 3.35 TB/s).
+// Head dims: any hd that is a multiple of 8 up to 128 (rows of whole
+// 16-byte units, as TMA takes them; the wrapper zero-pads any other hd to
+// the next multiple of 8). The kernel is a template on the padded width kD:
+// 64 for hd <= 64, 128 above. A row tile is kD / 64 boxes of 64 columns;
+// the maps' hd extent is the true hd, so the columns past it load as
+// zeros and add nothing to q.k or P.V, and only the first hd columns of
+// out are stored.
 // Design (Hopper), one warpgroup (128 threads) per (64-query tile, head,
-// utterance), three blocks per SM (60 KB of shared memory, <= 168
-// registers): at T = 799 the 624 blocks of a serving call fill 1.6 waves
-// of 396 resident blocks, at T = 768 the 864 of a training call 2.2; two
-// warpgroups of 64 queries per block would share K/V loads (which L2
-// serves anyway) at the price of half the blocks in flight.
+// utterance); at kD = 64 three blocks per SM (60 KB of shared memory,
+// <= 168 registers): at T = 799 the 624 blocks of a serving call fill 1.6
+// waves of 396 resident blocks, at T = 768 the 864 of a training call 2.2;
+// two warpgroups of 64 queries per block would share K/V loads (which L2
+// serves anyway) at the price of half the blocks in flight. At kD = 128
+// two blocks per SM (100 KB, <= 255 registers: the O accumulator takes 64).
 //  - loads by TMA, issued by one thread: q once, then per 64-key step the
-//    K, V and bias tiles (128-byte swizzled 64 x 64 boxes) into a 2-stage
-//    ring on mbarriers; q, k and v go through one 4-D map shape over
-//    (hd, H, rows, B) by the wrapper's strides, so the packed and the
-//    head-major layouts (and q/k/v views of one fused projection) are one
-//    kernel; rows past T or S load as zeros. The bias is read through a
+//    K, V and bias tiles (128-byte swizzled boxes of 64 rows x 64 columns)
+//    into a 2-stage ring on mbarriers; q, k and v go through one 4-D map
+//    shape over (hd, H, rows, B) by the wrapper's strides, so the packed
+//    and the head-major layouts (and q/k/v views of one fused projection)
+//    are one kernel; rows past T or S load as zeros. The bias is read through a
 //    (S, T, H) map whose rows are padded to whole 16-byte units by its
 //    producer (ops/rel_pos.py), so no copy runs per call. The key mask of
 //    a step (kPadNeg for padded keys, -inf past S) is loaded a step
 //    ahead into the ring; the gates are read once into registers;
 //  - products on wgmma with fp32 accumulators in registers: S = q.K^T by
-//    wgmma.m64n64k16 with both operands K-major from shared memory, and
-//    O += P.V by wgmma.m64n64k16 with P (bf16) converted in place from the
-//    S accumulators as the register A operand and V read MN-major;
+//    wgmma.m64n64k16 over kD / 16 steps with both operands K-major from
+//    shared memory, and O += P.V by wgmma.m64n{kD}k16 with P (bf16)
+//    converted in place from the S accumulators as the register A operand
+//    and V read MN-major (at kD = 128 its two boxes are the two MN blocks);
 //  - online softmax in fp32: the logits x = s q.k + g b + mask and their
 //    row max m stay in natural units, in the plain version's order (so lse
 //    = m + log l matches it to fp32 rounding), and p = ex2(x log2e - m
-//    log2e) is one FMA and one ex2; the q scale is a power of two (hd =
-//    64: 1/8), so it multiplies the fp32 products instead of rounding a
-//    scaled copy of q;
+//    log2e) is one FMA and one ex2. The q scale s: where hd**-0.5 in bf16
+//    is a power of two (hd 16, 64) bf16(q s) is q s exactly, so the wrapper
+//    passes q and s multiplies the fp32 products; at any other hd the
+//    wrapper passes the pre-scaled bf16(q bf16(s)), as the JAX wrapper
+//    rounds it, and s = 1;
 //  - bias, gate, key padding, the (T, S) mask and dropout are template
 //    flags, so the per-element block is straight-line code. The wrappers
-//    reach 24 instantiations: {none, bias, bias + gate} x key padding x
-//    mask x dropout (serving: bias + gate + key padding; pretraining: bias
-//    + gate + dropout).
+//    reach 24 instantiations per width: {none, bias, bias + gate} x key
+//    padding x mask x dropout (serving: bias + gate + key padding;
+//    pretraining: bias + gate + dropout).
 // Dropout (training): the un-normalised P is multiplied by keep/(1 - rate)
 // after its row sum is taken, as the TPU kernel does. The keep bit of each
 // (b, h, t, s) comes from Philox-4x32-10 keyed by the 64-bit seed (read
@@ -62,12 +73,11 @@
 
 namespace {
 
-constexpr int kHd = 64;    // head dim
 constexpr int kBQ = 64;    // queries per block
 constexpr int kBKey = 64;  // keys per step
 constexpr int kThreads = 128;
 constexpr int kStages = 2;
-constexpr int kMinBlocks = 3;
+constexpr int kMaxHd = 128;
 constexpr uint32_t kTile = 64 * 128;  // 64 rows of 64 bf16, 128-byte swizzled
 constexpr float kLog2e = 1.4426950408889634f;
 // The additive mask of a padded key: a power of two, so that a padded
@@ -78,16 +88,24 @@ constexpr float kLog2e = 1.4426950408889634f;
 // rounding residual of order 1e22 in the exponent: p = inf or 0, NaN out.
 constexpr float kPadNeg = -1267650600228229401496703205376.0f;  // -2^100
 
-// shared memory, from a 1024-byte aligned base: q, then per stage K, V,
-// the bias tile and the step's key mask
-constexpr uint32_t kOffStage = kTile;
-constexpr uint32_t kStageK = 0, kStageV = kTile, kStageB = 2 * kTile, kStageCol = 3 * kTile;
-constexpr uint32_t kStageBytes = 3 * kTile + 1024;
-constexpr uint32_t kOffBar = kOffStage + kStages * kStageBytes;  // q, full[kStages]
-constexpr size_t kSmemBytes = 1024 + kOffBar + 8 * (1 + kStages);
+// shared memory of the width-kD kernel, from a 1024-byte aligned base: q,
+// then per stage K, V, the bias tile and the step's key mask; a row tile
+// (q, K or V) is kD / 64 boxes of kTile bytes
+template <int kD>
+struct Plan {
+    static constexpr int kBoxes = kD / 64;
+    static constexpr uint32_t kRowTile = kBoxes * kTile;
+    static constexpr uint32_t kOffStage = kRowTile;
+    static constexpr uint32_t kStageK = 0, kStageV = kRowTile, kStageB = 2 * kRowTile;
+    static constexpr uint32_t kStageCol = 2 * kRowTile + kTile;
+    static constexpr uint32_t kStageBytes = 2 * kRowTile + kTile + 1024;
+    static constexpr uint32_t kOffBar = kOffStage + kStages * kStageBytes;  // q, full[kStages]
+    static constexpr size_t kSmemBytes = 1024 + kOffBar + 8 * (1 + kStages);
+    static constexpr int kMinBlocks = kD == 64 ? 3 : 2;
+};
 
 struct Maps {
-    CUtensorMap q, k, v;  // (B, rows, H, 64) by strides: dims {64, H, rows, B}
+    CUtensorMap q, k, v;  // (B, rows, H, hd) by strides: dims {hd, H, rows, B}
     CUtensorMap bias;     // (H, T, S) with row stride bias_rs: dims {S, T, H}
 };
 
@@ -101,7 +119,7 @@ struct Args {
     const long long* seed; // dropout seed (1 element) or null: no dropout
     unsigned threshold;    // keep iff the Philox word >= threshold
     float drop_scale;      // 1 / (1 - rate)
-    int T, S, H;
+    int T, S, H, hd;
     float scale;
 };
 
@@ -110,17 +128,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// kBias: a bias tile per key step; kGate: the bias is gated per query;
-// kKpm: a (B, S) key padding mask; kMask: an additive (T, S) mask; kDrop:
-// dropout on the probabilities
-template <bool kBias, bool kGate, bool kKpm, bool kMask, bool kDrop>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+// O += P.V over one 16-key step at the kernel's width
+__device__ __forceinline__ void pv_step(float (&o)[32], const uint32_t (&pa)[4], uint64_t dv) {
+    usk::wgmma_m64n64k16_rs<1>(o, pa, dv);
+}
+__device__ __forceinline__ void pv_step(float (&o)[64], const uint32_t (&pa)[4], uint64_t dv) {
+    usk::wgmma_m64n128k16_rs<1>(o, pa, dv);
+}
+
+// kD: the padded head dim (64 or 128); kBias: a bias tile per key step;
+// kGate: the bias is gated per query; kKpm: a (B, S) key padding mask;
+// kMask: an additive (T, S) mask; kDrop: dropout on the probabilities
+template <int kD, bool kBias, bool kGate, bool kKpm, bool kMask, bool kDrop>
+__global__ void __launch_bounds__(kThreads, Plan<kD>::kMinBlocks)
     flash_fwd_kernel(const __grid_constant__ Maps maps, const Args a) {
+    using P = Plan<kD>;
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem = reinterpret_cast<unsigned char*>(
         (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
     const unsigned char* Qs = smem;
-    uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + kOffBar);
+    uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + P::kOffBar);
     uint64_t* full = q_bar + 1;
 
     const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
@@ -131,15 +158,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     const int half = g & 1;  // this lane's query-row parity; lane ^ 4 holds the other row
     const uint64_t seed = kDrop ? (uint64_t)*a.seed : 0;
 
-    auto stage = [&](int st) { return smem + kOffStage + st * kStageBytes; };
+    auto stage = [&](int st) { return smem + P::kOffStage + st * P::kStageBytes; };
     // key tile it's K, V and bias into stage it % kStages (one thread)
     auto issue = [&](int it) {
         unsigned char* sp = stage(it % kStages);
         uint64_t* bar = &full[it % kStages];
-        usk::mbar_expect_tx(bar, 2 * kTile + (kBias ? kTile : 0));
-        usk::tma_load_4d(sp + kStageK, &maps.k, bar, 0, h, it * kBKey, b);
-        usk::tma_load_4d(sp + kStageV, &maps.v, bar, 0, h, it * kBKey, b);
-        if (kBias) usk::tma_load_3d(sp + kStageB, &maps.bias, bar, it * kBKey, q0, h);
+        usk::mbar_expect_tx(bar, 2 * P::kRowTile + (kBias ? kTile : 0));
+#pragma unroll
+        for (int bx = 0; bx < P::kBoxes; ++bx) {
+            usk::tma_load_4d(sp + P::kStageK + bx * kTile, &maps.k, bar, bx * 64, h, it * kBKey, b);
+            usk::tma_load_4d(sp + P::kStageV + bx * kTile, &maps.v, bar, bx * 64, h, it * kBKey, b);
+        }
+        if (kBias) usk::tma_load_3d(sp + P::kStageB, &maps.bias, bar, it * kBKey, q0, h);
     };
     // the additive key mask of key tile it for column tid (tid < 64)
     auto key_mask = [&](int it) {
@@ -155,11 +185,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     }
     if (tid < kBKey)
         for (int it = 0; it < kStages && it < n_kt; ++it)
-            reinterpret_cast<float*>(stage(it) + kStageCol)[tid] = key_mask(it);
+            reinterpret_cast<float*>(stage(it) + P::kStageCol)[tid] = key_mask(it);
     __syncthreads();
     if (tid == 0) {
-        usk::mbar_expect_tx(q_bar, kTile);
-        usk::tma_load_4d(smem, &maps.q, q_bar, 0, h, q0, b);
+        usk::mbar_expect_tx(q_bar, P::kRowTile);
+#pragma unroll
+        for (int bx = 0; bx < P::kBoxes; ++bx)
+            usk::tma_load_4d(smem + bx * kTile, &maps.q, q_bar, bx * 64, h, q0, b);
         for (int it = 0; it < kStages && it < n_kt; ++it) issue(it);
     }
 
@@ -173,18 +205,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         }
     }
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    float o[32];
+    float o[kD / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
     usk::mbar_wait(q_bar, 0);
 
     for (int it = 0; it < n_kt; ++it) {
         const int s0 = it * kBKey, st = it % kStages;
         const unsigned char* sp = stage(st);
-        const unsigned char* Ks = sp + kStageK;
-        const unsigned char* Vs = sp + kStageV;
-        const unsigned char* Bs = sp + kStageB;
-        const float* colneg = reinterpret_cast<const float*>(sp + kStageCol);
+        const unsigned char* Ks = sp + P::kStageK;
+        const unsigned char* Vs = sp + P::kStageV;
+        const unsigned char* Bs = sp + P::kStageB;
+        const float* colneg = reinterpret_cast<const float*>(sp + P::kStageCol);
         // every thread is done with tile it - 1: refill its stage with tile
         // it - 1 + kStages; that tile's key mask is loaded now, stored at
         // the end of the step
@@ -196,16 +228,19 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         if (do_refill && tid < kBKey) next_mask = key_mask(refill);
         usk::mbar_wait(&full[st], (it / kStages) & 1);
 
-        // S = q.K^T: 64 queries x 64 keys
+        // S = q.K^T: 64 queries x 64 keys over kD columns (four 16-column
+        // steps per box)
         float sacc[32];
 #pragma unroll
         for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
         usk::fence_regs(sacc);
         usk::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kHd / 16; ++kk)
-            usk::wgmma_m64n64k16_ss<0, 0>(sacc, usk::desc_sw128(Qs + kk * 32, 16, 1024),
-                                          usk::desc_sw128(Ks + kk * 32, 16, 1024));
+        for (int kk = 0; kk < kD / 16; ++kk) {
+            const uint32_t off = (kk / 4) * kTile + (kk % 4) * 32;
+            usk::wgmma_m64n64k16_ss<0, 0>(sacc, usk::desc_sw128(Qs + off, 16, 1024),
+                                          usk::desc_sw128(Ks + off, 16, 1024));
+        }
         usk::wgmma_commit();
 
         // the keep mask while the product runs: bit ((j * 2 + e) * 2 + i)
@@ -300,7 +335,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
             l[e] = l[e] * alpha[e] + rs[e];
         }
 #pragma unroll
-        for (int j = 0; j < kHd / 8; ++j) {
+        for (int j = 0; j < kD / 8; ++j) {
             o[4 * j] *= alpha[0];
             o[4 * j + 1] *= alpha[0];
             o[4 * j + 2] *= alpha[1];
@@ -320,83 +355,97 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         usk::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBKey / 16; ++kk)
-            usk::wgmma_m64n64k16_rs<1>(o, pa[kk], usk::desc_sw128(Vs + kk * 2048, kTile, 1024));
+            pv_step(o, pa[kk], usk::desc_sw128(Vs + kk * 2048, kTile, 1024));
         usk::wgmma_commit();
         usk::wgmma_wait<0>();
         usk::fence_regs(o);
 #pragma unroll
         for (int kk = 0; kk < kBKey / 16; ++kk) usk::fence_regs(pa[kk]);
         if (do_refill && tid < kBKey)
-            reinterpret_cast<float*>(stage(refill % kStages) + kStageCol)[tid] = next_mask;
+            reinterpret_cast<float*>(stage(refill % kStages) + P::kStageCol)[tid] = next_mask;
     }
 
     // normalise and store: rows g / g + 8 of this warp's 16, column pairs
-    // of each 8-wide slice; lse = m + log l
+    // of each 8-wide slice below hd; lse = m + log l
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
         const int t = q0 + warp * 16 + g + 8 * e;
         if (t >= T) continue;
         const float inv = 1.f / l[e];
-        __nv_bfloat16* dst = a.out + b * a.o_bs + t * a.o_rs + h * kHd + c2;
+        __nv_bfloat16* dst = a.out + b * a.o_bs + t * a.o_rs + h * a.hd + c2;
 #pragma unroll
-        for (int j = 0; j < kHd / 8; ++j)
-            *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
-                __floats2bfloat162_rn(o[4 * j + 2 * e] * inv, o[4 * j + 2 * e + 1] * inv);
+        for (int j = 0; j < kD / 8; ++j)
+            if (j * 8 < a.hd)
+                *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
+                    __floats2bfloat162_rn(o[4 * j + 2 * e] * inv, o[4 * j + 2 * e + 1] * inv);
         if (a.lse != nullptr && c2 == 0)
             a.lse[((size_t)b * H + h) * T + t] = m[e] + logf(l[e]);
     }
 }
 
-// (B, rows, H, 64) bf16 by element strides (batch, row) as a 4D map
-bool head_map(CUtensorMap* m, const void* p, int B, int rows, int H, long long bs, long long rs) {
-    const uint64_t dims[4] = {(uint64_t)kHd, (uint64_t)H, (uint64_t)rows, (uint64_t)B};
-    const uint64_t strides[3] = {(uint64_t)kHd * 2, (uint64_t)rs * 2, (uint64_t)bs * 2};
-    const uint32_t box[4] = {kHd, 1, 64, 1};
+// (B, rows, H, hd) bf16 by element strides (batch, row) as a 4D map of
+// boxes of 64 rows x 64 columns; columns past hd load as zeros
+bool head_map(CUtensorMap* m, const void* p, int B, int rows, int H, int hd, long long bs,
+              long long rs) {
+    const uint64_t dims[4] = {(uint64_t)hd, (uint64_t)H, (uint64_t)rows, (uint64_t)B};
+    const uint64_t strides[3] = {(uint64_t)hd * 2, (uint64_t)rs * 2, (uint64_t)bs * 2};
+    const uint32_t box[4] = {64, 1, 64, 1};
     return usk::make_tensor_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, p, dims, strides, box,
                                 CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <bool kBias, bool kGate, bool kKpm, bool kMask, bool kDrop>
+template <int kD, bool kBias, bool kGate, bool kKpm, bool kMask, bool kDrop>
 cudaError_t launch_kernel(const Maps& maps, const Args& a, dim3 grid, cudaStream_t s) {
-    auto kernel = flash_fwd_kernel<kBias, kGate, kKpm, kMask, kDrop>;
+    auto kernel = flash_fwd_kernel<kD, kBias, kGate, kKpm, kMask, kDrop>;
+    constexpr size_t smem = Plan<kD>::kSmemBytes;
     const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, kSmemBytes, s>>>(maps, a);
+    kernel<<<grid, kThreads, smem, s>>>(maps, a);
     return cudaGetLastError();
 }
 
-template <bool kBias, bool kGate>
+template <int kD, bool kBias, bool kGate>
 cudaError_t launch_flags(const Maps& maps, const Args& a, dim3 grid, cudaStream_t s) {
     const int sel = (a.kpm != nullptr ? 4 : 0) | (a.amask != nullptr ? 2 : 0) |
                     (a.seed != nullptr ? 1 : 0);
     switch (sel) {
-        case 0: return launch_kernel<kBias, kGate, false, false, false>(maps, a, grid, s);
-        case 1: return launch_kernel<kBias, kGate, false, false, true>(maps, a, grid, s);
-        case 2: return launch_kernel<kBias, kGate, false, true, false>(maps, a, grid, s);
-        case 3: return launch_kernel<kBias, kGate, false, true, true>(maps, a, grid, s);
-        case 4: return launch_kernel<kBias, kGate, true, false, false>(maps, a, grid, s);
-        case 5: return launch_kernel<kBias, kGate, true, false, true>(maps, a, grid, s);
-        case 6: return launch_kernel<kBias, kGate, true, true, false>(maps, a, grid, s);
-        default: return launch_kernel<kBias, kGate, true, true, true>(maps, a, grid, s);
+        case 0: return launch_kernel<kD, kBias, kGate, false, false, false>(maps, a, grid, s);
+        case 1: return launch_kernel<kD, kBias, kGate, false, false, true>(maps, a, grid, s);
+        case 2: return launch_kernel<kD, kBias, kGate, false, true, false>(maps, a, grid, s);
+        case 3: return launch_kernel<kD, kBias, kGate, false, true, true>(maps, a, grid, s);
+        case 4: return launch_kernel<kD, kBias, kGate, true, false, false>(maps, a, grid, s);
+        case 5: return launch_kernel<kD, kBias, kGate, true, false, true>(maps, a, grid, s);
+        case 6: return launch_kernel<kD, kBias, kGate, true, true, false>(maps, a, grid, s);
+        default: return launch_kernel<kD, kBias, kGate, true, true, true>(maps, a, grid, s);
     }
+}
+
+template <int kD>
+cudaError_t launch_width(const Maps& maps, const Args& a, bool bias, bool gate, dim3 grid,
+                         cudaStream_t s) {
+    if (!bias) return launch_flags<kD, false, false>(maps, a, grid, s);
+    if (!gate) return launch_flags<kD, true, false>(maps, a, grid, s);
+    return launch_flags<kD, true, true>(maps, a, grid, s);
 }
 
 }  // namespace
 
-// q/k/v/out by element strides (batch, row) in the (B, rows, H*64) layout;
-// bias (H, T, S) with row stride bias_rs (a multiple of 8, T * bias_rs
-// between heads) or null
+// q/k/v/out by element strides (batch, row) in the (B, rows, H*hd) layout,
+// hd a multiple of 8 up to 128; bias (H, T, S) with row stride bias_rs (a
+// multiple of 8, T * bias_rs between heads) or null
 extern "C" int usk_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out,
     long long q_bs, long long q_rs, long long k_bs, long long k_rs,
     long long v_bs, long long v_rs, long long o_bs, long long o_rs,
     const void* bias, long long bias_rs, const void* gate, const void* kpm, const void* amask,
-    void* lse, int B, int T, int S, int H, float scale, const void* seed,
+    void* lse, int B, int T, int S, int H, int hd, float scale, const void* seed,
     unsigned threshold, float drop_scale, void* stream) {
+    if (hd < 8 || hd > kMaxHd || hd % 8 != 0) return (int)cudaErrorInvalidValue;
     Maps maps;
-    if (!head_map(&maps.q, q, B, T, H, q_bs, q_rs) || !head_map(&maps.k, k, B, S, H, k_bs, k_rs) ||
-        !head_map(&maps.v, v, B, S, H, v_bs, v_rs))
+    if (!head_map(&maps.q, q, B, T, H, hd, q_bs, q_rs) ||
+        !head_map(&maps.k, k, B, S, H, hd, k_bs, k_rs) ||
+        !head_map(&maps.v, v, B, S, H, hd, v_bs, v_rs))
         return (int)cudaErrorInvalidValue;
     if (bias != nullptr) {
         const uint64_t dims[3] = {(uint64_t)S, (uint64_t)T, (uint64_t)H};
@@ -419,11 +468,11 @@ extern "C" int usk_flash_attention_fwd(
     a.seed = (const long long*)seed;
     a.threshold = threshold;
     a.drop_scale = drop_scale;
-    a.T = T; a.S = S; a.H = H;
+    a.T = T; a.S = S; a.H = H; a.hd = hd;
     a.scale = scale;
     const dim3 grid((T + kBQ - 1) / kBQ, H, B);
     cudaStream_t s = (cudaStream_t)stream;
-    if (bias == nullptr) return (int)launch_flags<false, false>(maps, a, grid, s);
-    if (gate == nullptr) return (int)launch_flags<true, false>(maps, a, grid, s);
-    return (int)launch_flags<true, true>(maps, a, grid, s);
+    const bool has_bias = bias != nullptr, has_gate = gate != nullptr;
+    if (hd <= 64) return (int)launch_width<64>(maps, a, has_bias, has_gate, grid, s);
+    return (int)launch_width<128>(maps, a, has_bias, has_gate, grid, s);
 }

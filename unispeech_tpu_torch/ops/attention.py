@@ -10,6 +10,7 @@ all published WavLM checkpoints were trained with.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -17,6 +18,7 @@ import torch
 from unispeech_tpu_torch.ops.kernels.philox import attention_keep
 
 
+@functools.lru_cache(maxsize=None)
 def scale_in_dtype(head_dim: int, dtype: torch.dtype) -> float:
     """``head_dim**-0.5`` rounded to ``dtype``: the JAX package multiplies q
     by a weakly typed scalar, which takes q's dtype first."""

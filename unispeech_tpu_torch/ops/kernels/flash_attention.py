@@ -5,7 +5,10 @@ softmax(q*scale . k^T + gate * bias + attn_mask - 1e30 * keypad), dropout on
 the probabilities, . v, and its merged backward, without a (B, H, T, S)
 tensor in device memory. The CUDA kernels (``csrc/flash_attention.cu``,
 ``csrc/flash_attention_bwd.cu``) read q/k/v by strides in the natural
-(B, T, H*hd) layout, which covers both of the TPU's layouts. CPU tensors take
+(B, T, H*hd) layout, which covers both of the TPU's layouts, at any head dim
+up to 128: a multiple of 8 as it is, any other on a copy zero-padded to the
+next multiple of 8 (``kernel_head_dim``, ``pad_head``). q is scaled as the
+JAX wrapper scales it, bf16(q * bf16(hd**-0.5)) (``kernel_q``). CPU tensors take
 the plain versions below, which follow the kernels' arithmetic: bf16 P,
 fp32 P.V, normalization by the fp32 row sum at the end; the dropout keep
 mask is the same Philox function of (seed, b, h, t, s) on both sides
@@ -30,9 +33,10 @@ backward_launches = 0  # backward kernel launches made by its autograd backward
 
 NEG_INF = -1e30
 _P, _L, _I, _U, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-_FWD_SIGNATURE = [_P] * 4 + [_L] * 8 + [_P, _L] + [_P] * 4 + [_I] * 4 + [_F, _P, _U, _F, _P]
-_BWD_SIGNATURE = ([_P] * 6 + [_L] * 10 + [_P, _L] + [_P] * 8 + [_I] * 4
+_FWD_SIGNATURE = [_P] * 4 + [_L] * 8 + [_P, _L] + [_P] * 4 + [_I] * 5 + [_F, _P, _U, _F, _P]
+_BWD_SIGNATURE = ([_P] * 6 + [_L] * 10 + [_P, _L] + [_P] * 8 + [_I] * 5
                   + [_F, _P, _U, _F, _P, _P])
+MAX_HEAD_DIM = 128  # the kernels' widest head (two 64-column boxes per row)
 
 
 def _dropout_scale(rate: float) -> torch.Tensor:
@@ -129,13 +133,43 @@ def fused_attention_backward_plain(q, k, v, bias, gate, key_padding_mask, attn_m
     return dq, dk, dv, dbias, dgate
 
 
+def kernel_head_dim(hd: int) -> int:
+    """The head dim the kernels run at: ``hd`` when it is a multiple of 8
+    (rows of whole 16-byte units, as TMA reads them), else the next multiple
+    of 8, on a zero-padded copy. Raises above ``MAX_HEAD_DIM``."""
+    _build.require(1 <= hd <= MAX_HEAD_DIM,
+                   f"attention kernels take head dims 1-{MAX_HEAD_DIM}, got {hd}")
+    return -(-hd // 8) * 8
+
+
+def pad_head(x: torch.Tensor, hd: int) -> torch.Tensor:
+    """(..., d) zero-padded to (..., hd) columns; as it is when d == hd.
+    Zero columns add nothing to q.k, P.V or rowsum(dO * out)."""
+    d = x.shape[-1]
+    return x if d == hd else torch.nn.functional.pad(x, (0, hd - d))
+
+
+def kernel_q(q: torch.Tensor):
+    """(q as the kernels read it, the scale they fold into their fp32
+    products). The JAX wrapper feeds its kernels bf16(q * bf16(hd**-0.5)).
+    Where that scale is a power of two (hd 16 and 64) the product is q *
+    scale exactly, so the kernels take q and multiply by the scale; at any
+    other hd they take the rounded product and scale 1."""
+    scale = scale_in_dtype(q.shape[-1], q.dtype)
+    if scale == 2.0 ** round(math.log2(scale)):
+        return q, scale
+    return q * scale, 1.0
+
+
 def _check_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_seed):
     """Raise for CUDA inputs the kernels do not take; returns the optional
     inputs in the kernels' types."""
     B, T, H, hd = q.shape
     S = k.shape[1]
     req = _build.require
-    req(hd == 64, f"attention kernel takes head dim 64, got {hd}")
+    req(hd % 8 == 0 and 8 <= hd <= MAX_HEAD_DIM,
+        f"attention kernels take head dims that are multiples of 8 up to {MAX_HEAD_DIM}, "
+        f"got {hd} (see kernel_head_dim)")
     for name, t, rows in (("q", q, T), ("k", k, S), ("v", v, S)):
         req(t.dtype == torch.bfloat16 and t.device == q.device,
             f"{name} must be bf16 on q's device")
@@ -184,13 +218,6 @@ def bias_rows(bias: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(bias, (0, 8 - S % 8))[..., :S]
 
 
-def _check_scale(hd: int, dtype) -> float:
-    scale = scale_in_dtype(hd, dtype)
-    _build.require(scale == 2.0 ** round(math.log2(scale)),
-                   "the kernels fold the q scale into fp32 products: a power of two")
-    return scale
-
-
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -198,8 +225,12 @@ def _ptr(t: Optional[torch.Tensor]):
 def _forward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rate,
                   dropout_seed, want_lse):
     global launches
+    hd_in = q.shape[-1]
+    hd = kernel_head_dim(hd_in)
+    q, scale = kernel_q(q)
+    q, k, v = (pad_head(t, hd) for t in (q, k, v))
     _check_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_seed)
-    B, T, H, hd = q.shape
+    B, T, H, _ = q.shape
     S = k.shape[1]
     out = torch.empty((B, T, H, hd), dtype=torch.bfloat16, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if want_lse else None
@@ -212,26 +243,33 @@ def _forward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rate
         v.stride(0), v.stride(1), out.stride(0), out.stride(1),
         _ptr(bias), 0 if bias is None else bias.stride(1),
         _ptr(gate), _ptr(key_padding_mask), _ptr(attn_mask), _ptr(lse),
-        B, T, S, H, _check_scale(hd, q.dtype), _ptr(seed),
+        B, T, S, H, hd, scale, _ptr(seed),
         keep_threshold(dropout_rate) if seed is not None else 0,
         float(_dropout_scale(dropout_rate)) if seed is not None else 1.0,
         _build.stream(q))
     launches += 1
+    if hd != hd_in:
+        out = out[..., :hd_in].contiguous()
     return out, lse
 
 
 def _backward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rate,
                    dropout_seed, out, lse, dout):
     global backward_launches
-    _check_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_seed)
-    B, T, H, hd = q.shape
-    S = k.shape[1]
+    hd_in = q.shape[-1]
+    hd = kernel_head_dim(hd_in)
     req = _build.require
-    dout, out, lse = dout.contiguous(), out.contiguous(), lse.contiguous()
     req(dout.dtype == torch.bfloat16 and out.dtype == torch.bfloat16
-        and dout.shape == out.shape == (B, T, H, hd), "dO and out must be bf16 (B, T, H, hd)")
+        and dout.shape == out.shape == q.shape, "dO and out must be bf16 (B, T, H, hd)")
+    # the kernel's dq^ is unscaled: dq = bf16(dq^) * scale below
+    scale = scale_in_dtype(hd_in, q.dtype)
+    q, kscale = kernel_q(q)
+    q, k, v, out, dout = (pad_head(t, hd) for t in (q, k, v, out.contiguous(), dout.contiguous()))
+    _check_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_seed)
+    B, T, H, _ = q.shape
+    S = k.shape[1]
+    lse = lse.contiguous()
     req(lse.dtype == torch.float32 and lse.shape == (B, H, T), "lse must be fp32 (B, H, T)")
-    scale = _check_scale(hd, q.dtype)
     dev = q.device
     n_qt, n_kt = -(-T // 64), -(-S // 64)
     # cross-block sums, added by the kernel's TMA reductions: dgate and dbias
@@ -256,12 +294,14 @@ def _backward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rat
         _ptr(bias), 0 if bias is None else bias.stride(1),
         _ptr(gate), _ptr(key_padding_mask), _ptr(attn_mask),
         dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dgate_acc), _ptr(dbias_acc),
-        B, T, S, H, scale, rows.data_ptr(),
+        B, T, S, H, hd, kscale, rows.data_ptr(),
         keep_threshold(dropout_rate) if seed is not None else 0,
         float(_dropout_scale(dropout_rate)) if seed is not None else 1.0,
         _ptr(seed), _build.stream(q))
     backward_launches += 2  # the rows pre-pass and the backward kernel
     dq = dq_acc.to(torch.bfloat16) * scale
+    if hd != hd_in:
+        dq, dk, dv = (t[..., :hd_in].contiguous() for t in (dq, dk, dv))
     dbias = None if dbias_acc is None else dbias_acc[..., :S].to(bias.dtype)
     dgate = None if dgate_acc is None else dgate_acc[:, :T].reshape(B, H, T).contiguous()
     return dq, dk, dv, dbias, dgate
@@ -328,8 +368,8 @@ def fused_attention(
     gated in fp32 (gate 1 when only a bias is given); on the card it goes
     through ``bias_rows`` (``compute_rel_pos_bias``'s view is taken as it
     is). Differentiable in q, k, v, bias and gate. CPU tensors take the
-    plain versions; a CUDA tensor launches the kernels (bf16, hd 64) or
-    raises."""
+    plain versions; a CUDA tensor launches the kernels (bf16, head dim up
+    to ``MAX_HEAD_DIM``) or raises."""
     _check_dropout(dropout_rate, dropout_seed)
     if bias is not None:
         bias = bias.to(q.dtype)
