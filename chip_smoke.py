@@ -21,6 +21,23 @@ Phases, one line each (any failure raises and exits non-zero):
              against their plain versions, launch counts per forward, the
              kernel path against the plain path, forward ms, host enqueue
              ms, audio-seconds per second, peak memory
+    fp32     feature extraction at the models' default dtype (fp32): (a) the
+             fp32 forward kernels against their plain versions (TF32 off) at
+             the serving shapes with a row of length 0: the L1 with and
+             without its sums (y1 rtol 1e-5 / atol 1e-6, the sums within
+             1e-5 of the sum of |terms|), the six conv blocks in both
+             extractors' forms and attention at T = 799 for Base+ (also
+             with a (T, S) mask), Large (16 x 64) and hd 80 (16 x 80):
+             relative L2 <= 1e-5, max abs <= 1e-4 of max |plain|, lse 1e-4
+             on the rows with a key; (b) WavLM-Base+ and WavLM-Large built
+             without a dtype from seed 0 (Large through a reference-layout
+             .pt and convert/fairseq.py), extract_features on the smoke
+             batch: launches (1, 7, 12) and (1, 12, 24), fp32 and finite,
+             the plain path within relative L2 1e-4; (c) each fp32 kernel's
+             wall and device ms, bound (bytes, or its operations as 3xTF32
+             at 495 TFLOP/s; the L1's at 67 TFLOP/s), plain version and
+             library call (F.conv1d fp32, SDPA fp32 with a float mask), the
+             forwards' ms, audio-seconds per second and peak memory
   6 cli      python -m unispeech_tpu_torch.tools dump-features --feature model
              on a manifest of wav files and a params .npz in the JAX layout
   7 bwd      each backward kernel, and the attention forward with dropout,
@@ -3666,6 +3683,299 @@ def speaker_phase(dev, tmp, files):
                 e90=e90, dia_err=dia_err)
 
 
+# the fp32 phase's gates: the 3xTF32 products are fp32 to a few ulps, summed
+# in another order than the plain fp32 versions (TF32 off); one TF32 pass
+# (~1e-3 relative) or a bf16 rounding (~4e-3) fails them
+F32_REL_L2, F32_MAX_OF_SCALE = 1e-5, 1e-4
+# the fp32 features, kernel path against plain path through 12 or 24 layers
+F32_MODEL_REL_L2 = 1e-4
+
+
+def f32_check(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """An fp32 kernel's output against its plain version: relative L2 <=
+    1e-5 and max |got - want| <= 1e-4 max |want|. Returns the max abs error."""
+    if got.dtype != torch.float32 or got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"fp32 {name}: {got.dtype} {tuple(got.shape)} vs {tuple(want.shape)}, or non-finite")
+    diff = got - want
+    rel, err = float(diff.norm() / want.norm()), float(diff.abs().max())
+    scale = float(want.abs().max())
+    phase("fp32", parity=name, rel_l2=f"{rel:.3g}", max_abs_err=f"{err:.3g}",
+          max_abs_over_max_plain=f"{err / scale:.3g}",
+          tol=f"rel_l2<={F32_REL_L2},max_abs<={F32_MAX_OF_SCALE}*max|plain|")
+    if not (rel <= F32_REL_L2 and err <= F32_MAX_OF_SCALE * scale):
+        fail(f"fp32 {name}: relative L2 {rel}, max abs {err} of {scale}")
+    return err
+
+
+def fp32_phase(dev, wav, lengths, base_cfg, card, tmp):
+    """Feature extraction at the models' default dtype (fp32): (a) each fp32
+    kernel against its plain version at the serving shapes, with a row of
+    length 0; (b) WavLM-Base+ and WavLM-Large built without a dtype (Large
+    through a reference-layout .pt), extract_features on the smoke batch:
+    launches, fp32 and finite, against the plain path; (c) each fp32
+    kernel's times, bound, plain and library call, the forwards' ms,
+    audio-s/s and peak memory. Returns the kernels rows and the forwards'
+    launches, ms and peak memory."""
+    from unispeech_tpu_torch.configs import WavLMModelConfig, large_encoder_config
+    from unispeech_tpu_torch.convert import fairseq
+    from unispeech_tpu_torch.models.wavlm import WavLM
+    from unispeech_tpu_torch.ops.kernels import (
+        TF32_TC_FLOPS,
+        conv_stack,
+        flash_attention,
+        l1_frontend,
+    )
+    from unispeech_tpu_torch.ops.rel_pos import compute_rel_pos_bias
+
+    f32 = torch.float32
+    B, NS = wav.shape
+    gen = torch.Generator().manual_seed(SEED + 40)
+    C, k0, s0 = base_cfg.conv_layers[0]
+    w1 = (torch.randn(k0, 1, C, generator=gen) * (2.0 / k0) ** 0.5).to(dev)
+    wav0 = wav.clone()
+    wav0[-1] = 0.0  # a row of length 0
+    err = {}
+
+    # (a) L1 with and without its sums: rtol 1e-5 / atol 1e-6 (the JAX
+    # test's); the sums within 1e-5 of the sum of |terms| (fp32 atomics in a
+    # varying order over 51,199 rows)
+    for stats in (True, False):
+        tag = "l1" if stats else "l1.no_sums"
+        before = l1_frontend.launches
+        y, s1, s2, t1 = l1_frontend.l1_conv_with_stats(wav0, w1, s0, dtype=f32, with_stats=stats)
+        py, ps1, ps2, _ = l1_frontend.l1_conv_with_stats_plain(wav0, w1, s0, f32)
+        torch.cuda.synchronize()
+        if l1_frontend.launches != before + 1 or y.dtype != f32 or not torch.isfinite(y).all():
+            fail(f"fp32 {tag}: {l1_frontend.launches - before} launches, {y.dtype}")
+        over = float(((y - py).abs() - (1e-6 + 1e-5 * py.abs())).max())
+        err[tag] = float((y - py).abs().max())
+        phase("fp32", parity=f"{tag}.y1", max_abs_err=f"{err[tag]:.3g}",
+              rel_l2=f"{rel_l2(y, py):.3g}", worst_over_rtol_atol=f"{over:.3g}",
+              tol="rtol_1e-5_atol_1e-6")
+        if over > 0:
+            fail(f"fp32 {tag}: y1 beyond rtol 1e-5 / atol 1e-6 by {over}")
+        if stats:
+            for nm, got, want, terms in (("s1", s1, ps1, py.abs().sum(1)),
+                                         ("s2", s2, ps2, py.square().sum(1))):
+                e = float(((got - want).abs() / terms.clamp_min(1e-30)).max())
+                phase("fp32", parity=f"{tag}.{nm}", max_rel_to_sum_abs=f"{e:.3g}", tol="1e-5")
+                if not e <= 1e-5:
+                    fail(f"fp32 {tag}.{nm}: {e}")
+        del y, s1, s2, py, ps1, ps2
+
+    # the conv blocks in both extractors' forms at the serving shapes, the
+    # frames of the length-0 row zero
+    x0 = torch.randn(B, t1, C, generator=gen).to(dev)
+    x0[-1] = 0.0
+    affine = ((torch.rand(B, C, generator=gen) + 0.5).to(dev),
+              (torch.randn(B, C, generator=gen) * 0.1).to(dev))
+    conv_calls = []  # the Base+ form's blocks as the main path calls them
+    err["conv"] = 0.0
+    for form in ("default", "layer_norm"):
+        x = x0
+        for i, (dim, k, _) in enumerate(base_cfg.conv_layers[1:], start=2):
+            w = (torch.randn(k, C, dim, generator=gen) * (2.0 / (k * C)) ** 0.5).to(dev)
+            first = i == 2
+            args = ((x, w, x.shape[1], first, True, affine if first else None)
+                    if form == "default" else (x, w, x.shape[1], True, False, None))
+            y, _ = conv_stack.conv_gelu_block(*args)
+            py, _ = conv_stack.conv_gelu_block_plain(*args)
+            torch.cuda.synchronize()
+            err["conv"] = max(err["conv"], f32_check(f"conv_gelu_block.{form}.L{i}", y, py))
+            if form == "default":
+                conv_calls.append(args)
+                x = py
+            else:
+                x = F.layer_norm(py, (dim,))
+    del x0, y, py
+
+    # attention at T = 799: Base+ (12 x 64), Large (16 x 64) and hd 80 (16
+    # x 80, width 128), gated rel-pos bias, key padding with a row of length
+    # 0; Base+ also with a (T, S) mask. lse on the rows with a key within
+    # 1e-4 (plus 2 fp32 ulps of |lse|: a row whose unmasked keys are all
+    # padded sits near the mask's -1e4)
+    T = base_cfg.num_frames(NS)
+    frames = torch.tensor([base_cfg.num_frames(int(n)) for n in lengths.cpu()], device=dev)
+    frames0 = frames.clone()
+    frames0[-1] = 0
+    kpm0 = torch.arange(T, device=dev)[None, :] >= frames0[:, None]
+    amask = torch.where((torch.arange(T)[:, None] - torch.arange(T)[None, :]).abs() > 200,
+                        -1e4, 0.0).to(dev)
+    attn = {}
+    err["attn"] = err["attn.large"] = 0.0
+    for tag, H, hd, extra in (("base", 12, 64, {}), ("base.attn_mask", 12, 64, {"attn_mask": amask}),
+                              ("large", 16, 64, {}), ("hd80", 16, 80, {})):
+        q, kk, v = (torch.randn(B, T, H, hd, generator=gen).to(dev) for _ in range(3))
+        table = (torch.randn(base_cfg.num_buckets, H, generator=gen) * 0.5).to(dev)
+        bias = compute_rel_pos_bias(table, T, T, base_cfg.num_buckets, base_cfg.max_distance,
+                                    dtype=f32)
+        gate = (torch.rand(B, H, T, generator=gen) * 2 + 1).to(dev)
+        a = (q, kk, v, bias, gate, kpm0)
+        before = flash_attention.launches
+        out, lse = flash_attention.fused_attention(*a, **extra, return_lse=True)
+        pout, plse = flash_attention.fused_attention_plain(*a, **extra, return_lse=True)
+        torch.cuda.synchronize()
+        if flash_attention.launches != before + 1:
+            fail(f"fp32 attention {tag}: {flash_attention.launches - before} launches")
+        e = f32_check(f"fused_attention.{tag}", out, pout)
+        err["attn.large" if tag == "large" else "attn"] = max(
+            err["attn.large" if tag == "large" else "attn"], e)
+        ok = frames0 > 0
+        e_lse = float(((lse - plse)[ok].abs() - 2 * 2.0 ** -23 * plse[ok].abs()).max())
+        phase("fp32", parity=f"fused_attention.{tag}.lse", max_abs_err_beyond_2ulp=f"{e_lse:.3g}",
+              tol="1e-4")
+        if not e_lse <= 1e-4:
+            fail(f"fp32 attention {tag}: lse {e_lse}")
+        # an all-padded row: uniform over its S keys, finite
+        if not torch.allclose(out[-1], v[-1].mean(0, keepdim=True).expand_as(out[-1]),
+                              rtol=1e-5, atol=1e-5):
+            fail(f"fp32 attention {tag}: the row of length 0 is not uniform")
+        if tag in ("base", "large"):
+            kpm = torch.arange(T, device=dev)[None, :] >= frames[:, None]
+            attn[tag] = (q, kk, v, bias, gate, kpm)
+    del out, pout, lse, plse
+
+    # (b) the models at their default dtype
+    counters = (l1_frontend, conv_stack, flash_attention)
+    large_cfg = large_encoder_config(relative_position_embedding=True, gru_rel_pos=True,
+                                     dropout=0.0, attention_dropout=0.0, encoder_layerdrop=0.0)
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    e2e = {}
+    try:
+        for arch, enc, want in (("base_plus", base_cfg, (1, 7, 12)),
+                                ("large", large_cfg, (1, 12, 24))):
+            t0 = time.perf_counter()
+            model = WavLM(WavLMModelConfig(encoder=enc),
+                          generator=torch.Generator().manual_seed(SEED))
+            if arch == "large":  # through the reference layout, as a user's checkpoint
+                path = tmp / "WavLM-Large.pt"
+                fairseq.save_reference_checkpoint(str(path), model.state_dict(),
+                                                  cfg={"encoder_layers": enc.encoder_layers})
+                sd, _ = fairseq.load_reference_checkpoint(str(path))
+                path.unlink()
+                with torch.device("meta"):
+                    model = WavLM(WavLMModelConfig(encoder=enc))
+                model.load_state_dict(fairseq.wavlm_state_dict_from_reference(sd, enc),
+                                      strict=True, assign=True)
+                del sd
+            model = model.to(dev).eval()
+            build_s = time.perf_counter() - t0
+            if model.dtype != f32 or any(p.dtype != f32 for p in model.parameters()):
+                fail(f"fp32 {arch}: the default model is not fp32")
+            nparams = sum(p.numel() for p in model.parameters())
+            for c in counters:
+                c.launches = 0
+            out = model.extract_features(wav, lengths=lengths).x
+            torch.cuda.synchronize()
+            launches = tuple(c.launches for c in counters)
+            n_frames, D = enc.num_frames(NS), enc.encoder_embed_dim
+            if out.dtype != f32 or out.shape != (B, n_frames, D) or not torch.isfinite(out).all():
+                fail(f"fp32 {arch}: output {out.dtype} {tuple(out.shape)}, or non-finite")
+            if launches != want:
+                fail(f"fp32 {arch}: launches (l1, conv, attention) {launches} != {want}")
+            with plain_ops():
+                plain = model.extract_features(wav, lengths=lengths).x
+            e = rel_l2(out, plain)
+            del out, plain
+            fwd_ms = cuda_ms(lambda: model.extract_features(wav, lengths=lengths), iters=5,
+                             warmup=2)
+            torch.cuda.synchronize()
+            base_gb = torch.cuda.memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            model.extract_features(wav, lengths=lengths)
+            torch.cuda.synchronize()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            audio_s = float(lengths.sum()) / SAMPLE_RATE
+            phase("fp32", model=arch, params=nparams, build_s=f"{build_s:.1f}",
+                  shape=(B, n_frames, D), dtype="float32", launches=launches,
+                  rel_l2_vs_plain=f"{e:.3g}", tol=F32_MODEL_REL_L2,
+                  forward_ms=f"{fwd_ms:.3f}", audio_seconds=audio_s,
+                  audio_sec_per_s=f"{audio_s / (fwd_ms / 1e3):.1f}",
+                  peak_memory_gb=f"{peak_gb:.2f}", held_before_gb=f"{base_gb:.2f}",
+                  card=card.replace(" ", "_"))
+            if not e <= F32_MODEL_REL_L2:
+                fail(f"fp32 {arch}: kernel path against plain path {e}")
+            e2e[arch] = dict(launches=launches, forward_ms=fwd_ms, peak_gb=peak_gb)
+            del model
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (c) times at the serving shapes: per forward (all of a kernel's
+    # launches); bounds from the bytes (fp32, each read and written once) and
+    # the operations at the peak of the work's type: the L1 on the CUDA
+    # cores (67 TFLOP/s), the products as 3xTF32 on the tensor cores (three
+    # TF32 products each, 495 TFLOP/s)
+    base_l, large_l = e2e["base_plus"]["launches"], e2e["large"]["launches"]
+    src = "unispeech_tpu_torch/csrc/"
+    rows = []
+    wav_lib = wav[:, None, :]
+    w1_lib = w1.permute(2, 1, 0).contiguous()
+    t1 = (NS - k0) // s0 + 1
+    l1_flops = 2 * B * t1 * C * k0
+    for stats, n in ((True, base_l[0]), (False, large_l[0])):
+        nbytes = B * NS * 4 + B * t1 * C * 4 + (2 * B * C * 4 if stats else 0)
+        fn = lambda: l1_frontend.l1_conv_with_stats(wav, w1, s0, dtype=f32, with_stats=stats)
+        b_ms, b_by = bound(nbytes, l1_flops, FP32_FLOPS)
+        rows.append(dict(
+            name="fp32.l1_conv_with_stats" + ("" if stats else ".no_sums"), route="cuda",
+            source=src + "l1_frontend_f32.cu", replaces="unispeech_tpu/ops/pallas/l1_frontend.py:164",
+            launches=n, max_abs_err=err["l1" if stats else "l1.no_sums"],
+            ms=n * cuda_ms(fn), device_ms=n * device_ms(fn),
+            plain_ms=n * cuda_ms(lambda: l1_frontend.l1_conv_with_stats_plain(
+                wav, w1, s0, f32, stats), iters=5),
+            bound_ms=n * b_ms, bound_by=b_by,
+            **library_row(lambda: F.conv1d(wav_lib, w1_lib, stride=s0), n)))
+    conv = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                library_device_ms=0.0)
+    by = set()
+    for args in conv_calls:
+        x, w = args[0], args[1]
+        kw = w.shape[0]
+        t_out = (x.shape[1] - kw) // 2 + 1
+        flops = 2 * B * t_out * C * kw * C
+        b_ms, b_by = bound((B * x.shape[1] * C + kw * C * C + B * t_out * C) * 4, 3 * flops,
+                           TF32_TC_FLOPS)
+        one = device_ms(lambda: conv_stack.conv_gelu_block(*args))
+        conv["ms"] += cuda_ms(lambda: conv_stack.conv_gelu_block(*args))
+        conv["device_ms"] += one
+        conv["plain_ms"] += cuda_ms(lambda: conv_stack.conv_gelu_block_plain(*args), iters=5)
+        conv["bound_ms"] += b_ms
+        by.add(b_by)
+        xt, wt = x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()
+        lib = library_times(lambda: F.conv1d(xt, wt, stride=2))
+        conv["library_ms"] += lib[0]
+        conv["library_device_ms"] += lib[1]
+        phase("fp32", times=f"conv_gelu_block.T{x.shape[1]}", device_ms=f"{one:.4f}",
+              bound_ms=f"{b_ms:.4f}", fp32_tflops=f"{flops / one / 1e9:.1f}",
+              library_device_ms=f"{lib[1]:.4f}")
+    rows.append(dict(name="fp32.conv_gelu_block", route="cuda", source=src + "conv_stack_f32.cu",
+                     replaces="unispeech_tpu/ops/pallas/conv_stack.py:156", launches=base_l[1],
+                     max_abs_err=err["conv"], bound_by="operations" if "operations" in by
+                     else "bytes", **conv))
+    for tag, n in (("base", base_l[2]), ("large", large_l[2])):
+        q, kk, v, bias, gate, kpm = a = attn[tag]
+        H, hd = q.shape[2], q.shape[3]
+        nbytes = 4 * B * T * H * hd * 4 + H * T * T * 4 + B * H * T * 4 + B * T
+        b_ms, b_by = bound(nbytes, 3 * 4 * B * H * T * T * hd, TF32_TC_FLOPS)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, kk, v))
+        mask = gate[..., None] * bias[None] + torch.where(kpm, -1e30, 0.0)[:, None, None, :]
+        rows.append(dict(
+            name="fp32.fused_attention" + ("" if tag == "base" else ".large"), route="cuda",
+            source=src + "flash_attention_f32.cu",
+            replaces="unispeech_tpu/ops/pallas/flash_attention.py:878", launches=n,
+            max_abs_err=err["attn" if tag == "base" else "attn.large"],
+            ms=n * cuda_ms(lambda: flash_attention.fused_attention(*a)),
+            device_ms=n * device_ms(lambda: flash_attention.fused_attention(*a)),
+            plain_ms=n * cuda_ms(lambda: flash_attention.fused_attention_plain(*a), iters=5),
+            bound_ms=n * b_ms, bound_by=b_by,
+            **library_row(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask), n)))
+    for r in rows:
+        phase("fp32", **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                         for k, v in r.items() if k not in ("route", "source", "replaces")})
+    return rows, e2e
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3805,6 +4115,10 @@ def main() -> int:
     # 5 WavLM-Large feature extraction through the layer_norm extractor
     large = large_phase(dev, wav, lengths, smi)
     clock.done("large")
+
+    # the fp32 forward kernels: Base+ and Large at the models' default dtype
+    fp32_rows, fp32_e2e = fp32_phase(dev, wav, lengths, cfg, smi, _build.BUILD_DIR / "smoke_fp32")
+    clock.done("fp32")
 
     # 6 the dump-features CLI on the card
     tmp = _build.BUILD_DIR / "smoke_cli"
@@ -4013,11 +4327,12 @@ def main() -> int:
     rows.append(finetune_attention_backward(dev, lengths, ctc_counts))
     rows += nobias_attention_rows(dev, lengths, w2v_counts)
     rows += xl_rows
+    rows += fp32_rows
     rows.append(vpu_row)
     del bw, bw_large
     # each kernel family's launches in one frozen and one unfrozen CTC
     # fine-tuning step at WavLM-Large's width (its forms of the family)
-    family = (("l1_conv_with_stats.no_sums", 0), ("l1_conv_with_stats", None),
+    family = (("fp32.", None), ("l1_conv_with_stats.no_sums", 0), ("l1_conv_with_stats", None),
               ("l1_conv_backward", 1), ("conv_gelu_block_backward", 3),
               ("conv_gelu_block", 2), ("fused_attention_backward", 5),
               ("fused_attention", 4), ("vpu_micro", None))

@@ -7,14 +7,19 @@ chip_smoke.py checks the kernels at the main path's shapes; these cases
 cover what it does not reach: ragged and very short sequences, tiles cut by
 t_out, T or C, odd T under the conv GEMM's even/odd row view, strided q/k/v
 views, a bias without a gate, dropout, the micro-benchmark's ragged sizes,
-and the inputs each wrapper must reject. Tolerance: one bf16 ulp at the tensor's
+the inputs each wrapper must reject, and the fp32 forward kernels (the
+models' default dtype). Tolerance: one bf16 ulp at the tensor's
 scale (two fp32 accumulation orders may round to neighbouring bf16 values);
 attention 2 ulps (its online softmax rounds P against a running max).
 Backward: bf16 outputs within 2 ulps at the tensor's scale (an operand
 rounded to bf16 on either side of a boundary, then summed in another order);
 fp32 sums (dW, da/db, dbias, dgate) within relative L2 1e-3 (the same
 terms, fp32 atomics in a varying order, rare one-ulp flips of a bf16
-operand).
+operand). fp32 forward kernels: y1 rtol 1e-5 / atol 1e-6 (10 fp32 FMAs in
+another order), its sums within 1e-5 of the sum of |terms|; the conv block
+and attention relative L2 <= 1e-5 and max abs <= 1e-4 of max |plain|
+(3xTF32 products: fp32 to a few ulps, summed in another order; one TF32
+pass would miss by ~1e-3); lse within 1e-4 on rows with a key.
 """
 
 import pytest
@@ -309,9 +314,9 @@ def test_attention_backward_head_dims(dev, B, T, H, hd, case):
 
 
 def test_wrappers_reject(dev):
-    x = torch.zeros(1, 64, 128, device=dev)
+    x = torch.zeros(1, 64, 128, device=dev, dtype=torch.float16)
     w = torch.zeros(3, 128, 128, device=dev)
-    with pytest.raises(ValueError):  # fp32 input: the kernel computes in bf16
+    with pytest.raises(ValueError):  # fp16 input: the kernels compute in bf16 or fp32
         conv_stack.conv_gelu_block(x, w, 64)
     with pytest.raises(ValueError):  # 96 channels: not a multiple of 128
         conv_stack.conv_gelu_block(torch.zeros(1, 64, 96, device=dev, dtype=torch.bfloat16),
@@ -741,3 +746,182 @@ def test_small_wav2vec2_train_kernel_path_matches_plain(dev, monkeypatch):
     for (name, _), a, b in zip(model.named_parameters(), gk, gp):
         assert torch.isfinite(a).all(), name
         assert (a - b).norm().item() <= 5e-2 * b.norm().item() + 1e-4 * total, name
+
+
+# ------------------------------------------------------------ fp32 forward
+
+
+def _close_f32(got, want):
+    """The fp32 products' gate: relative L2 <= 1e-5 and max abs <= 1e-4 of
+    max |want|."""
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    diff = got - want.float()
+    assert diff.norm().item() <= 1e-5 * want.float().norm().item()
+    assert diff.abs().max().item() <= 1e-4 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("B,t1,C", [(1, 79, 512), (3, 999, 64), (2, 9599, 512), (2, 65, 512),
+                                    (2, 333, 192), (5, 4097, 1024), (2, 17, 2048)])
+@pytest.mark.parametrize("k,stride", [(10, 5), (8, 4), (16, 8)])
+@pytest.mark.parametrize("stats", [True, False])
+def test_l1_fp32_edges(dev, B, t1, C, k, stride, stats):
+    """The fp32 forward, with and without its sums: y1 fp32 within rtol 1e-5
+    / atol 1e-6 of the plain fp32 conv, one launch; the sums within 1e-5 of
+    the sum of |terms| of the plain version's."""
+    g = torch.Generator().manual_seed(t1 * 3 + k + C)
+    ns = (t1 - 1) * stride + k + t1 % stride
+    wav = (torch.randn(B, ns, generator=g) * 0.1).to(dev)
+    w = (torch.randn(k, 1, C, generator=g) * 0.4).to(dev)
+    before = l1_frontend.launches
+    y, s1, s2, got_t1 = l1_frontend.l1_conv_with_stats(wav, w, stride, dtype=torch.float32,
+                                                       with_stats=stats)
+    assert l1_frontend.launches == before + 1
+    py, ps1, ps2, pt1 = l1_frontend.l1_conv_with_stats_plain(wav, w, stride, torch.float32)
+    assert got_t1 == pt1 == t1 and y.dtype == torch.float32
+    torch.testing.assert_close(y, py, rtol=1e-5, atol=1e-6)
+    if not stats:
+        assert s1 is None and s2 is None
+        return
+    for got, want, terms in ((s1, ps1, py.abs().sum(1)), (s2, ps2, py.square().sum(1))):
+        assert ((got - want).abs() <= 1e-5 * terms).all()
+
+
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("B,T,valid,C", [(2, 9, 9, 128), (3, 1001, 998, 256), (2, 300, 257, 384),
+                                         (4, 517, 515, 128), (1, 2000, 2000, 512),
+                                         (2, 259, 259, 1024)])
+@pytest.mark.parametrize("gelu_in,affine,gelu_out", [
+    (True, True, True), (False, False, True), (True, False, False), (False, True, False)])
+def test_conv_block_fp32_edges(dev, k, B, T, valid, C, gelu_in, affine, gelu_out):
+    """The fp32 block (the H pass where there is one, then the 3xTF32 GEMM)
+    against the plain fp32 conv: y and pre; launches 1 + the H pass; the
+    backward is not ported in fp32 and raises."""
+    g = torch.Generator().manual_seed(T * 10 + k + C)
+    x = torch.randn(B, T, C, generator=g).to(dev)
+    w = (torch.randn(k, C, C, generator=g) * (2.0 / (k * C)) ** 0.5).to(dev)
+    ab = ((torch.rand(B, C, generator=g) + 0.5).to(dev),
+          (torch.randn(B, C, generator=g) * 0.1).to(dev)) if affine else None
+    before = conv_stack.launches
+    y, t, pre = conv_stack._forward(x, w, valid, gelu_in, gelu_out, ab, want_pre=True)
+    assert conv_stack.launches == before + 1 + (gelu_in or affine)
+    py, pt, ppre = conv_stack.conv_gelu_block_plain(x, w, valid, gelu_in, gelu_out, ab,
+                                                    return_pre=True)
+    assert t == pt == (valid - k) // 2 + 1
+    _close_f32(y, py)
+    _close_f32(pre, ppre)
+    xg = x.clone().requires_grad_()
+    yg, _ = conv_stack.conv_gelu_block(xg, w, valid, gelu_in, gelu_out, ab)
+    with pytest.raises(NotImplementedError):
+        yg.sum().backward()
+
+
+@pytest.mark.parametrize("hd", [16, 24, 36, 64, 80, 128])
+@pytest.mark.parametrize("B,T,H", [(1, 1, 1), (3, 65, 4), (2, 200, 3), (4, 799, 2)])
+@pytest.mark.parametrize("case", ["gate+kpm", "bias+kpm+mask", "none", "bias_view"])
+def test_attention_fp32_edges(dev, hd, B, T, H, case):
+    """The fp32 forward against the plain fp32 version: out (relative L2
+    1e-5, max abs 1e-4 of max |plain|), lse within 1e-4 on rows with a key
+    (plus 2 fp32 ulps of |lse|: a row whose unmasked keys are all padded
+    has an lse near the mask's -1e4, where one ulp is 1e-3), one launch;
+    the last row of length 0 where there are keys to pad (its out uniform
+    over the S keys on both sides)."""
+    g = torch.Generator().manual_seed(T * 7 + H + hd)
+    q, k, v = (torch.randn(B, T, H, hd, generator=g).to(dev) for _ in range(3))
+    lengths = torch.tensor([T - (i * T) // (2 * B) for i in range(B)])
+    if B > 1:
+        lengths[-1] = 0
+    lengths = lengths.to(dev)
+    kw = {}
+    if "kpm" in case or case == "bias_view":
+        kw["key_padding_mask"] = torch.arange(T, device=dev)[None, :] >= lengths[:, None]
+    if "bias" in case or "gate" in case:
+        kw["bias"] = torch.randn(H, T, T, generator=g).to(dev)
+    if case == "bias_view":
+        from unispeech_tpu_torch.ops.rel_pos import compute_rel_pos_bias
+
+        table = torch.randn(32, H, generator=g).to(dev)
+        kw["bias"] = compute_rel_pos_bias(table, T, T, 32, 64, dtype=torch.float32)
+    if "gate" in case or case == "bias_view":
+        kw["gate"] = (torch.rand(B, H, T, generator=g) * 2 + 1).to(dev)
+    if "mask" in case:
+        kw["attn_mask"] = torch.where(
+            (torch.arange(T)[:, None] - torch.arange(T)[None, :]).abs() > 40, -1e4, 0.0).to(dev)
+    before = flash_attention.launches
+    out, lse = flash_attention.fused_attention(q, k, v, **kw, return_lse=True)
+    assert flash_attention.launches == before + 1
+    pout, plse = flash_attention.fused_attention_plain(q, k, v, **kw, return_lse=True)
+    _close_f32(out, pout)
+    valid = lengths > 0
+    err = (lse[valid] - plse[valid]).abs() - 2 * 2.0 ** -23 * plse[valid].abs()
+    assert err.max().item() <= 1e-4
+
+
+def test_fp32_route_rejects(dev):
+    """fp32 takes only the fp32 forward kernels: no dropout, no backward
+    (NotImplementedError, the fp32 training slice); fp16 and mixed q/k/v
+    dtypes raise; nothing is rounded to reach the bf16 kernels."""
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(2, 40, 2, 64, generator=g).to(dev) for _ in range(3))
+    seed = torch.tensor([5], dtype=torch.int64, device=dev)
+    with pytest.raises(NotImplementedError):
+        flash_attention.fused_attention(q, k, v, dropout_rate=0.1, dropout_seed=seed)
+    qg = q.clone().requires_grad_()
+    out = flash_attention.fused_attention(qg, k, v)
+    assert out.dtype == torch.float32
+    with pytest.raises(NotImplementedError):
+        out.sum().backward()
+    for qq, kk in ((q.half(), k.half()), (q, k.to(torch.bfloat16)),
+                   (q.to(torch.bfloat16), k)):
+        with pytest.raises(ValueError):
+            flash_attention.fused_attention(qq, kk, v.to(qq.dtype))
+    with pytest.raises(ValueError):  # bf16 weights under an fp32 input
+        conv_stack.conv_gelu_block(torch.zeros(1, 64, 128, device=dev),
+                                   torch.zeros(3, 128, 128, device=dev, dtype=torch.bfloat16), 64)
+    with pytest.raises(ValueError):  # the L1 kernels compute in bf16 or fp32
+        l1_frontend.l1_conv_with_stats(torch.zeros(1, 400, device=dev),
+                                       torch.zeros(10, 1, 64, device=dev), 5,
+                                       dtype=torch.float16)
+    wk = torch.randn(10, 1, 64, generator=g).to(dev).requires_grad_()
+    y, *_ = l1_frontend.l1_conv_with_stats(torch.randn(1, 4000, generator=g).to(dev), wk, 5,
+                                           dtype=torch.float32)
+    with pytest.raises(NotImplementedError):
+        y.sum().backward()
+
+
+@pytest.mark.parametrize("arch", ["base", "large"])
+def test_small_model_fp32_kernel_path_matches_plain(dev, monkeypatch, arch):
+    """A small WavLM built without a dtype (fp32, the default) on the card:
+    launches per forward as in bf16, fp32 features within relative L2 1e-4
+    of the plain path."""
+    from unispeech_tpu_torch.configs import (
+        WavLMModelConfig,
+        base_encoder_config,
+        large_encoder_config,
+    )
+    from unispeech_tpu_torch.models import encoder
+    from unispeech_tpu_torch.models.wavlm import WavLM
+
+    make = base_encoder_config if arch == "base" else large_encoder_config
+    enc = make(encoder_layers=2, encoder_embed_dim=128, encoder_ffn_embed_dim=256,
+               encoder_attention_heads=2, conv_layers=((128, 10, 5),) + ((128, 3, 2),) * 2,
+               conv_pos=16, conv_pos_groups=4, relative_position_embedding=True,
+               gru_rel_pos=True, num_buckets=32, max_distance=64, dropout=0.0,
+               attention_dropout=0.0)
+    model = WavLM(WavLMModelConfig(encoder=enc),
+                  generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    g = torch.Generator().manual_seed(1)
+    wav = (torch.randn(3, 6000, generator=g) * 0.1).to(dev)
+    lengths = torch.tensor([6000, 4100, 2500], device=dev)
+    mods = (l1_frontend, conv_stack, flash_attention)
+    counts = [m.launches for m in mods]
+    got = model.extract_features(wav, lengths=lengths).x
+    # Base: two GEMMs and the first block's H pass; Large: H pass + GEMM per block
+    assert [m.launches - c for m, c in zip(mods, counts)] == ([1, 3, 2] if arch == "base"
+                                                              else [1, 4, 2])
+    monkeypatch.setattr(encoder, "l1_conv_with_stats", l1_frontend.l1_conv_with_stats_plain)
+    monkeypatch.setattr(encoder, "conv_gelu_block", conv_stack.conv_gelu_block_plain)
+    monkeypatch.setattr(encoder, "fused_attention", flash_attention.fused_attention_plain)
+    want = model.extract_features(wav, lengths=lengths).x
+    assert got.dtype == want.dtype == torch.float32 and torch.isfinite(got).all()
+    assert ((got - want).norm() / want.norm()).item() <= 1e-4

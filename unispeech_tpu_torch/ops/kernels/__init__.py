@@ -7,4 +7,5 @@ operations over the peak rate of their type.
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOPS = 989e12
+TF32_TC_FLOPS = 495e12
 FP32_FLOPS = 67e12

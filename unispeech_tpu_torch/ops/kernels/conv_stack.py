@@ -6,7 +6,10 @@ is the frontend GroupNorm folded in as a per-(batch, channel) affine, and
 its backward (dx, dW, da, db from the saved bf16 pre-activation). GELU and
 its derivative are exact erf (the TPU kernel's polynomials exist only
 because Mosaic has no erf). CUDA tensors go to the kernels in
-``csrc/conv_stack.cu``; CPU tensors to the plain versions below.
+``csrc/conv_stack.cu`` (bf16) and ``csrc/conv_stack_f32.cu`` (the fp32
+forward: the GEMM as 3xTF32 tensor-core products, so fp32 to a few ulps;
+its backward is not ported yet and raises); CPU tensors to the plain
+versions below.
 """
 
 from __future__ import annotations
@@ -116,11 +119,15 @@ def conv_gelu_block_backward_plain(x, kernel, valid_len: int, gelu_in: bool,
 
 
 def _check_cuda(x, kernel, valid_len, affine):
+    """Raise for CUDA inputs the kernels do not take; returns the geometry,
+    the kernel in x's dtype and the fp32 affine."""
     B, ts, C = x.shape
     t_out = _check(kernel, valid_len, ts)
     req = _build.require
-    req(x.dtype == torch.bfloat16 and x.is_contiguous(),
-        "conv block kernel takes a contiguous bf16 (B, T, C) input")
+    req(x.dtype in _build.COMPUTE_DTYPES and x.is_contiguous(),
+        f"conv block kernels take a contiguous bf16 or fp32 (B, T, C) input, got {x.dtype}")
+    req(kernel.dtype in (torch.float32, x.dtype),
+        f"conv block kernel of {kernel.dtype} with a {x.dtype} input")
     req(kernel.shape[1] == C and C % 128 == 0,
         f"conv block kernel takes C % 128 == 0 channels matching x, got {C}")
     req(kernel.device == x.device, "kernel and input on different devices")
@@ -131,7 +138,7 @@ def _check_cuda(x, kernel, valid_len, affine):
         ab = tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ab)
         req(all(t.shape == (B, C) and t.device == x.device for t in ab),
             "affine must be two (B, C) tensors on x's device")
-    return B, ts, C, t_out, kernel.to(torch.bfloat16).contiguous(), ab
+    return B, ts, C, t_out, kernel.to(x.dtype).contiguous(), ab
 
 
 def _forward(x, kernel, valid_len, gelu_in, gelu_out, affine, want_pre):
@@ -144,17 +151,24 @@ def _forward(x, kernel, valid_len, gelu_in, gelu_out, affine, want_pre):
         return y, t_out, pre if want_pre else None
     B, ts, C, t_out, w, ab = _check_cuda(x, kernel, valid_len, affine)
     k = kernel.shape[0]
-    # the GEMM's B operand K-major: (C_out, k * C_in), row n = W[:, :, n]
-    w_t = w.reshape(k * C, C).t().contiguous()
-    y = torch.empty((B, t_out, C), dtype=torch.bfloat16, device=x.device)
+    if x.dtype == torch.float32:
+        # the fp32 GEMM reads the (k C_in, C_out) kernel as it lies, and x
+        # (or H) and W by 16-byte copies
+        entry = "usk_conv_gelu_block_f32"
+        x, w = (t.clone() if t.data_ptr() % 16 else t for t in (x, w))
+    else:
+        # the bf16 GEMM's B operand K-major: (C_out, k * C_in), row n = W[:, :, n]
+        entry = "usk_conv_gelu_block"
+        w = w.reshape(k * C, C).t().contiguous()
+    y = torch.empty((B, t_out, C), dtype=x.dtype, device=x.device)
     pre = torch.empty_like(y) if want_pre else None
     # H = gelu_in?(x * a + b) of the valid rows, written once by an
     # elementwise pass before the GEMM
-    h_buf = (torch.empty((B, valid_len, C), dtype=torch.bfloat16, device=x.device)
+    h_buf = (torch.empty((B, valid_len, C), dtype=x.dtype, device=x.device)
              if ab is not None or gelu_in else None)
     ptr = lambda t: None if t is None else t.data_ptr()
-    fn = _build.function("usk_conv_gelu_block", _SIGNATURE)
-    _build.launch(fn, "conv_gelu_block", x.device, x.data_ptr(), w_t.data_ptr(),
+    fn = _build.function(entry, _SIGNATURE)
+    _build.launch(fn, "conv_gelu_block", x.device, x.data_ptr(), w.data_ptr(),
                   ptr(None if ab is None else ab[0]), ptr(None if ab is None else ab[1]),
                   ptr(h_buf), y.data_ptr(), ptr(pre), B, ts, valid_len, t_out, C, k,
                   int(gelu_in), int(gelu_out), _build.stream(x))
@@ -182,6 +196,7 @@ def backward_parts(x, kernel, valid_len: int, gelu_in: bool, gelu_out: bool, aff
     GEMM left out, its output is left unwritten; this times each GEMM alone."""
     global backward_launches
     B, ts, C, t_out, w, ab = _check_cuda(x, kernel, valid_len, affine)
+    _build.require_bf16_training(x.dtype, "the conv block's backward")
     k = kernel.shape[0]
     req = _build.require
     dy = dy.to(torch.bfloat16).contiguous()
@@ -240,7 +255,8 @@ def conv_gelu_block(x: torch.Tensor, kernel: torch.Tensor, valid_len: int,
     ``affine`` ((B, C), (B, C)) fp32 applies x*a + b before gelu_in.
     Returns (y, t_out) with y (B, t_out, C), t_out = (valid_len - k)//2 + 1.
     Differentiable in x, kernel and the affine. CPU tensors take the plain
-    versions; a CUDA tensor launches the kernels (bf16, C % 128 == 0) or
+    versions; a CUDA tensor launches the kernels (bf16 or fp32 x, the
+    kernel fp32 or x's dtype, C % 128 == 0; the backward in bf16 only) or
     raises."""
     a, b = (None, None) if affine is None else affine
     if torch.is_grad_enabled() and any(

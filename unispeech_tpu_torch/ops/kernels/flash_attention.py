@@ -13,7 +13,10 @@ the plain versions below, which follow the kernels' arithmetic: bf16 P,
 fp32 P.V, normalization by the fp32 row sum at the end; the dropout keep
 mask is the same Philox function of (seed, b, h, t, s) on both sides
 (``ops/kernels/philox.py``), so forward and backward, kernel and plain
-version, draw the identical mask.
+version, draw the identical mask. fp32 q/k/v (the models' default dtype)
+launch the fp32 forward of ``csrc/flash_attention_f32.cu`` (3xTF32
+tensor-core products, P not rounded); it has no dropout and no backward
+yet: both raise.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ backward_launches = 0  # backward kernel launches made by its autograd backward
 NEG_INF = -1e30
 _P, _L, _I, _U, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _FWD_SIGNATURE = [_P] * 4 + [_L] * 8 + [_P, _L] + [_P] * 4 + [_I] * 5 + [_F, _P, _U, _F, _P]
+_FWD_F32_SIGNATURE = [_P] * 4 + [_L] * 8 + [_P, _L] + [_P] * 4 + [_I] * 5 + [_F, _P]
 _BWD_SIGNATURE = ([_P] * 6 + [_L] * 10 + [_P, _L] + [_P] * 8 + [_I] * 5
                   + [_F, _P, _U, _F, _P, _P])
 MAX_HEAD_DIM = 128  # the kernels' widest head (two 64-column boxes per row)
@@ -167,19 +171,21 @@ def _check_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_seed):
     B, T, H, hd = q.shape
     S = k.shape[1]
     req = _build.require
+    dt = q.dtype
+    req(dt in _build.COMPUTE_DTYPES, f"attention kernels take bf16 or fp32 q, k, v, not {dt}")
     req(hd % 8 == 0 and 8 <= hd <= MAX_HEAD_DIM,
         f"attention kernels take head dims that are multiples of 8 up to {MAX_HEAD_DIM}, "
         f"got {hd} (see kernel_head_dim)")
+    unit = 16 // q.element_size()  # elements per 16 bytes
     for name, t, rows in (("q", q, T), ("k", k, S), ("v", v, S)):
-        req(t.dtype == torch.bfloat16 and t.device == q.device,
-            f"{name} must be bf16 on q's device")
+        req(t.dtype == dt and t.device == q.device, f"{name} must be {dt} (q's) on q's device")
         req(t.shape == (B, rows, H, hd), f"{name} has shape {tuple(t.shape)}")
-        req(t.stride(3) == 1 and t.stride(2) == hd and t.stride(1) % 8 == 0
-            and t.stride(0) % 8 == 0 and t.data_ptr() % 16 == 0,
+        req(t.stride(3) == 1 and t.stride(2) == hd and t.stride(1) % unit == 0
+            and t.stride(0) % unit == 0 and t.data_ptr() % 16 == 0,
             f"{name} must be a (B, T, H*hd) row layout with 16-byte aligned rows")
     if bias is not None:
-        req(bias.dtype == torch.bfloat16 and bias.shape == (H, T, S) and bias.device == q.device,
-            "bias must be a bf16 (H, T, S) tensor on q's device")
+        req(bias.dtype == dt and bias.shape == (H, T, S) and bias.device == q.device,
+            f"bias must be a {dt} (H, T, S) tensor on q's device")
         req(_bias_rows_ok(bias), "bias rows must be whole 16-byte units (see bias_rows)")
     if gate is not None:
         req(bias is not None, "a gate needs a bias")
@@ -205,9 +211,9 @@ def _bias_rows_ok(bias: torch.Tensor) -> bool:
 
 
 def bias_rows(bias: torch.Tensor) -> torch.Tensor:
-    """The (H, T, S) bias in the layout the kernels read by TMA: unit inner
-    stride, rows a multiple of 8 elements apart (whole 16-byte units of
-    bf16), heads T rows apart. A bias in that layout, such as the view
+    """The (H, T, S) bias in the layout the kernels read: unit inner stride,
+    rows a multiple of 8 elements apart (whole 16-byte units of bf16, two
+    of fp32), heads T rows apart. A bias in that layout, such as the view
     ``ops/rel_pos.py::compute_rel_pos_bias`` returns, is taken as it is;
     any other is copied into it (differentiably)."""
     if _bias_rows_ok(bias):
@@ -232,21 +238,26 @@ def _forward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rate
     _check_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_seed)
     B, T, H, _ = q.shape
     S = k.shape[1]
-    out = torch.empty((B, T, H, hd), dtype=torch.bfloat16, device=q.device)
+    out = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if want_lse else None
-    seed = dropout_seed if dropout_rate > 0.0 else None
-    fn = _build.function("usk_flash_attention_fwd", _FWD_SIGNATURE)
-    _build.launch(
-        fn, "fused_attention", q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-        _ptr(bias), 0 if bias is None else bias.stride(1),
-        _ptr(gate), _ptr(key_padding_mask), _ptr(attn_mask), _ptr(lse),
-        B, T, S, H, hd, scale, _ptr(seed),
-        keep_threshold(dropout_rate) if seed is not None else 0,
-        float(_dropout_scale(dropout_rate)) if seed is not None else 1.0,
-        _build.stream(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+            _ptr(bias), 0 if bias is None else bias.stride(1),
+            _ptr(gate), _ptr(key_padding_mask), _ptr(attn_mask), _ptr(lse),
+            B, T, S, H, hd, scale)
+    if q.dtype == torch.float32:
+        if dropout_rate > 0.0:
+            _build.require_bf16_training(q.dtype, "attention dropout")
+        fn = _build.function("usk_flash_attention_fwd_f32", _FWD_F32_SIGNATURE)
+        _build.launch(fn, "fused_attention", q.device, *args, _build.stream(q))
+    else:
+        seed = dropout_seed if dropout_rate > 0.0 else None
+        fn = _build.function("usk_flash_attention_fwd", _FWD_SIGNATURE)
+        _build.launch(fn, "fused_attention", q.device, *args, _ptr(seed),
+                      keep_threshold(dropout_rate) if seed is not None else 0,
+                      float(_dropout_scale(dropout_rate)) if seed is not None else 1.0,
+                      _build.stream(q))
     launches += 1
     if hd != hd_in:
         out = out[..., :hd_in].contiguous()
@@ -256,6 +267,7 @@ def _forward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rate
 def _backward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rate,
                    dropout_seed, out, lse, dout):
     global backward_launches
+    _build.require_bf16_training(q.dtype, "the attention backward kernel")
     hd_in = q.shape[-1]
     hd = kernel_head_dim(hd_in)
     req = _build.require
@@ -368,8 +380,9 @@ def fused_attention(
     gated in fp32 (gate 1 when only a bias is given); on the card it goes
     through ``bias_rows`` (``compute_rel_pos_bias``'s view is taken as it
     is). Differentiable in q, k, v, bias and gate. CPU tensors take the
-    plain versions; a CUDA tensor launches the kernels (bf16, head dim up
-    to ``MAX_HEAD_DIM``) or raises."""
+    plain versions; a CUDA tensor launches the kernels (bf16 or fp32 q, k,
+    v of one dtype, head dim up to ``MAX_HEAD_DIM``; in fp32 without
+    dropout and backward) or raises."""
     _check_dropout(dropout_rate, dropout_seed)
     if bias is not None:
         bias = bias.to(q.dtype)

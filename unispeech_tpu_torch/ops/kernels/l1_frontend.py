@@ -9,7 +9,9 @@ CUDA tensors go to the kernels in ``csrc/l1_frontend.cu`` (both directions
 one launch, y1 computed on tensor cores from the JAX kernel's collapsed
 waveform layout by persistent blocks; the forward writes y1 with streaming
 stores, the backward reads dy by TMA); CPU tensors to the plain versions
-below.
+below. ``dtype`` is bf16 or fp32 (the models' default): fp32 launches the
+fp32 forward of ``csrc/l1_frontend_f32.cu`` (CUDA-core FMAs, nothing
+rounded); its backward is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch.nn.functional as F
 
 from unispeech_tpu_torch.ops.kernels import _build
 
-launches = 0  # forward kernel launches made by l1_conv_with_stats
+launches = 0  # forward kernel launches made by l1_conv_with_stats (bf16 and fp32)
 backward_launches = 0  # backward kernel launches made by l1_conv_backward
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -75,12 +77,16 @@ def l1_conv_backward_plain(wav, kernel, stride: int, dy, ds1=None, ds2=None,
 
 
 def _geometry_cuda(wav, kernel, stride, dtype):
+    """Raise for inputs the kernels do not take; returns the geometry and
+    the (k, C) weights in ``dtype``."""
     k, cin, C = kernel.shape
     check_geometry(k, stride)
     req = _build.require
-    req(dtype == torch.bfloat16, f"L1 kernel computes in bf16, not {dtype}")
+    req(dtype in _build.COMPUTE_DTYPES, f"L1 kernels compute in bf16 or fp32, not {dtype}")
     req(wav.dtype == torch.float32 and wav.dim() == 2 and wav.is_contiguous(),
         "L1 kernel takes a contiguous (B, NS) fp32 waveform")
+    req(kernel.dtype in (torch.float32, dtype),
+        f"L1 kernel's weights must be fp32 or {dtype}, got {kernel.dtype}")
     req(kernel.device == wav.device, "kernel and waveform on different devices")
     req(cin == 1 and C % 64 == 0 and C <= 2048,
         f"L1 kernel takes (k, 1, C) with C % 64 == 0, C <= 2048, got {tuple(kernel.shape)}")
@@ -88,7 +94,9 @@ def _geometry_cuda(wav, kernel, stride, dtype):
     t1 = (NS - k) // stride + 1
     req(t1 >= 1 and B >= 1, f"waveform of {NS} samples is shorter than one window")
     req(B * NS < 2**31, f"L1 kernels index {B} x {NS} samples with 32-bit integers")
-    return B, NS, t1, k, C, kernel[:, 0, :].to(torch.bfloat16).contiguous()
+    w = kernel[:, 0, :].to(dtype).contiguous()
+    # the fp32 kernel reads its taps as float4
+    return B, NS, t1, k, C, w.clone() if w.data_ptr() % 16 else w
 
 
 def _forward(wav, kernel, stride, dtype, with_stats):
@@ -96,12 +104,13 @@ def _forward(wav, kernel, stride, dtype, with_stats):
     if not wav.is_cuda:
         return l1_conv_with_stats_plain(wav, kernel, stride, dtype, with_stats)
     B, NS, t1, k, C, w = _geometry_cuda(wav, kernel, stride, dtype)
-    y = torch.empty((B, t1, C), dtype=torch.bfloat16, device=wav.device)
+    y = torch.empty((B, t1, C), dtype=dtype, device=wav.device)
     s1 = s2 = None
     if with_stats:
         s1 = torch.zeros((B, C), dtype=torch.float32, device=wav.device)
         s2 = torch.zeros((B, C), dtype=torch.float32, device=wav.device)
-    fn = _build.function("usk_l1_conv_fwd", _SIGNATURE)
+    entry = "usk_l1_conv_fwd_f32" if dtype == torch.float32 else "usk_l1_conv_fwd"
+    fn = _build.function(entry, _SIGNATURE)
     _build.launch(fn, "l1_conv_with_stats", wav.device, wav.data_ptr(), w.data_ptr(),
                   y.data_ptr(), None if s1 is None else s1.data_ptr(),
                   None if s2 is None else s2.data_ptr(), B, NS, t1, C, k, stride,
@@ -120,6 +129,7 @@ def l1_conv_backward(wav, kernel, stride: int, dy, ds1=None, ds2=None,
     if not wav.is_cuda:
         return l1_conv_backward_plain(wav, kernel, stride, dy, ds1, ds2, dtype)
     B, NS, t1, k, C, w = _geometry_cuda(wav, kernel, stride, dtype)
+    _build.require_bf16_training(dtype, "the L1 backward kernel")
     req = _build.require
     req(C <= 1024, f"L1 backward kernel takes C <= 1024 channels, got {C}")
     dy = dy.contiguous()
@@ -169,8 +179,8 @@ def l1_conv_with_stats(wav: torch.Tensor, kernel: torch.Tensor, stride: int,
     ``dtype`` with exactly t1 = (NS - k)//stride + 1 rows, s1/s2 (B, C) fp32
     sums of y1 and y1**2 over time, both None without ``with_stats`` (the
     kernel then writes y1 alone). Differentiable in ``kernel``. CPU tensors
-    take the plain versions; a CUDA tensor launches the kernels (bf16 only)
-    or raises.
+    take the plain versions; a CUDA tensor launches the kernels (bf16 or
+    fp32 ``dtype``; the backward in bf16 only) or raises.
     """
     if torch.is_grad_enabled() and kernel.requires_grad:
         out = _L1WithStats.apply(wav, kernel, stride, dtype, with_stats)
