@@ -38,6 +38,22 @@ Phases, one line each (any failure raises and exits non-zero):
              at 495 TFLOP/s; the L1's at 67 TFLOP/s), plain version and
              library call (F.conv1d fp32, SDPA fp32 with a float mask), the
              forwards' ms, audio-seconds per second and peak memory
+    fp32_bwd the fp32 backward kernels and the fp32 attention dropout (TF32
+             off for the plain versions) at the pretraining shapes, in the
+             Base forms and the Large layer_norm forms (a row of length 0,
+             dO 0 on it): the products (dq, dk, dv, dx, the dropout
+             forward's out) relative L2 <= 1e-5 and max abs <= 1e-4 of max
+             |plain|, the sums taken by fp32 atomics (dW of the L1 and the
+             conv blocks, da, db, dbias, dgate) within 1e-5 of the sum of
+             |terms| per element, lse 1e-4 on the rows with a key, the
+             dropout forward's keep mask equal to attention_keep over all
+             768 keys
+    fp32_train, fp32_large_train  phase 8's pretraining steps with the
+             models built without a dtype (fp32, the default): launches per
+             step as in bf16, the gradients against the plain path per
+             tensor |g - g_plain| <= 1e-3 |g_plain| + 1e-6 |global|, 20
+             steps of falling loss; step ms, host enqueue, audio-seconds
+             per second, peak memory, a profiled step
   6 cli      python -m unispeech_tpu_torch.tools dump-features --feature model
              on a manifest of wav files and a params .npz in the JAX layout
   7 bwd      each backward kernel, and the attention forward with dropout,
@@ -209,7 +225,10 @@ Phases, one line each (any failure raises and exits non-zero):
              without bias on that batch with dropout (rows 1nLp, 2nLp, per
              w2v_train step); each kernel family's launches per frozen and
              unfrozen fine-tuning step (CTC and seq2seq), per verification
-             batch and per diarized recording; audio-seconds per second of
+             batch and per diarized recording; the fp32 backward kernels and
+             dropout forward per fp32 train step (SDPA fp32, the fp32
+             F.conv1d input + weight backward and the L1's fp32 weight
+             backward as library calls); audio-seconds per second of
              the forward, of the train steps, of the fine-tuning steps and
              of the UniSpeech and UniSpeech-SAT steps; the speaker CLIs'
              seconds per call, trials/s, DER and peak memory
@@ -255,6 +274,9 @@ BF16_ULP = 2.0 ** -7
 # covers gradients that are zero analytically (the k_proj bias: softmax
 # ignores a per-query constant), noise on both paths.
 GRAD_TOL, GRAD_FLOOR = 5e-2, 1e-4
+# the same in fp32 (fp32_train, fp32_large_train): both paths compute in fp32
+# and differ only by 3xTF32 rounding and summation order, 50x tighter
+GRAD_TOL_F32, GRAD_FLOOR_F32 = 1e-3, 1e-6
 # draws of a contrastive step's randomness whose gradients the kernel-vs-plain
 # check of w2v_train and sat_train stacks: one draw's ratio of the two paths'
 # fp32 errors on a noise-led tensor spreads over 0.5-4 on an H100; stacked
@@ -529,55 +551,91 @@ def large_phase(dev, wav, lengths, card):
     return dict(launches=launches, err_conv=err_conv)
 
 
-def backward_parity(dev, cfg, B=TRAIN_B, ln_form=False):
-    """Phase 7: each backward kernel (and the attention forward with dropout)
-    against its plain version at the pretraining shapes of ``cfg`` with B
-    crops. ``ln_form``: the forms WavLM-Large's layer_norm extractor runs
-    (the L1 backward without the sums' cotangents; every conv block with
-    the input GELU, no affine and no output GELU). Returns the inputs the
-    times phase reuses and the max abs errors."""
+def sum_check(name: str, got: torch.Tensor, want: torch.Tensor, terms: torch.Tensor) -> float:
+    """An fp32 sum taken in a run-dependent order (fp32 atomics) against its
+    plain version: each element within SUM_RTOL (1e-5) of the sum of its
+    terms' magnitudes (``ops/kernels/sum_terms.py``). Returns the max abs
+    error."""
+    from unispeech_tpu_torch.ops.kernels.sum_terms import SUM_RTOL, sum_error
+
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)} or non-finite")
+    worst = sum_error(got, want, terms)
+    max_abs = float((got.float() - want.float()).abs().max())
+    phase("parity", kernel=name, max_abs_err=f"{max_abs:.3g}",
+          max_err_over_sum_abs_terms=f"{worst:.3g}", tol=f"{SUM_RTOL:g}")
+    if not worst <= SUM_RTOL:
+        fail(f"{name}: an element differs by {worst} of the sum of |terms|")
+    return max_abs
+
+
+def backward_parity(dev, cfg, B=TRAIN_B, ln_form=False, dtype=torch.bfloat16):
+    """Phase 7 (bf16) and fp32_bwd (fp32): each backward kernel (and the
+    attention forward with dropout) against its plain version at the
+    pretraining shapes of ``cfg`` with B crops, in ``dtype``. ``ln_form``:
+    the forms WavLM-Large's layer_norm extractor runs (the L1 backward
+    without the sums' cotangents; every conv block with the input GELU, no
+    affine and no output GELU). bf16: the products within 2 bf16 ulps at the
+    tensor's scale, the fp32 sums within relative L2 1e-3 (2e-3 for dbias,
+    dgate). fp32: the products (dq, dk, dv, dx, the dropout forward's out)
+    by f32_check (relative L2 1e-5, max abs 1e-4 of max |plain|), the sums
+    taken in a run-dependent order (dW, da, db, dbias, dgate) within 1e-5 of
+    the sum of |terms| per element, lse within 1e-4 on the rows with a key,
+    and the dropout forward's keep mask equal to attention_keep. Returns
+    the inputs the times phase reuses and the max abs errors."""
     from unispeech_tpu_torch.ops.kernels import conv_stack, flash_attention, l1_frontend
+    from unispeech_tpu_torch.ops.kernels.philox import attention_keep
+    from unispeech_tpu_torch.ops.kernels.sum_terms import attn_terms, conv_terms, l1_terms
     from unispeech_tpu_torch.ops.rel_pos import compute_rel_pos_bias
 
-    gen = torch.Generator().manual_seed(SEED + 2 + 10 * ln_form)
+    f32 = dtype == torch.float32
+    gen = torch.Generator().manual_seed(SEED + 2 + 10 * ln_form + 20 * f32)
     NS = TRAIN_NS
+    pre_ = "fp32." if f32 else ""
     sfx = ".ln_form" if ln_form else ""
     C = cfg.conv_layers[0][0]
     k0, s0 = cfg.conv_layers[0][1:]
     t1 = (NS - k0) // s0 + 1
+
+    def product(name, got, want, ulps):
+        return f32_check(name, got, want) if f32 else compare(name, got, want, tol_ulps=ulps)
+
     wav = (torch.randn(B, NS, generator=gen) * 0.1).to(dev)
     w1 = (torch.randn(k0, 1, C, generator=gen) * (2.0 / k0) ** 0.5).to(dev)
-    dy1 = (torch.randn(B, t1, C, generator=gen) * 1e-3).to(dev, torch.bfloat16)
+    dy1 = (torch.randn(B, t1, C, generator=gen) * 1e-3).to(dev, dtype)
     ds1 = ds2 = None
     if not ln_form:
         ds1 = (torch.randn(B, C, generator=gen) * 1e-4).to(dev)
         ds2 = (torch.randn(B, C, generator=gen) * 1e-4).to(dev)
-    l1_args = (wav, w1, s0, dy1, ds1, ds2)
+    l1_args = (wav, w1, s0, dy1, ds1, ds2, dtype)
+    name = pre_ + "l1_conv_backward.dw" + (".no_sums" if ln_form else "")
+    got, want = l1_frontend.l1_conv_backward(*l1_args), l1_frontend.l1_conv_backward_plain(*l1_args)
     # fp32 sums over B * t1 rows (295,002 at B = 6) in two orders (per-thread
-    # rows and cross-tile atomics vs one einsum): relative L2 1e-3
-    err_l1 = rel_check("l1_conv_backward.dw" + (".no_sums" if ln_form else ""),
-                       l1_frontend.l1_conv_backward(*l1_args),
-                       l1_frontend.l1_conv_backward_plain(*l1_args), 1e-3)
+    # rows and cross-tile atomics vs one einsum): relative L2 1e-3 in bf16
+    err_l1 = (sum_check(name, got, want, l1_terms(*l1_args[:6])) if f32 else
+              rel_check(name, got, want, 1e-3))
     if not ln_form:
         # a second geometry, (k, stride) = (8, 4), through the kernel's
         # generic instantiation at a pretraining-sized t1 (61,459 rows)
         t8 = (NS - 8) // 4 + 1
         gen8 = torch.Generator().manual_seed(SEED + 5)
         args8 = (wav, (torch.randn(8, 1, C, generator=gen8) * 0.5).to(dev), 4,
-                 (torch.randn(B, t8, C, generator=gen8) * 1e-3).to(dev, torch.bfloat16),
-                 ds1, ds2)
-        rel_check("l1_conv_backward.dw.k8s4", l1_frontend.l1_conv_backward(*args8),
-                  l1_frontend.l1_conv_backward_plain(*args8), 1e-3)
+                 (torch.randn(B, t8, C, generator=gen8) * 1e-3).to(dev, dtype), ds1, ds2, dtype)
+        got, want = l1_frontend.l1_conv_backward(*args8), l1_frontend.l1_conv_backward_plain(*args8)
+        if f32:
+            sum_check(pre_ + "l1_conv_backward.dw.k8s4", got, want, l1_terms(*args8[:6]))
+        else:
+            rel_check("l1_conv_backward.dw.k8s4", got, want, 1e-3)
         del args8
+    del got, want
 
     conv_args = []  # (x, w, valid, gelu_in, gelu_out, affine, dy, pre) per block
-    x = torch.randn(B, t1, C, generator=gen).to(dev, torch.bfloat16)
+    x = torch.randn(B, t1, C, generator=gen).to(dev, dtype)
     affine = ((torch.rand(B, C, generator=gen) + 0.5).to(dev),
               (torch.randn(B, C, generator=gen) * 0.1).to(dev))
     err_conv = 0.0
     for i, (dim, k, _) in enumerate(cfg.conv_layers[1:], start=2):
-        w = (torch.randn(k, C, dim, generator=gen) * (2.0 / (k * C)) ** 0.5).to(
-            dev, torch.bfloat16)
+        w = (torch.randn(k, C, dim, generator=gen) * (2.0 / (k * C)) ** 0.5).to(dev, dtype)
         # the default extractor: the first block takes the GroupNorm affine
         # and the first GELU; every block ends in a GELU. The layer_norm
         # extractor: every block takes the previous LayerNorm's GELU
@@ -588,30 +646,37 @@ def backward_parity(dev, cfg, B=TRAIN_B, ln_form=False):
         if gelu_out:
             _, _, ppre = conv_stack.conv_gelu_block_plain(x, w, x.shape[1], gelu_in, gelu_out,
                                                           ab, return_pre=True)
-            compare(f"conv_gelu_block.L{i}.pre", pre, ppre)
-        dy = (torch.randn(B, t_out, C, generator=gen) * 1e-2).to(dev, torch.bfloat16)
+            product(f"{pre_}conv_gelu_block.L{i}.pre", pre, ppre, 1.0)
+        dy = (torch.randn(B, t_out, C, generator=gen) * 1e-2).to(dev, dtype)
         args = (x, w, x.shape[1], gelu_in, gelu_out, ab, dy, pre)
         conv_args.append(args)
         got = conv_stack.conv_gelu_block_backward(*args)
         want = conv_stack.conv_gelu_block_backward_plain(*args)
         torch.cuda.synchronize()
-        err_conv = max(err_conv, compare(f"conv_gelu_block_backward{sfx}.L{i}.dx", got[0],
-                                         want[0], tol_ulps=2.0))
-        rel_check(f"conv_gelu_block_backward{sfx}.L{i}.dw", got[1], want[1], 1e-3)
-        if ab is not None:
-            rel_check("conv_gelu_block_backward.L2.da", got[2], want[2], 1e-3)
-            rel_check("conv_gelu_block_backward.L2.db", got[3], want[3], 1e-3)
+        err_conv = max(err_conv, product(f"{pre_}conv_gelu_block_backward{sfx}.L{i}.dx",
+                                         got[0], want[0], 2.0))
+        if f32:
+            terms = conv_terms(*args, want[0])
+            sum_check(f"{pre_}conv_gelu_block_backward{sfx}.L{i}.dw", got[1], want[1], terms[0])
+            if ab is not None:
+                sum_check(f"{pre_}conv_gelu_block_backward.L2.da", got[2], want[2], terms[1])
+                sum_check(f"{pre_}conv_gelu_block_backward.L2.db", got[3], want[3], terms[2])
+            del terms
+        else:
+            rel_check(f"conv_gelu_block_backward{sfx}.L{i}.dw", got[1], want[1], 1e-3)
+            if ab is not None:
+                rel_check("conv_gelu_block_backward.L2.da", got[2], want[2], 1e-3)
+                rel_check("conv_gelu_block_backward.L2.db", got[3], want[3], 1e-3)
+        del got, want
         # the next block's input: the LayerNorm of y in the layer_norm form
-        x = F.layer_norm(y.float(), (dim,)).to(torch.bfloat16) if ln_form else y
+        x = F.layer_norm(y.float(), (dim,)).to(dtype) if ln_form else y
 
     T = x.shape[1]
     H, D = cfg.encoder_attention_heads, cfg.encoder_embed_dim
     sfx = f".h{H}" if ln_form else ""
-    q, kk, v = (torch.randn(B, T, H, D // H, generator=gen).to(dev, torch.bfloat16)
-                for _ in range(3))
+    q, kk, v = (torch.randn(B, T, H, D // H, generator=gen).to(dev, dtype) for _ in range(3))
     table = (torch.randn(cfg.num_buckets, H, generator=gen) * 0.5).to(dev)
-    bias = compute_rel_pos_bias(table, T, T, cfg.num_buckets, cfg.max_distance,
-                                dtype=torch.bfloat16)
+    bias = compute_rel_pos_bias(table, T, T, cfg.num_buckets, cfg.max_distance, dtype=dtype)
     gate = (torch.rand(B, H, T, generator=gen) * 2 + 1).to(dev)
     # two rows padded; in the layer_norm form one of them has length 0, as the
     # fixed-shape batches' padding rows do
@@ -627,37 +692,67 @@ def backward_parity(dev, cfg, B=TRAIN_B, ln_form=False):
     torch.cuda.synchronize()
     # the keep masks are bit-identical; the online softmax rounds P against
     # a running max: 2 bf16 ulps
-    err_drop = compare(f"fused_attention.dropout{sfx}", out, pout, tol_ulps=2.0)
+    err_drop = product(f"{pre_}fused_attention.dropout{sfx}", out, pout, 2.0)
     # a row of length 0 has the mask value as its lse (-2^100 in the kernel,
     # -1e30 in the plain version): lse is held on the rows with a key
     e_lse = float((lse - plse)[frames > 0].abs().max())
-    phase("parity", kernel=f"fused_attention.dropout{sfx}.lse", max_abs_err=f"{e_lse:.3g}",
-          tol="1e-3")
-    if not e_lse <= 1e-3:
-        fail(f"lse with dropout{sfx}: {e_lse}")
+    lse_tol = 1e-4 if f32 else 1e-3
+    phase("parity", kernel=f"{pre_}fused_attention.dropout{sfx}.lse", max_abs_err=f"{e_lse:.3g}",
+          tol=lse_tol)
+    if not e_lse <= lse_tol:
+        fail(f"lse with dropout{sfx} ({dtype}): {e_lse}")
+    del out, lse
+    if f32:
+        # the keep mask at this shape: q = k = 0 makes every probability 1/S,
+        # and v = columns [c0, c0 + hd) of the identity over the keys turns
+        # out[t, j] into keep(t, c0 + j) / (S (1 - rate))
+        z = torch.zeros_like(q)
+        keep = attention_keep(seed, B, H, T, T, rate)
+        hd = q.shape[-1]
+        for c0 in range(0, T, hd):
+            w = min(hd, T - c0)
+            eye = torch.zeros(T, hd, device=dev)
+            eye[:, :w] = torch.eye(T, device=dev)[:, c0:c0 + w]
+            vv = eye[None, :, None, :].expand(B, T, H, hd).contiguous()
+            got = flash_attention.fused_attention(z, z, vv, dropout_rate=rate, dropout_seed=seed)
+            if not torch.equal(got.permute(0, 2, 1, 3)[..., :w] != 0, keep[..., c0:c0 + w]):
+                fail(f"fp32 dropout{sfx}: the keep mask differs from attention_keep at keys "
+                     f"{c0}-{c0 + w - 1}")
+        phase("parity", kernel=f"{pre_}fused_attention.dropout{sfx}.keep_mask",
+              equal_to="attention_keep", keys=T)
+        del z, keep, vv, got
     # no loss term reaches a row of length 0, so training's dO is 0 there
     # (with p recomputed from the mask-valued lse, the backward of such a row
     # is exact only then); both backwards take the plain forward's out and lse
     dout = (torch.randn(B, T, H, D // H, generator=gen) * 1e-2
-            * (frames.cpu() > 0)[:, None, None, None]).to(dev, torch.bfloat16)
+            * (frames.cpu() > 0)[:, None, None, None]).to(dev, dtype)
     attn_args = (q, kk, v, bias, gate, kpm, None, rate, seed, pout, plse, dout)
     got = flash_attention.fused_attention_backward(*attn_args)
     want = flash_attention.fused_attention_backward_plain(*attn_args)
     torch.cuda.synchronize()
     err_attn = 0.0
     for name, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
-        err_attn = max(err_attn, compare(f"fused_attention_backward{sfx}.{name}", a, b,
-                                         tol_ulps=2.0))
-    # fp32 sums whose order varies (atomics over key tiles and the batch)
-    rel_check(f"fused_attention_backward{sfx}.dbias", got[3], want[3], 2e-3)
-    rel_check(f"fused_attention_backward{sfx}.dgate", got[4], want[4], 2e-3)
+        err_attn = max(err_attn, product(f"{pre_}fused_attention_backward{sfx}.{name}", a, b,
+                                         2.0))
+    if f32:
+        terms = attn_terms(*attn_args)
+        sum_check(f"{pre_}fused_attention_backward{sfx}.dbias", got[3], want[3], terms[0])
+        sum_check(f"{pre_}fused_attention_backward{sfx}.dgate", got[4], want[4], terms[1])
+        del terms
+    else:
+        # fp32 sums whose order varies (atomics over key tiles and the batch)
+        rel_check(f"fused_attention_backward{sfx}.dbias", got[3], want[3], 2e-3)
+        rel_check(f"fused_attention_backward{sfx}.dgate", got[4], want[4], 2e-3)
     return dict(l1=l1_args, conv=conv_args, attn=attn_args, fwd_drop=(q, kk, v, fwd),
-                err=(err_l1, err_conv, err_attn, err_drop), ln_form=ln_form)
+                err=(err_l1, err_conv, err_attn, err_drop), ln_form=ln_form, dtype=dtype)
 
 
-def train_phase(dev, counters, train_counts, arch="base"):
+def train_phase(dev, counters, train_counts, arch="base", dtype=torch.bfloat16):
     """Phase 8 (arch "base") and large_train (arch "large"): masked-prediction
-    pretraining steps on the card. Fills ``train_counts`` with the launch
+    pretraining steps on the card, the model in bf16; fp32_train and
+    fp32_large_train (``dtype`` fp32): the same models built without a dtype
+    (fp32, the default), through the fp32 kernels, their gradients held to
+    the plain path by the fp32 rule. Fills ``train_counts`` with the launch
     counts of the first step; returns the end-to-end numbers."""
     import dataclasses
 
@@ -673,7 +768,11 @@ def train_phase(dev, counters, train_counts, arch="base"):
     from unispeech_tpu_torch.train.state import create_train_state, make_train_step
     from unispeech_tpu_torch.train.tasks import make_hubert_loss_fn
 
-    tag = "train" if arch == "base" else "large_train"
+    f32 = dtype == torch.float32
+    tag = ("fp32_" if f32 else "") + ("train" if arch == "base" else "large_train")
+    # built without a dtype in fp32: the models' default
+    dtype_kw = {} if f32 else {"dtype": dtype}
+    tol, floor = (GRAD_TOL_F32, GRAD_FLOOR_F32) if f32 else (GRAD_TOL, GRAD_FLOOR)
     # the bench's configuration (bench.py build_step)
     enc_fn = base_encoder_config if arch == "base" else large_encoder_config
     enc = enc_fn(relative_position_embedding=True, gru_rel_pos=True,
@@ -688,8 +787,10 @@ def train_phase(dev, counters, train_counts, arch="base"):
     gen = torch.Generator().manual_seed(SEED + 3)
     batch = {"source": torch.randn(B, NS, generator=gen).to(dev),
              "targets": torch.randint(0, N_CLASSES, (B, T, 1), generator=gen).to(dev)}
-    model = HubertPretrainModel(pcfg, dtype=torch.bfloat16,
-                                generator=torch.Generator().manual_seed(SEED))
+    model = HubertPretrainModel(pcfg, **dtype_kw, generator=torch.Generator().manual_seed(SEED))
+    if any(p.dtype != torch.float32 for p in model.parameters()) or (
+            f32 and model.dtype != torch.float32):
+        fail(f"{tag}: the model's parameters or compute dtype are not fp32 where expected")
     state = create_train_state(model, OptimConfig(lr=5e-4, warmup_steps=100, total_steps=1000),
                                device=dev)
     step = make_train_step(make_hubert_loss_fn(model, crit))
@@ -734,7 +835,7 @@ def train_phase(dev, counters, train_counts, arch="base"):
     # one step's gradients, kernel path against plain path: dropout and
     # layerdrop off, one fixed mask, the same weights
     enc0 = dataclasses.replace(enc, dropout=0.0, attention_dropout=0.0, encoder_layerdrop=0.0)
-    model0 = HubertPretrainModel(dataclasses.replace(pcfg, encoder=enc0), dtype=torch.bfloat16)
+    model0 = HubertPretrainModel(dataclasses.replace(pcfg, encoder=enc0), **dtype_kw)
     model0.load_state_dict(model.state_dict())
     model0 = model0.to(dev)
     batch0 = dict(batch, boundary_mask=(torch.rand(B, T, generator=gen) < 0.5).to(dev))
@@ -753,11 +854,11 @@ def train_phase(dev, counters, train_counts, arch="base"):
     worst = []
     for (name, _), a, b in zip(model0.named_parameters(), gk, gp):
         diff, ref = float((a - b).norm()), float(b.norm())
-        worst.append((diff / (GRAD_TOL * ref + GRAD_FLOOR * total), name, diff / max(ref, 1e-30)))
+        worst.append((diff / (tol * ref + floor * total), name, diff / max(ref, 1e-30)))
     worst.sort(reverse=True)
     for ratio, name, rel in worst[:5]:
         phase(tag, grad_vs_plain=name, rel_l2=f"{rel:.3g}", of_tolerance=f"{ratio:.3g}")
-    phase(tag, grad_tol=f"{GRAD_TOL} * |g| + {GRAD_FLOOR} * |global|",
+    phase(tag, grad_tol=f"{tol} * |g| + {floor} * |global|",
           global_grad_norm=f"{total:.4g}", tensors=len(worst))
     if worst[0][0] > 1.0:
         fail(f"{tag}: gradient of {worst[0][1]}: kernel path disagrees with the plain path")
@@ -841,28 +942,40 @@ def bound(nbytes: float, flops: float, peak: float):
 def backward_times(bw, train_counts):
     """The kernels rows of the three backward kernels, and of the attention
     forward with dropout, at the pretraining shapes of ``bw`` (Base's, or
-    WavLM-Large's forms with ``bw["ln_form"]``), per train step (all launches
-    of a kernel in one step)."""
-    from unispeech_tpu_torch.ops.kernels import conv_stack, flash_attention, l1_frontend
+    WavLM-Large's forms with ``bw["ln_form"]``; in bw["dtype"]), per train
+    step (all launches of a kernel in one step). Bounds: the bytes of the
+    dtype; the products' operations at bf16's tensor-core peak, or in fp32
+    as 3xTF32 (three TF32 products each) at the TF32 peak; the L1's on the
+    CUDA cores."""
+    from unispeech_tpu_torch.ops.kernels import (
+        TF32_TC_FLOPS,
+        conv_stack,
+        flash_attention,
+        l1_frontend,
+    )
 
     err_l1, err_conv, err_attn, err_drop = bw["err"]
-    ln_form = bw["ln_form"]
-    wav, w1, s0, dy1, ds1, ds2 = bw["l1"]
+    ln_form, dt = bw["ln_form"], bw["dtype"]
+    f32 = dt == torch.float32
+    esz = 4 if f32 else 2
+    # the products' (multiplier, peak): 3xTF32 at the TF32 peak, or bf16
+    mult, peak = (3, TF32_TC_FLOPS) if f32 else (1, BF16_TC_FLOPS)
+    pre_, src = ("fp32.", "_f32.cu") if f32 else ("", ".cu")
+    wav, w1, s0, dy1, ds1, ds2, _ = bw["l1"]
     B, NS = wav.shape
     k0, _, C = w1.shape
     t1 = dy1.shape[1]
-    xb = wav.to(torch.bfloat16)[:, None, :]
-    wl = w1.permute(2, 1, 0).to(torch.bfloat16).contiguous().requires_grad_()
+    xb = wav.to(dt)[:, None, :]
+    wl = w1.permute(2, 1, 0).to(dt).contiguous().requires_grad_()
     yl = F.conv1d(xb, wl, stride=s0)
     # with the sums' cotangents the kernel recomputes y1 (2 B t1 C k more
     # operations) and reads ds1, ds2; without them dW = wav-windows^T dy alone
-    l1_bound = bound(B * t1 * C * 2 + B * NS * 4 + k0 * C * 4
+    l1_bound = bound(B * t1 * C * esz + B * NS * 4 + k0 * C * 4
                      + (0 if ds1 is None else 2 * B * C * 4),
                      (2 if ds1 is None else 4) * B * t1 * C * k0, FP32_FLOPS)
-    H = bw["attn"][0].shape[2]
     rows = [dict(
-        name="l1_conv_backward" + (".no_sums" if ln_form else ""), route="cuda",
-        source="unispeech_tpu_torch/csrc/l1_frontend.cu",
+        name=pre_ + "l1_conv_backward" + (".no_sums" if ln_form else ""), route="cuda",
+        source="unispeech_tpu_torch/csrc/l1_frontend" + src,
         replaces="unispeech_tpu/ops/pallas/l1_frontend.py:203",
         launches=train_counts["l1_bwd"], max_abs_err=err_l1,
         ms=cuda_ms(lambda: l1_frontend.l1_conv_backward(*bw["l1"])),
@@ -890,7 +1003,7 @@ def backward_times(bw, train_counts):
         if not min(split) > 0:
             fail(f"conv block L{i}: no device time of dx or dW ({split})")
         gemm_flops = 2 * B * t_out * C * k * C  # each of dx and dW
-        phase("times", kernel=f"conv_gelu_block_backward{'.ln_form' if ln_form else ''}.L{i}",
+        phase("times", kernel=f"{pre_}conv_gelu_block_backward{'.ln_form' if ln_form else ''}.L{i}",
               device_ms=f"{one_dev:.4f}",
               tflops=f"{2 * gemm_flops / one_dev / 1e9:.1f}",
               dx_device_ms=f"{split[0]:.4f}", dx_tflops=f"{gemm_flops / split[0] / 1e9:.1f}",
@@ -903,13 +1016,13 @@ def backward_times(bw, train_counts):
         lib = library_times(grad_fn(yt, (xt, wt), dy.transpose(1, 2).contiguous()))
         c_lib += lib[0]
         c_lib_dev += lib[1]
-        b_ms, by = bound((2 * B * x.shape[1] * C + 2 * k * C * C + 2 * B * t_out * C) * 2
-                         + k * C * C * 4, 2 * 2 * B * t_out * C * k * C, BF16_TC_FLOPS)
+        b_ms, by = bound((2 * B * x.shape[1] * C + 2 * k * C * C + 2 * B * t_out * C) * esz
+                         + k * C * C * 4, mult * 2 * 2 * B * t_out * C * k * C, peak)
         c_bound += b_ms
         c_by.add(by)
     rows.append(dict(
-        name="conv_gelu_block_backward" + (".layer_norm_form" if ln_form else ""), route="cuda",
-        source="unispeech_tpu_torch/csrc/conv_stack.cu",
+        name=pre_ + "conv_gelu_block_backward" + (".layer_norm_form" if ln_form else ""),
+        route="cuda", source="unispeech_tpu_torch/csrc/conv_stack" + src,
         replaces="unispeech_tpu/ops/pallas/conv_stack.py:359",
         launches=train_counts["conv_bwd"], max_abs_err=err_conv, ms=c_ms, device_ms=c_dev,
         plain_ms=c_plain,
@@ -918,15 +1031,15 @@ def backward_times(bw, train_counts):
     q, kk, v, bias, gate, kpm, _, rate, seed, out, lse, dout = bw["attn"]
     B, T, H, hd = q.shape
     n = train_counts["attn"]  # backward calls: one per forward call
-    a_bound = bound(8 * B * T * H * hd * 2 + 2 * H * T * T * 2 + 3 * B * H * T * 4 + B * T,
-                    10 * B * H * T * T * hd, BF16_TC_FLOPS)
+    a_bound = bound(8 * B * T * H * hd * esz + 2 * H * T * T * esz + 3 * B * H * T * 4 + B * T,
+                    mult * 10 * B * H * T * T * hd, peak)
     qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, kk, v))
     mask = (gate[..., None] * bias.float()[None]
-            + torch.where(kpm, -1e30, 0.0)[:, None, None, :]).to(torch.bfloat16).requires_grad_()
+            + torch.where(kpm, -1e30, 0.0)[:, None, None, :]).to(dt).requires_grad_()
     ya = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
     rows.append(dict(
-        name="fused_attention_backward" + (f".h{H}" if ln_form else ""), route="cuda",
-        source="unispeech_tpu_torch/csrc/flash_attention_bwd.cu",
+        name=pre_ + "fused_attention_backward" + (f".h{H}" if ln_form else ""), route="cuda",
+        source="unispeech_tpu_torch/csrc/flash_attention_bwd" + src,
         replaces="unispeech_tpu/ops/pallas/flash_attention.py:1159",
         launches=train_counts["attn_bwd"], max_abs_err=err_attn,
         ms=n * cuda_ms(lambda: flash_attention.fused_attention_backward(*bw["attn"])),
@@ -945,20 +1058,19 @@ def backward_times(bw, train_counts):
         if ln_form:
             break
         one = cuda_ms(lambda: flash_attention.fused_attention_backward(*args, out, lse, dout))
-        phase("times", kernel=f"fused_attention_backward.{tag}", ms_per_call=f"{one:.4f}")
+        phase("times", kernel=f"{pre_}fused_attention_backward.{tag}", ms_per_call=f"{one:.4f}")
     # the dropout forward at the pretraining shape, per train step; SDPA with
     # the same dropout rate is the library call (it draws another mask)
     q, kk, v, fwd = bw["fwd_drop"]
     B, T, H, hd = q.shape
-    d_bound = bound(4 * B * T * H * hd * 2 + H * T * T * 2 + 2 * B * H * T * 4 + B * T,
-                    4 * B * H * T * T * hd, BF16_TC_FLOPS)
+    d_bound = bound(4 * B * T * H * hd * esz + H * T * T * esz + 2 * B * H * T * 4 + B * T,
+                    mult * 4 * B * H * T * T * hd, peak)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, kk, v))
     dmask = (fwd["gate"][..., None] * fwd["bias"].float()[None]
-             + torch.where(fwd["key_padding_mask"], -1e30, 0.0)[:, None, None, :]).to(
-                 torch.bfloat16)
+             + torch.where(fwd["key_padding_mask"], -1e30, 0.0)[:, None, None, :]).to(dt)
     rows.append(dict(
-        name="fused_attention.dropout" + (f".h{H}" if ln_form else ""), route="cuda",
-        source="unispeech_tpu_torch/csrc/flash_attention.cu",
+        name=pre_ + "fused_attention.dropout" + (f".h{H}" if ln_form else ""), route="cuda",
+        source="unispeech_tpu_torch/csrc/flash_attention" + src,
         replaces="unispeech_tpu/ops/pallas/flash_attention.py:878",
         launches=train_counts["attn"], max_abs_err=err_drop,
         ms=n * cuda_ms(lambda: flash_attention.fused_attention(q, kk, v, **fwd)),
@@ -2929,23 +3041,14 @@ def pinned_codewords(picks, flips):
         quantizer.gumbel_softmax = real
 
 
-def contrastive_train_phase(dev, counters, tag, wav, lengths, counts_out):
-    """w2v_train (UniSpeech at Large width: InfoNCE + 0.5 phonetic CTC) or
-    sat_train (UniSpeech-SAT at Large width) on the padded smoke batch
-    (random letter transcripts at 15 symbols per second, or random frame
-    labels): 3 steps with launch counts per step; one step's gradients for
-    each of GRAD_DRAWS generator seeds, kernel path against plain path with
-    the same seed (the same masks, dropout, negatives or instances, Gumbel
-    noise, replace mask; the quantizer's codeword choices pinned), stacked
-    over the draws; 20 steps on one batch, the loss must fall. Fills ``counts_out`` with the first step's launch counts;
-    returns the end-to-end numbers."""
+def contrastive_setup(dev, tag, wav, lengths):
+    """The model (bf16, seed 0), its config, the batch, the loss and the
+    steps' generator of w2v_train (UniSpeech) or sat_train (UniSpeech-SAT)
+    on the padded smoke batch: random letter transcripts at 15 symbols per
+    second, or random frame labels."""
     from unispeech_tpu_torch.data.dictionary import Dictionary
     from unispeech_tpu_torch.models.hubert import HubertPretrainModel
     from unispeech_tpu_torch.models.wav2vec2 import Wav2Vec2PretrainModel
-    from unispeech_tpu_torch.train.losses import HubertCriterionConfig
-    from unispeech_tpu_torch.train.optim import OptimConfig
-    from unispeech_tpu_torch.train.state import create_train_state, make_train_step
-    from unispeech_tpu_torch.train.tasks import make_hubert_loss_fn, make_wav2vec2_loss_fn
 
     w2v = tag == "w2v_train"
     B = wav.shape[0]
@@ -2966,16 +3069,95 @@ def contrastive_train_phase(dev, counters, tag, wav, lengths, counts_out):
         batch["labels"] = torch.from_numpy(labels).to(dev)
         batch["label_lengths"] = torch.tensor([len(e) for e in enc_texts], dtype=torch.int32,
                                               device=dev)
-        loss_fn = make_wav2vec2_loss_fn(model, mtlalpha=0.5)
-        enc = cfg.encoder
     else:
         cfg = sat_large_config()
         model = HubertPretrainModel(cfg, dtype=torch.bfloat16,
                                     generator=torch.Generator().manual_seed(SEED))
-        enc = cfg.encoder
-        T = enc.num_frames(wav.shape[1])
+        T = cfg.encoder.num_frames(wav.shape[1])
         batch["targets"] = torch.randint(0, N_CLASSES, (B, T, 1), generator=gen).to(dev)
-        loss_fn = make_hubert_loss_fn(model, HubertCriterionConfig(spk_loss_weight=0.1))
+    return cfg, model, batch, contrastive_loss_fn(model, w2v), gen
+
+
+def contrastive_loss_fn(model, w2v: bool):
+    from unispeech_tpu_torch.train.losses import HubertCriterionConfig
+    from unispeech_tpu_torch.train.tasks import make_hubert_loss_fn, make_wav2vec2_loss_fn
+
+    return (make_wav2vec2_loss_fn(model, mtlalpha=0.5) if w2v else
+            make_hubert_loss_fn(model, HubertCriterionConfig(spk_loss_weight=0.1)))
+
+
+def contrastive_grads(m, w2v: bool, batch, step_no, seed: int):
+    """fp32 copies of every parameter's gradient of one contrastive step's
+    loss (per sample) with the step's randomness drawn from ``seed``."""
+    m.zero_grad(set_to_none=True)
+    loss, ss, _ = contrastive_loss_fn(m, w2v)(batch, torch.Generator().manual_seed(seed),
+                                              step_no)
+    (loss / torch.clamp(ss, min=1.0)).backward()
+    out = [torch.zeros_like(p) if p.grad is None else p.grad.float().clone()
+           for p in m.parameters()]
+    m.zero_grad(set_to_none=True)
+    return out
+
+
+def contrastive_draws(model, model32, w2v: bool, batch, step_no, seeds):
+    """Per draw (one generator seed each), per tensor: |gk - gp|^2, |gp|^2,
+    |gk - g32|^2, |gp - g32|^2 of the kernel path (gk), the plain path (gp)
+    and the plain path of the fp32 copy (g32), the codeword choices pinned
+    to the kernel path's; and the counts of pinned and flipped choices."""
+    per_draw = []
+    n_pinned = n_flips = 0
+    for seed in seeds:
+        picks, flips = [], []
+        with pinned_codewords(picks, flips):
+            gk = contrastive_grads(model, w2v, batch, step_no, seed)
+        with pinned_codewords(picks, flips), plain_ops():
+            gp = contrastive_grads(model, w2v, batch, step_no, seed)
+        with pinned_codewords(picks, flips), plain_ops():
+            g32 = contrastive_grads(model32, w2v, batch, step_no, seed)
+        per_draw.append(torch.stack([
+            torch.stack([((a - b) ** 2).sum(), (b * b).sum(), ((a - c) ** 2).sum(),
+                         ((b - c) ** 2).sum()])
+            for a, b, c in zip(gk, gp, g32)], 1).double().cpu())
+        n_pinned += sum(int(p.numel()) for p in picks)
+        n_flips += sum(flips)
+        del gk, gp, g32
+    return per_draw, n_pinned, n_flips
+
+
+def contrastive_worst(per_draw, names):
+    """The gate over the draws stacked, per tensor, worst first: (the lesser
+    of its ratios to train's rule and to the fp32 rule, its ratio to
+    train's rule, name, relative L2 of gk to gp, |gk - g32|, |gp - g32|,
+    index); and the global gradient norm."""
+    diff, ref, err_k, err_p = sum(per_draw).sqrt().tolist()
+    total = math.sqrt(sum(r * r for r in ref))
+    worst = []
+    for j, name in enumerate(names):
+        rule = diff[j] / (GRAD_TOL * ref[j] + GRAD_FLOOR * total)
+        vs32 = err_k[j] / (1.5 * err_p[j] + GRAD_FLOOR * total)
+        worst.append((min(rule, vs32), rule, name, diff[j] / max(ref[j], 1e-30), err_k[j],
+                      err_p[j], j))
+    worst.sort(reverse=True)
+    return worst, total
+
+
+def contrastive_train_phase(dev, counters, tag, wav, lengths, counts_out):
+    """w2v_train (UniSpeech at Large width: InfoNCE + 0.5 phonetic CTC) or
+    sat_train (UniSpeech-SAT at Large width) on the padded smoke batch
+    (random letter transcripts at 15 symbols per second, or random frame
+    labels): 3 steps with launch counts per step; one step's gradients for
+    each of GRAD_DRAWS generator seeds, kernel path against plain path with
+    the same seed (the same masks, dropout, negatives or instances, Gumbel
+    noise, replace mask; the quantizer's codeword choices pinned), stacked
+    over the draws; 20 steps on one batch, the loss must fall. Fills ``counts_out`` with the first step's launch counts;
+    returns the end-to-end numbers."""
+    from unispeech_tpu_torch.train.optim import OptimConfig
+    from unispeech_tpu_torch.train.state import create_train_state, make_train_step
+
+    w2v = tag == "w2v_train"
+    B = wav.shape[0]
+    cfg, model, batch, loss_fn, gen = contrastive_setup(dev, tag, wav, lengths)
+    enc = cfg.encoder
     nparams = sum(p.numel() for p in model.parameters())
     state = create_train_state(model, OptimConfig(lr=5e-4, warmup_steps=100, total_steps=1000),
                                device=dev)
@@ -3031,48 +3213,12 @@ def contrastive_train_phase(dev, counters, tag, wav, lengths, counts_out):
     # further from the same steps in fp32 (the plain ops) than the bf16
     # plain path is, 1.5x. Both rules read each tensor's gradients of all
     # draws stacked
-    def grads(m, seed):
-        m.zero_grad(set_to_none=True)
-        fn = (make_wav2vec2_loss_fn(m, mtlalpha=0.5) if w2v else
-              make_hubert_loss_fn(m, HubertCriterionConfig(spk_loss_weight=0.1)))
-        loss, ss, _ = fn(batch, torch.Generator().manual_seed(seed), state.step)
-        (loss / torch.clamp(ss, min=1.0)).backward()
-        out = [torch.zeros_like(p) if p.grad is None else p.grad.float().clone()
-               for p in m.parameters()]
-        m.zero_grad(set_to_none=True)
-        return out
-
     model32 = type(model)(cfg).to(dev)
     model32.load_state_dict(model.state_dict())
-    # per draw and tensor: |gk - gp|^2, |gp|^2, |gk - g32|^2, |gp - g32|^2
-    per_draw = []
-    n_pinned = n_flips = 0
-    for d in range(GRAD_DRAWS):
-        picks, flips = [], []
-        seed = SEED + 24 + d
-        with pinned_codewords(picks, flips):
-            gk = grads(model, seed)
-        with pinned_codewords(picks, flips), plain_ops():
-            gp = grads(model, seed)
-        with pinned_codewords(picks, flips), plain_ops():
-            g32 = grads(model32, seed)
-        per_draw.append(torch.stack([
-            torch.stack([((a - b) ** 2).sum(), (b * b).sum(), ((a - c) ** 2).sum(),
-                         ((b - c) ** 2).sum()])
-            for a, b, c in zip(gk, gp, g32)], 1).double().cpu())
-        n_pinned += sum(int(p.numel()) for p in picks)
-        n_flips += sum(flips)
-        del gk, gp, g32
+    per_draw, n_pinned, n_flips = contrastive_draws(
+        model, model32, w2v, batch, state.step, [SEED + 24 + d for d in range(GRAD_DRAWS)])
     del model32
-    diff, ref, err_k, err_p = sum(per_draw).sqrt().tolist()
-    total = math.sqrt(sum(r * r for r in ref))
-    worst = []
-    for j, (name, _) in enumerate(model.named_parameters()):
-        rule = diff[j] / (GRAD_TOL * ref[j] + GRAD_FLOOR * total)
-        vs32 = err_k[j] / (1.5 * err_p[j] + GRAD_FLOOR * total)
-        worst.append((min(rule, vs32), rule, name, diff[j] / max(ref[j], 1e-30), err_k[j],
-                      err_p[j], j))
-    worst.sort(reverse=True)
+    worst, total = contrastive_worst(per_draw, [n for n, _ in model.named_parameters()])
     for ratio, rule, name, rel, ek, ep, _ in worst[:5]:
         phase(tag, grad_vs_plain=name, rel_l2=f"{rel:.3g}", of_tolerance=f"{rule:.3g}",
               kernel_vs_fp32=f"{ek:.3g}", plain_vs_fp32=f"{ep:.3g}",
@@ -3976,6 +4122,66 @@ def fp32_phase(dev, wav, lengths, base_cfg, card, tmp):
     return rows, e2e
 
 
+def fp32_training_phases(dev, clock):
+    """fp32_bwd, fp32_train and fp32_large_train, then the times rows of the
+    fp32 backward kernels and dropout forward per fp32 train step (measured
+    here, so their inputs are freed before the later phases). Returns the
+    rows and the two train phases' end-to-end numbers."""
+    from unispeech_tpu_torch.configs import base_encoder_config, large_encoder_config
+
+    f32 = torch.float32
+    bw = backward_parity(dev, base_encoder_config(relative_position_embedding=True,
+                                                  gru_rel_pos=True), dtype=f32)
+    bw_large = backward_parity(dev, large_encoder_config(relative_position_embedding=True,
+                                                         gru_rel_pos=True),
+                               B=LARGE_B, ln_form=True, dtype=f32)
+    clock.done("fp32_bwd")
+    counts, large_counts = {}, {}
+    e2e = {"fp32_train": train_phase(dev, kernel_counters(), counts, dtype=f32)}
+    clock.done("fp32_train")
+    e2e["fp32_large_train"] = train_phase(dev, kernel_counters(), large_counts, arch="large",
+                                          dtype=f32)
+    clock.done("fp32_large_train")
+    rows = backward_times(bw, counts) + backward_times(bw_large, large_counts)
+    clock.done("fp32_times")
+    return rows, e2e
+
+
+def fp32_e2e_lines(e2e, card, bf16):
+    """The fp32 train steps' end-to-end lines, beside the bf16 steps'."""
+    for name, e in e2e.items():
+        phase(f"e2e_{name}", step_ms=f"{e['step_ms']:.3f}", host_enqueue_ms=f"{e['host_ms']:.3f}",
+              audio_seconds_per_step=e["audio_s"],
+              audio_sec_per_s=f"{e['audio_s'] / (e['step_ms'] / 1e3):.1f}",
+              peak_memory_gb=f"{e['peak_gb']:.2f}", profiled_busy_ms=f"{e['busy_ms']:.3f}",
+              profiled_wall_ms=f"{e['wall_ms']:.3f}", kernel_launches_per_step=e["launches"],
+              card=card.replace(" ", "_"), bf16_step_ms=f"{bf16[name]['step_ms']:.3f}",
+              bf16_peak_memory_gb=f"{bf16[name]['peak_gb']:.2f}")
+
+
+def card_setup():
+    """TF32 off for the plain versions, the card's line, the kernels built;
+    returns the device and the nvidia-smi line."""
+    from unispeech_tpu_torch.ops.kernels import _build
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    phase("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
+          torch=torch.__version__, cuda=torch.version.cuda)
+    t0 = time.perf_counter()
+    lib = _build.build()
+    phase("build", seconds=f"{time.perf_counter() - t0:.1f}", library=lib.name)
+    for line in _build.build_log_path().read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print("  " + line.strip())
+    return dev, smi
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3991,26 +4197,9 @@ def main() -> int:
     from unispeech_tpu_torch.ops.kernels import _build, conv_stack, flash_attention, l1_frontend
     from unispeech_tpu_torch.ops.rel_pos import compute_rel_pos_bias
 
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     clock = PhaseClock()
-
-    # 1 device
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    phase("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
-          torch=torch.__version__, cuda=torch.version.cuda)
-
-    # 2 build
-    t0 = time.perf_counter()
-    lib = _build.build()
-    phase("build", seconds=f"{time.perf_counter() - t0:.1f}", library=lib.name)
-    for line in _build.build_log_path().read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip())
+    # 1 device, 2 build
+    dev, smi = card_setup()
     clock.done("build")
 
     # 3 per-kernel parity at the main path's shapes
@@ -4120,6 +4309,10 @@ def main() -> int:
     fp32_rows, fp32_e2e = fp32_phase(dev, wav, lengths, cfg, smi, _build.BUILD_DIR / "smoke_fp32")
     clock.done("fp32")
 
+    # fp32 training: the fp32 backward kernels and dropout forward, then
+    # WavLM-Base and WavLM-Large pretraining at the models' default dtype
+    fp32_train_rows, fp32_train_e2e = fp32_training_phases(dev, clock)
+
     # 6 the dump-features CLI on the card
     tmp = _build.BUILD_DIR / "smoke_cli"
     shutil.rmtree(tmp, ignore_errors=True)
@@ -4167,9 +4360,7 @@ def main() -> int:
 
     # 8 pretraining steps, Base then Large; the counts are read per step inside
     train_counts, large_counts = {}, {}
-    counters = [(l1_frontend, "launches"), (l1_frontend, "backward_launches"),
-                (conv_stack, "launches"), (conv_stack, "backward_launches"),
-                (flash_attention, "launches"), (flash_attention, "backward_launches")]
+    counters = kernel_counters()
     train = train_phase(dev, counters, train_counts)
     clock.done("train")
     large_train = train_phase(dev, counters, large_counts, arch="large")
@@ -4328,6 +4519,7 @@ def main() -> int:
     rows += nobias_attention_rows(dev, lengths, w2v_counts)
     rows += xl_rows
     rows += fp32_rows
+    rows += fp32_train_rows
     rows.append(vpu_row)
     del bw, bw_large
     # each kernel family's launches in one frozen and one unfrozen CTC
@@ -4397,6 +4589,8 @@ def main() -> int:
           profiled_busy_ms=f"{large_train['busy_ms']:.3f}",
           profiled_wall_ms=f"{large_train['wall_ms']:.3f}",
           kernel_launches_per_step=large_train["launches"])
+    fp32_e2e_lines(fp32_train_e2e, smi, bf16={"fp32_train": train,
+                                              "fp32_large_train": large_train})
     fp, up = ctc["frozen_profile"], ctc["unfrozen_profile"]
     phase("e2e_ctc_train", params=ctc["params"], frozen_step_ms=f"{ctc['frozen_ms']:.3f}",
           unfrozen_step_ms=f"{ctc['unfrozen_ms']:.3f}",

@@ -19,13 +19,24 @@ operand). fp32 forward kernels: y1 rtol 1e-5 / atol 1e-6 (10 fp32 FMAs in
 another order), its sums within 1e-5 of the sum of |terms|; the conv block
 and attention relative L2 <= 1e-5 and max abs <= 1e-4 of max |plain|
 (3xTF32 products: fp32 to a few ulps, summed in another order; one TF32
-pass would miss by ~1e-3); lse within 1e-4 on rows with a key.
+pass would miss by ~1e-3); lse within 1e-4 on rows with a key. fp32
+backward kernels (and the fp32 dropout forward): the products (dq, dk, dv,
+dx, out) as the fp32 forward; the sums taken by fp32 atomics in a
+run-dependent order (dW of the L1 and the conv blocks, dbias, dgate, da,
+db) within 1e-5 of the sum of |terms| per element.
 """
 
 import pytest
 import torch
 
 from unispeech_tpu_torch.ops.kernels import conv_stack, flash_attention, l1_frontend, vpu_micro
+from unispeech_tpu_torch.ops.kernels.sum_terms import (
+    SUM_RTOL,
+    attn_terms,
+    conv_terms,
+    l1_terms,
+    sum_error,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -761,6 +772,15 @@ def _close_f32(got, want):
     assert diff.abs().max().item() <= 1e-4 * want.float().abs().max().item()
 
 
+def _sum_close(got, want, terms):
+    """An fp32 sum taken by atomics in a run-dependent order: each element
+    within SUM_RTOL (1e-5) of the sum of its terms' magnitudes."""
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    err = sum_error(got, want, terms)
+    assert err <= SUM_RTOL, err
+
+
 @pytest.mark.parametrize("B,t1,C", [(1, 79, 512), (3, 999, 64), (2, 9599, 512), (2, 65, 512),
                                     (2, 333, 192), (5, 4097, 1024), (2, 17, 2048)])
 @pytest.mark.parametrize("k,stride", [(10, 5), (8, 4), (16, 8)])
@@ -795,8 +815,11 @@ def test_l1_fp32_edges(dev, B, t1, C, k, stride, stats):
     (True, True, True), (False, False, True), (True, False, False), (False, True, False)])
 def test_conv_block_fp32_edges(dev, k, B, T, valid, C, gelu_in, affine, gelu_out):
     """The fp32 block (the H pass where there is one, then the 3xTF32 GEMM)
-    against the plain fp32 conv: y and pre; launches 1 + the H pass; the
-    backward is not ported in fp32 and raises."""
+    against the plain fp32 conv: y and pre; launches 1 + the H pass; its
+    backward through autograd launches the fp32 kernels (the g pass with
+    the output GELU, the H pass with the affine or the input GELU, dx, dW)
+    and matches the plain backward: dx as the products, dW / da / db within
+    1e-5 of the sum of |terms|."""
     g = torch.Generator().manual_seed(T * 10 + k + C)
     x = torch.randn(B, T, C, generator=g).to(dev)
     w = (torch.randn(k, C, C, generator=g) * (2.0 / (k * C)) ** 0.5).to(dev)
@@ -810,22 +833,60 @@ def test_conv_block_fp32_edges(dev, k, B, T, valid, C, gelu_in, affine, gelu_out
     assert t == pt == (valid - k) // 2 + 1
     _close_f32(y, py)
     _close_f32(pre, ppre)
-    xg = x.clone().requires_grad_()
-    yg, _ = conv_stack.conv_gelu_block(xg, w, valid, gelu_in, gelu_out, ab)
-    with pytest.raises(NotImplementedError):
-        yg.sum().backward()
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    abg = None if ab is None else tuple(t.clone().requires_grad_() for t in ab)
+    yg, t_out = conv_stack.conv_gelu_block(xg, wg, valid, gelu_in, gelu_out, abg)
+    dy = torch.randn(B, t_out, C, generator=g).to(dev)
+    before = conv_stack.backward_launches
+    yg.backward(dy)
+    assert conv_stack.backward_launches == before + 2 + gelu_out + (gelu_in or affine)
+    want = conv_stack.conv_gelu_block_backward_plain(x, w, valid, gelu_in, gelu_out, ab, dy,
+                                                     ppre)
+    _close_f32(xg.grad, want[0])
+    assert (xg.grad[:, valid:] == 0).all()
+    terms = conv_terms(x, w, valid, gelu_in, gelu_out, ab, dy, ppre, want[0])
+    _sum_close(wg.grad, want[1], terms[0])
+    if affine:
+        _sum_close(abg[0].grad, want[2], terms[1])
+        _sum_close(abg[1].grad, want[3], terms[2])
 
 
-@pytest.mark.parametrize("hd", [16, 24, 36, 64, 80, 128])
-@pytest.mark.parametrize("B,T,H", [(1, 1, 1), (3, 65, 4), (2, 200, 3), (4, 799, 2)])
-@pytest.mark.parametrize("case", ["gate+kpm", "bias+kpm+mask", "none", "bias_view"])
-def test_attention_fp32_edges(dev, hd, B, T, H, case):
-    """The fp32 forward against the plain fp32 version: out (relative L2
-    1e-5, max abs 1e-4 of max |plain|), lse within 1e-4 on rows with a key
-    (plus 2 fp32 ulps of |lse|: a row whose unmasked keys are all padded
-    has an lse near the mask's -1e4, where one ulp is 1e-3), one launch;
-    the last row of length 0 where there are keys to pad (its out uniform
-    over the S keys on both sides)."""
+@pytest.mark.parametrize("parts", [conv_stack.BWD_DX, conv_stack.BWD_DW])
+@pytest.mark.parametrize("first", [True, False])
+def test_conv_backward_parts_fp32(dev, parts, first):
+    """backward_parts in fp32 with one GEMM: the g pass, the H pass where
+    there is one and that GEMM launch, and only its outputs are written."""
+    g = torch.Generator().manual_seed(parts + 13 + first)
+    B, T, valid, C, k = 2, 300, 257, 128, 3
+    x = torch.randn(B, T, C, generator=g).to(dev)
+    w = (torch.randn(k, C, C, generator=g) * (2.0 / (k * C)) ** 0.5).to(dev)
+    ab = ((torch.rand(B, C, generator=g) + 0.5).to(dev),
+          (torch.randn(B, C, generator=g) * 0.1).to(dev)) if first else None
+    _, t_out, pre = conv_stack.conv_gelu_block_plain(x, w, valid, first, True, ab,
+                                                     return_pre=True)
+    dy = torch.randn(B, t_out, C, generator=g).to(dev)
+    args = (x, w, valid, first, True, ab, dy, pre)
+    want = conv_stack.conv_gelu_block_backward_plain(*args)
+    terms = conv_terms(*args, want[0])
+    before = conv_stack.backward_launches
+    got = conv_stack.backward_parts(*args, parts)
+    torch.cuda.synchronize()
+    assert conv_stack.backward_launches == before + 2 + first
+    if parts & conv_stack.BWD_DX:
+        _close_f32(got[0], want[0])
+        if first:
+            _sum_close(got[2], want[2], terms[1])
+            _sum_close(got[3], want[3], terms[2])
+        assert (got[1] == 0).all()
+    else:
+        _sum_close(got[1], want[1], terms[0])
+        if first:
+            assert (got[2] == 0).all() and (got[3] == 0).all()
+
+
+def _attn_fp32_inputs(dev, hd, B, T, H, case):
+    """fp32 q, k, v (B, T, H, hd), the lengths (the last row 0 where B > 1)
+    and the case's keyword inputs."""
     g = torch.Generator().manual_seed(T * 7 + H + hd)
     q, k, v = (torch.randn(B, T, H, hd, generator=g).to(dev) for _ in range(3))
     lengths = torch.tensor([T - (i * T) // (2 * B) for i in range(B)])
@@ -847,6 +908,25 @@ def test_attention_fp32_edges(dev, hd, B, T, H, case):
     if "mask" in case:
         kw["attn_mask"] = torch.where(
             (torch.arange(T)[:, None] - torch.arange(T)[None, :]).abs() > 40, -1e4, 0.0).to(dev)
+    return q, k, v, lengths, kw
+
+
+FP32_ATTN_HDS = [16, 24, 36, 64, 80, 128]
+FP32_ATTN_SHAPES = [(1, 1, 1), (3, 65, 4), (2, 200, 3), (4, 799, 2)]
+FP32_ATTN_CASES = ["gate+kpm", "bias+kpm+mask", "none", "bias_view"]
+
+
+@pytest.mark.parametrize("hd", FP32_ATTN_HDS)
+@pytest.mark.parametrize("B,T,H", FP32_ATTN_SHAPES)
+@pytest.mark.parametrize("case", FP32_ATTN_CASES)
+def test_attention_fp32_edges(dev, hd, B, T, H, case):
+    """The fp32 forward against the plain fp32 version: out (relative L2
+    1e-5, max abs 1e-4 of max |plain|), lse within 1e-4 on rows with a key
+    (plus 2 fp32 ulps of |lse|: a row whose unmasked keys are all padded
+    has an lse near the mask's -1e4, where one ulp is 1e-3), one launch;
+    the last row of length 0 where there are keys to pad (its out uniform
+    over the S keys on both sides)."""
+    q, k, v, lengths, kw = _attn_fp32_inputs(dev, hd, B, T, H, case)
     before = flash_attention.launches
     out, lse = flash_attention.fused_attention(q, k, v, **kw, return_lse=True)
     assert flash_attention.launches == before + 1
@@ -857,36 +937,161 @@ def test_attention_fp32_edges(dev, hd, B, T, H, case):
     assert err.max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("hd", FP32_ATTN_HDS)
+@pytest.mark.parametrize("B,T,H", FP32_ATTN_SHAPES)
+@pytest.mark.parametrize("case", FP32_ATTN_CASES)
+def test_attention_backward_fp32_edges(dev, hd, B, T, H, case):
+    """The fp32 dropout forward (rate 0.1) and the fp32 backward against
+    their plain versions: out, dq, dk, dv as the fp32 products; dbias and
+    dgate within 1e-5 of the sum of |terms|; lse within 1e-4 on rows with
+    a key; two backward launches (the rows pre-pass and the kernel). Both
+    backwards take the plain forward's out and lse; dO is 0 on the row of
+    length 0, as in training (ROADMAP 3.5), and on the rows whose every key
+    is padded or behind the -1e4 (T, S) mask: their logits sit near -1e4,
+    where one fp32 ulp is 1e-3, so p carries that rounding on either side
+    (the forward's lse check allows it too). With one key (T = 1) the softmax
+    is constant: dS, and with it dq, dk, dbias and dgate, is 0 but for fp32
+    rounding of dP - delta on either side, so those are held to 1e-5 of
+    the scale of their terms instead."""
+    q, k, v, lengths, kw = _attn_fp32_inputs(dev, hd, B, T, H, case)
+    rate, seed = 0.1, torch.tensor([T * 977 + hd], dtype=torch.int64, device=dev)
+    before = flash_attention.launches
+    out, lse = flash_attention.fused_attention(q, k, v, **kw, dropout_rate=rate,
+                                               dropout_seed=seed, return_lse=True)
+    assert flash_attention.launches == before + 1
+    pout, plse = flash_attention.fused_attention_plain(q, k, v, **kw, dropout_rate=rate,
+                                                       dropout_seed=seed, return_lse=True)
+    _close_f32(out, pout)
+    valid = lengths > 0
+    err = (lse[valid] - plse[valid]).abs() - 2 * 2.0 ** -23 * plse[valid].abs()
+    assert err.max().item() <= 1e-4
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(T + hd)).to(dev)
+    rows = valid[:, None].expand(B, T)
+    if "attn_mask" in kw:
+        open_keys = (kw["attn_mask"] == 0)[None] & ~kw["key_padding_mask"][:, None, :]
+        rows = rows & open_keys.any(-1)
+    dout = dout * rows[:, :, None, None]
+    args = (q, k, v, kw.get("bias"), kw.get("gate"), kw.get("key_padding_mask"),
+            kw.get("attn_mask"), rate, seed, pout, plse, dout)
+    before = flash_attention.backward_launches
+    got = flash_attention.fused_attention_backward(*args)
+    assert flash_attention.backward_launches == before + 2
+    want = flash_attention.fused_attention_backward_plain(*args)
+    assert all((a is None) == (b is None) for a, b in zip(got[3:], want[3:]))
+    if T == 1:
+        # |dS| <= rounding of dP and delta, each at most |dO| |v| hd
+        ds = 1e-5 * dout.abs().max().item() * v.abs().max().item() * hd
+        _close_f32(got[2], want[2])
+        for a, scale in ((got[0], k.abs().max().item()), (got[1], q.abs().max().item()),
+                         (got[3], B * 3.0), (got[4], kw.get("bias", q).abs().max().item())):
+            if a is not None:
+                assert a.abs().max().item() <= ds * scale
+        return
+    for a, b in zip(got[:3], want[:3]):
+        _close_f32(a, b)
+    if kw.get("bias") is not None:
+        terms = attn_terms(*args)
+        _sum_close(got[3], want[3], terms[0])
+        if kw.get("gate") is not None:
+            _sum_close(got[4], want[4], terms[1])
+
+
+def test_attention_dropout_mask_is_bit_identical_fp32(dev):
+    """The fp32 dropout forward's keep mask is the Philox mask of the plain
+    version and of the bf16 kernel: q = k = 0, v the identity over keys."""
+    from unispeech_tpu_torch.ops.kernels.philox import attention_keep
+
+    B, T, H = 2, 64, 3
+    q = torch.zeros(B, T, H, 64, device=dev)
+    v = torch.eye(64, device=dev)[None, :, None, :].expand(B, T, H, 64).contiguous()
+    seed = torch.tensor([987654321987], dtype=torch.int64, device=dev)
+    out = flash_attention.fused_attention(q, q, v, dropout_rate=0.25, dropout_seed=seed)
+    keep = attention_keep(seed, B, H, T, T, 0.25)
+    assert torch.equal(out.permute(0, 2, 1, 3) != 0, keep)
+    out16 = flash_attention.fused_attention(q.to(torch.bfloat16), q.to(torch.bfloat16),
+                                            v.to(torch.bfloat16), dropout_rate=0.25,
+                                            dropout_seed=seed)
+    assert torch.equal(out16 != 0, out != 0)
+
+
+@pytest.mark.parametrize("B,t1,C", [(1, 79, 512), (3, 999, 64), (2, 9600, 512), (2, 97, 512),
+                                    (1, 1000, 1024), (2, 333, 192)])
+@pytest.mark.parametrize("k,stride", [(10, 5), (8, 4)])
+@pytest.mark.parametrize("stats", [True, False])
+def test_l1_backward_fp32_edges(dev, B, t1, C, k, stride, stats):
+    """The fp32 L1 backward, with and without the sums' cotangents, against
+    the plain version: one launch, dW within 1e-5 of the sum of |terms|."""
+    g = torch.Generator().manual_seed(t1 + k + 5)
+    ns = (t1 - 1) * stride + k + t1 % stride
+    wav = (torch.randn(B, ns, generator=g) * 0.1).to(dev)
+    w = (torch.randn(k, 1, C, generator=g) * 0.4).to(dev)
+    dy = torch.randn(B, t1, C, generator=g).to(dev)
+    ds1 = ds2 = None
+    if stats:
+        ds1 = (torch.randn(B, C, generator=g) * 1e-2).to(dev)
+        ds2 = (torch.randn(B, C, generator=g) * 1e-2).to(dev)
+    before = l1_frontend.backward_launches
+    got = l1_frontend.l1_conv_backward(wav, w, stride, dy, ds1, ds2, dtype=torch.float32)
+    assert l1_frontend.backward_launches == before + 1
+    want = l1_frontend.l1_conv_backward_plain(wav, w, stride, dy, ds1, ds2, torch.float32)
+    _sum_close(got, want, l1_terms(wav, w, stride, dy, ds1, ds2))
+
+
 def test_fp32_route_rejects(dev):
-    """fp32 takes only the fp32 forward kernels: no dropout, no backward
-    (NotImplementedError, the fp32 training slice); fp16 and mixed q/k/v
-    dtypes raise; nothing is rounded to reach the bf16 kernels."""
+    """fp32 runs the fp32 kernels in both directions: the dropout forward
+    and the attention and L1 backwards launch and match their plain
+    versions; fp16 and mixed dtypes (q/k/v, a bf16 dO under fp32 q, a bf16
+    pre or dy under an fp32 block, a bf16 dy under the fp32 L1) raise;
+    nothing is rounded to reach the bf16 kernels."""
     g = torch.Generator().manual_seed(3)
     q, k, v = (torch.randn(2, 40, 2, 64, generator=g).to(dev) for _ in range(3))
     seed = torch.tensor([5], dtype=torch.int64, device=dev)
-    with pytest.raises(NotImplementedError):
-        flash_attention.fused_attention(q, k, v, dropout_rate=0.1, dropout_seed=seed)
+    before = flash_attention.launches
+    out = flash_attention.fused_attention(q, k, v, dropout_rate=0.1, dropout_seed=seed)
+    assert flash_attention.launches == before + 1 and out.dtype == torch.float32
+    _close_f32(out, flash_attention.fused_attention_plain(q, k, v, dropout_rate=0.1,
+                                                          dropout_seed=seed))
     qg = q.clone().requires_grad_()
     out = flash_attention.fused_attention(qg, k, v)
     assert out.dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        out.sum().backward()
+    before = flash_attention.backward_launches
+    out.sum().backward()
+    assert flash_attention.backward_launches == before + 2
+    pout, plse = flash_attention.fused_attention_plain(q, k, v, return_lse=True)
+    want = flash_attention.fused_attention_backward_plain(q, k, v, None, None, None, None, 0.0,
+                                                          None, pout, plse, torch.ones_like(q))
+    _close_f32(qg.grad, want[0])
     for qq, kk in ((q.half(), k.half()), (q, k.to(torch.bfloat16)),
                    (q.to(torch.bfloat16), k)):
         with pytest.raises(ValueError):
             flash_attention.fused_attention(qq, kk, v.to(qq.dtype))
+    with pytest.raises(ValueError):  # a bf16 dO under fp32 q
+        flash_attention.fused_attention_backward(q, k, v, None, None, None, None, 0.0, None,
+                                                 pout, plse, torch.ones_like(q).bfloat16())
     with pytest.raises(ValueError):  # bf16 weights under an fp32 input
         conv_stack.conv_gelu_block(torch.zeros(1, 64, 128, device=dev),
                                    torch.zeros(3, 128, 128, device=dev, dtype=torch.bfloat16), 64)
+    x, w = torch.zeros(1, 64, 128, device=dev), torch.zeros(3, 128, 128, device=dev)
+    dy = torch.zeros(1, 31, 128, device=dev)
+    for pre, d in ((dy.bfloat16(), dy), (dy, dy.bfloat16())):  # bf16 pre, bf16 dy
+        with pytest.raises(ValueError):
+            conv_stack.conv_gelu_block_backward(x, w, 64, False, True, None, d, pre)
     with pytest.raises(ValueError):  # the L1 kernels compute in bf16 or fp32
         l1_frontend.l1_conv_with_stats(torch.zeros(1, 400, device=dev),
                                        torch.zeros(10, 1, 64, device=dev), 5,
                                        dtype=torch.float16)
+    wav = torch.randn(1, 4000, generator=g).to(dev)
     wk = torch.randn(10, 1, 64, generator=g).to(dev).requires_grad_()
-    y, *_ = l1_frontend.l1_conv_with_stats(torch.randn(1, 4000, generator=g).to(dev), wk, 5,
-                                           dtype=torch.float32)
-    with pytest.raises(NotImplementedError):
-        y.sum().backward()
+    y, *_ = l1_frontend.l1_conv_with_stats(wav, wk, 5, dtype=torch.float32)
+    before = l1_frontend.backward_launches
+    y.sum().backward()
+    assert l1_frontend.backward_launches == before + 1
+    ones = torch.ones_like(y)
+    _sum_close(wk.grad, l1_frontend.l1_conv_backward_plain(wav, wk.detach(), 5, ones, None,
+                                                           None, torch.float32),
+               l1_terms(wav, wk.detach(), 5, ones, None, None))
+    with pytest.raises(ValueError):  # a bf16 dy under the fp32 L1
+        l1_frontend.l1_conv_backward(wav, wk.detach(), 5, ones.bfloat16(), dtype=torch.float32)
 
 
 @pytest.mark.parametrize("arch", ["base", "large"])
@@ -925,3 +1130,63 @@ def test_small_model_fp32_kernel_path_matches_plain(dev, monkeypatch, arch):
     want = model.extract_features(wav, lengths=lengths).x
     assert got.dtype == want.dtype == torch.float32 and torch.isfinite(got).all()
     assert ((got - want).norm() / want.norm()).item() <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["base", "large"])
+def test_small_model_fp32_train_step_kernel_path_matches_plain(dev, monkeypatch, arch):
+    """A small HubertPretrainModel built without a dtype (fp32) on the card,
+    in the default (Base) and the layer_norm (Large) structure: one masked
+    step's gradients through the fp32 kernels against the plain path, per
+    parameter |g - g_plain| <= 1e-3 |g_plain| + 1e-6 |global| (both paths
+    in fp32: 3xTF32 rounding and summation order only); launches per step
+    as in bf16 (conv backward: Base a g pass, dx and dW per block and the
+    first block's H pass; Large an H pass, dx and dW per block)."""
+    from unispeech_tpu_torch.configs import (
+        HubertPretrainConfig,
+        MaskConfig,
+        base_encoder_config,
+        large_encoder_config,
+    )
+    from unispeech_tpu_torch.models import encoder
+    from unispeech_tpu_torch.models.hubert import HubertPretrainModel
+    from unispeech_tpu_torch.train.losses import HubertCriterionConfig
+    from unispeech_tpu_torch.train.tasks import make_hubert_loss_fn
+
+    make = base_encoder_config if arch == "base" else large_encoder_config
+    enc = make(encoder_layers=2, encoder_embed_dim=128, encoder_ffn_embed_dim=256,
+               encoder_attention_heads=2, conv_layers=((128, 10, 5),) + ((128, 3, 2),) * 2,
+               conv_pos=16, conv_pos_groups=4, relative_position_embedding=True,
+               gru_rel_pos=True, num_buckets=32, max_distance=64, dropout=0.0,
+               attention_dropout=0.0, encoder_layerdrop=0.0, remat_layers=False)
+    cfg = HubertPretrainConfig(encoder=enc, time_mask=MaskConfig(mask_prob=0.65, mask_length=4),
+                               num_classes=(17,), final_dim=32)
+    model = HubertPretrainModel(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    g = torch.Generator().manual_seed(1)
+    T = enc.num_frames(6000)
+    batch = {"source": (torch.randn(3, 6000, generator=g) * 0.1).to(dev),
+             "targets": torch.randint(0, 17, (3, T, 1), generator=g).to(dev),
+             "lengths": torch.tensor([6000, 4100, 2500], device=dev),
+             "boundary_mask": (torch.rand(3, T, generator=g) < 0.5).to(dev)}
+    loss_fn = make_hubert_loss_fn(model, HubertCriterionConfig())
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, ss, _ = loss_fn(batch, torch.Generator(), 0)
+        (loss / ss).backward()
+        return [p.grad.clone() for p in model.parameters()]
+
+    mods = (l1_frontend, conv_stack, flash_attention)
+    counts = [(m.launches, m.backward_launches) for m in mods]
+    gk = grads()
+    launched = [(m.launches - a, m.backward_launches - b) for m, (a, b) in zip(mods, counts)]
+    assert launched == ([(1, 1), (3, 7), (2, 4)] if arch == "base"
+                        else [(1, 1), (4, 6), (2, 4)])
+    monkeypatch.setattr(encoder, "l1_conv_with_stats", l1_frontend.l1_conv_with_stats_plain)
+    monkeypatch.setattr(encoder, "conv_gelu_block", conv_stack.conv_gelu_block_plain)
+    monkeypatch.setattr(encoder, "fused_attention", flash_attention.fused_attention_plain)
+    gp = grads()
+    total = torch.sqrt(sum((x * x).sum() for x in gp)).item()
+    for (name, _), a, b in zip(model.named_parameters(), gk, gp):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all(), name
+        assert (a - b).norm().item() <= 1e-3 * b.norm().item() + 1e-6 * total, name

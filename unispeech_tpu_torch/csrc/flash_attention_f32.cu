@@ -3,13 +3,17 @@
 // Replaces unispeech_tpu/ops/pallas/flash_attention.py::_fwd_kernel
 // (head-major layout, launched by _run_forward) and ::_fwd_kernel_packed
 // (natural (B, T, H*hd) layout, launched by _run_forward_packed) at fp32,
-// the models' default dtype, without dropout:
-//   out = softmax(q*scale . k^T + gate[b,h,t] * bias[h,t,s] + attn_mask[t,s]
-//                 + kPadNeg * (key s padded)) . v
+// the models' default dtype:
+//   out = dropout(softmax(q*scale . k^T + gate[b,h,t] * bias[h,t,s]
+//                         + attn_mask[t,s] + kPadNeg * (key s padded))) . v
 // over the S keys (keys past S, in a tile's tail, take -inf: p = 0) and,
-// when asked, lse = max + log(sum) per query row, all in fp32. P is not
-// rounded before P.V (the JAX kernel rounds it to v's dtype, which in fp32
-// does nothing).
+// when asked, lse = max + log(sum) per query row of the undropped
+// probabilities, all in fp32. P is not rounded before P.V (the JAX kernel
+// rounds it to v's dtype, which in fp32 does nothing). Dropout (kDrop,
+// training) multiplies the un-normalised p by keep / (1 - rate) in fp32
+// after its row sum is taken, as the bf16 kernel and the TPU kernel do; the
+// keep bit of (b, h, t, s) is the Philox function of philox.cuh, so the
+// mask is the bf16 kernel's and the plain version's bit for bit.
 //
 // Bound on the H100: bytes at bf16 rates, operations here. At WavLM-Base+
 // width and 4 x 16 s (T = 799) one call does 7.85 GFLOP and must read q, k,
@@ -32,11 +36,20 @@
 // read in the same order: no shuffles. The output is divided by the row
 // sum at the end and stored with 8-byte stores. Template on the padded
 // width kD (64 or 128, the O accumulator's registers); any hd that is a
-// multiple of 8 up to kD runs on it.
+// multiple of 8 up to kD runs on it. The keep mask (kDrop): one Philox call
+// gives the words of a 2 x 2 (query, key) block. A lane holds query rows g
+// and g + 8 and the key pairs (2 tq, 2 tq + 1) of each 8-key group n; the
+// lane four apart holds rows g ^ 1 and g ^ 1 + 8, the other rows of the
+// same blocks. So each lane draws the blocks of the groups n whose parity
+// is its row's, keeps its own row's bits and swaps the other row's with
+// its partner by one shuffle: 8 Philox calls per lane and 64-key step. The
+// bits are applied to the accumulator elements by their (t, s), before P
+// is permuted into the A fragments of P.V.
 
 #include <math.h>
 
 #include "common.cuh"
+#include "philox.cuh"
 #include "tf32.cuh"
 
 namespace {
@@ -60,11 +73,14 @@ struct Args {
     const uint8_t* kpm;    // (B, S) or null
     const float* amask;    // (T, S) or null
     float* lse;            // (B, H, T) or null
+    const long long* seed; // dropout seed (1 element) or null: no dropout
+    unsigned threshold;    // keep iff the Philox word >= threshold
+    float drop_scale;      // 1 / (1 - rate)
     int T, S, H, hd;
     float scale;
 };
 
-template <int kD>
+template <int kD, bool kDrop>
 __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Args a) {
     extern __shared__ float4 attn_f32_smem[];
     const int hd = a.hd, ld = hd + 4, n4 = hd / 4;
@@ -74,6 +90,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Args a) {
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, tq = lane & 3;
     const int t0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
     const int T = a.T, S = a.S;
+    const uint64_t seed = kDrop ? (uint64_t)*a.seed : 0;
 
     // rows [r0, r0 + 64) of head h of a (B, rows, H, hd) tensor
     auto load_tile = [&](float* dst, const float* src, long long bs, long long rs, int r0,
@@ -138,6 +155,31 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Args a) {
             }
         }
 
+        // the keep bits while the products run: bit 4 n + e of keep is
+        // element e of sc[n]
+        uint32_t keep = 0xffffffffu;
+        if (kDrop) {
+            uint32_t own = 0, other = 0;
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+                const int n = 2 * m + (g & 1);
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    const usk::Philox4 w = usk::philox4x32_10(
+                        (uint32_t)((s0 + 8 * n + 2 * tq) >> 1), (uint32_t)(trow[i] >> 1),
+                        (uint32_t)h, (uint32_t)b, (uint32_t)seed, (uint32_t)(seed >> 32));
+                    // words 0, 1: the even row's keys s, s + 1; 2, 3: the odd row's
+                    const uint32_t e0 = (g & 1) ? w.x[2] : w.x[0], e1 = (g & 1) ? w.x[3] : w.x[1];
+                    const uint32_t o0 = (g & 1) ? w.x[0] : w.x[2], o1 = (g & 1) ? w.x[1] : w.x[3];
+                    const int sh = 4 * n + 2 * i;
+                    own |= ((uint32_t)(e0 >= a.threshold) | (uint32_t)(e1 >= a.threshold) << 1) << sh;
+                    other |= ((uint32_t)(o0 >= a.threshold) | (uint32_t)(o1 >= a.threshold) << 1)
+                             << sh;
+                }
+            }
+            keep = own | __shfl_xor_sync(0xffffffffu, other, 4);
+        }
+
         // logits and the online softmax; element e of sc[n]: query row
         // trow[e >> 1], key s0 + 8 n + 2 tq + (e & 1)
         float mx[2] = {-INFINITY, -INFINITY};
@@ -177,8 +219,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Args a) {
             for (int e = 0; e < 4; ++e) {
                 const int i = e >> 1;
                 const float p = usk::ex2((sc[n][e] - m_r[i]) * kLog2e);
-                sc[n][e] = p;
-                l_r[i] += p;
+                l_r[i] += p;  // the undropped normaliser
+                sc[n][e] = !kDrop ? p : (((keep >> (4 * n + e)) & 1u) ? p * a.drop_scale : 0.f);
             }
 #pragma unroll
         for (int n = 0; n < kD / 8; ++n) {
@@ -233,7 +275,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Args a) {
 
 template <int kD>
 cudaError_t launch_width(const Args& a, dim3 grid, cudaStream_t st) {
-    auto kernel = flash_fwd_f32_kernel<kD>;
+    auto kernel = a.seed != nullptr ? flash_fwd_f32_kernel<kD, true> : flash_fwd_f32_kernel<kD, false>;
     const int smem = (kBQ + 2 * kBKey) * (a.hd + 4) * (int)sizeof(float);
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -249,13 +291,16 @@ cudaError_t launch_width(const Args& a, dim3 grid, cudaStream_t st) {
 // the same for (B, T, H, hd); bias (H, T, S) fp32 with rows bias_rs apart
 // and heads T rows apart, or null; gate (B, H, T) fp32 or null; kpm (B, S)
 // bool or null; amask (T, S) fp32 or null; lse (B, H, T) fp32 or null;
-// hd a multiple of 8 up to 128
+// seed a 1-element int64 dropout seed or null (no dropout), threshold and
+// drop_scale its keep threshold and 1 / (1 - rate); hd a multiple of 8 up
+// to 128
 extern "C" int usk_flash_attention_fwd_f32(
     const void* q, const void* k, const void* v, void* out,
     long long q_bs, long long q_rs, long long k_bs, long long k_rs,
     long long v_bs, long long v_rs, long long o_bs, long long o_rs,
     const void* bias, long long bias_rs, const void* gate, const void* kpm, const void* amask,
-    void* lse, int B, int T, int S, int H, int hd, float scale, void* stream) {
+    void* lse, int B, int T, int S, int H, int hd, float scale, const void* seed,
+    unsigned threshold, float drop_scale, void* stream) {
     if (hd < 8 || hd > kMaxHd || hd % 8 != 0 || B > 65535 || H > 65535)
         return (int)cudaErrorInvalidValue;
     Args a;
@@ -271,6 +316,9 @@ extern "C" int usk_flash_attention_fwd_f32(
     a.kpm = (const uint8_t*)kpm;
     a.amask = (const float*)amask;
     a.lse = (float*)lse;
+    a.seed = (const long long*)seed;
+    a.threshold = threshold;
+    a.drop_scale = drop_scale;
     a.T = T; a.S = S; a.H = H; a.hd = hd;
     a.scale = scale;
     const dim3 grid((T + kBQ - 1) / kBQ, H, B);

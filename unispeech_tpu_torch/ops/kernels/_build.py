@@ -146,14 +146,4 @@ def require(cond: bool, what: str) -> None:
 
 
 # the dtypes the kernels compute in: bf16, and fp32 (the models' default)
-# for the forward kernels
 COMPUTE_DTYPES = (torch.bfloat16, torch.float32)
-
-
-def require_bf16_training(dtype: torch.dtype, what: str) -> None:
-    """Raise unless bf16: what only training runs (the backward kernels,
-    the attention dropout) has no fp32 form yet."""
-    if dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"{what} computes in bf16 only, not {dtype}; its fp32 form comes with fp32 "
-            "training (ROADMAP.md 2.4)")

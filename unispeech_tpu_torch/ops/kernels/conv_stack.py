@@ -6,10 +6,9 @@ is the frontend GroupNorm folded in as a per-(batch, channel) affine, and
 its backward (dx, dW, da, db from the saved bf16 pre-activation). GELU and
 its derivative are exact erf (the TPU kernel's polynomials exist only
 because Mosaic has no erf). CUDA tensors go to the kernels in
-``csrc/conv_stack.cu`` (bf16) and ``csrc/conv_stack_f32.cu`` (the fp32
-forward: the GEMM as 3xTF32 tensor-core products, so fp32 to a few ulps;
-its backward is not ported yet and raises); CPU tensors to the plain
-versions below.
+``csrc/conv_stack.cu`` (bf16) and ``csrc/conv_stack_f32.cu`` (fp32, both
+directions: the GEMMs as 3xTF32 tensor-core products, so fp32 to a few
+ulps); CPU tensors to the plain versions below.
 """
 
 from __future__ import annotations
@@ -28,6 +27,8 @@ backward_launches = 0  # backward kernel launches made by conv_gelu_block_backwa
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURE = [_P] * 7 + [_I] * 8 + [_P]
 _BWD_SIGNATURE = [_P] * 12 + [_I] * 8 + [_P]
+_BWD_ENTRIES = {torch.bfloat16: "usk_conv_gelu_block_bwd",
+                torch.float32: "usk_conv_gelu_block_bwd_f32"}
 BWD_DX, BWD_DW = 1, 2  # the backward's two GEMMs, as bits of ``parts``
 
 Affine = Optional[Tuple[torch.Tensor, torch.Tensor]]
@@ -189,24 +190,38 @@ def conv_gelu_block_backward(x, kernel, valid_len: int, gelu_in: bool, gelu_out:
                           BWD_DX | BWD_DW)
 
 
+def _check_backward(x, kernel, valid_len, gelu_out, affine, dy, pre):
+    """Raise for a backward the kernels do not take: dy, and pre with the
+    output GELU, in x's dtype and the block's output shape. Returns what
+    ``_check_cuda`` returns."""
+    B, ts, C, t_out, w, ab = _check_cuda(x, kernel, valid_len, affine)
+    req = _build.require
+    req(dy.dtype == x.dtype and dy.shape == (B, t_out, C) and dy.device == x.device,
+        f"dy must be {x.dtype} (x's) ({B}, {t_out}, {C}), got {dy.dtype} {tuple(dy.shape)}")
+    if gelu_out:
+        req(pre is not None and pre.shape == dy.shape and pre.dtype == x.dtype
+            and pre.is_contiguous() and pre.device == x.device,
+            f"the output GELU's backward needs a contiguous {x.dtype} pre of dy's shape")
+    return B, ts, C, t_out, w, ab
+
+
 def backward_parts(x, kernel, valid_len: int, gelu_in: bool, gelu_out: bool, affine: Affine,
                    dy, pre, parts: int):
     """The backward's kernels on CUDA tensors: the g and H passes where they
     run, then those of the GEMMs dx and dW that ``parts`` names. With one
     GEMM left out, its output is left unwritten; this times each GEMM alone."""
     global backward_launches
-    B, ts, C, t_out, w, ab = _check_cuda(x, kernel, valid_len, affine)
-    _build.require_bf16_training(x.dtype, "the conv block's backward")
+    B, ts, C, t_out, w, ab = _check_backward(x, kernel, valid_len, gelu_out, affine, dy, pre)
     k = kernel.shape[0]
-    req = _build.require
-    dy = dy.to(torch.bfloat16).contiguous()
-    req(dy.shape == (B, t_out, C) and dy.device == x.device, "dy must be (B, t_out, C)")
-    if gelu_out:
-        req(pre is not None and pre.shape == dy.shape and pre.dtype == torch.bfloat16
-            and pre.is_contiguous(), "the output GELU's backward needs the bf16 pre")
+    dy = dy.contiguous()
+    if x.dtype == torch.float32:
+        # the fp32 kernels read every operand by 16-byte copies
+        x, w, dy = (t.clone() if t.data_ptr() % 16 else t for t in (x, w, dy))
+        if gelu_out and pre.data_ptr() % 16:
+            pre = pre.clone()
     dev = x.device
     g_buf = torch.empty_like(dy) if gelu_out else None
-    h_buf = (torch.empty((B, valid_len, C), dtype=torch.bfloat16, device=dev)
+    h_buf = (torch.empty((B, valid_len, C), dtype=x.dtype, device=dev)
              if ab is not None or gelu_in else None)
     dx = torch.empty_like(x)
     dw = torch.zeros((k, C, C), dtype=torch.float32, device=dev)
@@ -215,7 +230,7 @@ def backward_parts(x, kernel, valid_len: int, gelu_in: bool, gelu_out: bool, aff
         da = torch.zeros((B, C), dtype=torch.float32, device=dev)
         db = torch.zeros((B, C), dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    fn = _build.function("usk_conv_gelu_block_bwd", _BWD_SIGNATURE)
+    fn = _build.function(_BWD_ENTRIES[x.dtype], _BWD_SIGNATURE)
     _build.launch(fn, "conv_gelu_block_backward", dev, x.data_ptr(), w.data_ptr(),
                   ptr(None if ab is None else ab[0]), ptr(None if ab is None else ab[1]),
                   dy.data_ptr(), ptr(pre if gelu_out else None), ptr(g_buf), ptr(h_buf),
@@ -256,8 +271,7 @@ def conv_gelu_block(x: torch.Tensor, kernel: torch.Tensor, valid_len: int,
     Returns (y, t_out) with y (B, t_out, C), t_out = (valid_len - k)//2 + 1.
     Differentiable in x, kernel and the affine. CPU tensors take the plain
     versions; a CUDA tensor launches the kernels (bf16 or fp32 x, the
-    kernel fp32 or x's dtype, C % 128 == 0; the backward in bf16 only) or
-    raises."""
+    kernel fp32 or x's dtype, C % 128 == 0) or raises."""
     a, b = (None, None) if affine is None else affine
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, kernel, a, b)):

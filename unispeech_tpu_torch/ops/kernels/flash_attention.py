@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``ops/pallas/flash_attention.py``:
 softmax(q*scale . k^T + gate * bias + attn_mask - 1e30 * keypad), dropout on
 the probabilities, . v, and its merged backward, without a (B, H, T, S)
 tensor in device memory. The CUDA kernels (``csrc/flash_attention.cu``,
-``csrc/flash_attention_bwd.cu``) read q/k/v by strides in the natural
+``csrc/flash_attention_bwd.cu`` in bf16; ``csrc/flash_attention_f32.cu``,
+``csrc/flash_attention_bwd_f32.cu`` in fp32) read q/k/v by strides in the natural
 (B, T, H*hd) layout, which covers both of the TPU's layouts, at any head dim
 up to 128: a multiple of 8 as it is, any other on a copy zero-padded to the
 next multiple of 8 (``kernel_head_dim``, ``pad_head``). q is scaled as the
@@ -14,9 +15,8 @@ fp32 P.V, normalization by the fp32 row sum at the end; the dropout keep
 mask is the same Philox function of (seed, b, h, t, s) on both sides
 (``ops/kernels/philox.py``), so forward and backward, kernel and plain
 version, draw the identical mask. fp32 q/k/v (the models' default dtype)
-launch the fp32 forward of ``csrc/flash_attention_f32.cu`` (3xTF32
-tensor-core products, P not rounded); it has no dropout and no backward
-yet: both raise.
+launch the fp32 kernels (3xTF32 tensor-core products, nothing rounded to a
+narrower type), dropout and backward included.
 """
 
 from __future__ import annotations
@@ -37,7 +37,6 @@ backward_launches = 0  # backward kernel launches made by its autograd backward
 NEG_INF = -1e30
 _P, _L, _I, _U, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _FWD_SIGNATURE = [_P] * 4 + [_L] * 8 + [_P, _L] + [_P] * 4 + [_I] * 5 + [_F, _P, _U, _F, _P]
-_FWD_F32_SIGNATURE = [_P] * 4 + [_L] * 8 + [_P, _L] + [_P] * 4 + [_I] * 5 + [_F, _P]
 _BWD_SIGNATURE = ([_P] * 6 + [_L] * 10 + [_P, _L] + [_P] * 8 + [_I] * 5
                   + [_F, _P, _U, _F, _P, _P])
 MAX_HEAD_DIM = 128  # the kernels' widest head (two 64-column boxes per row)
@@ -246,34 +245,39 @@ def _forward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rate
             _ptr(bias), 0 if bias is None else bias.stride(1),
             _ptr(gate), _ptr(key_padding_mask), _ptr(attn_mask), _ptr(lse),
             B, T, S, H, hd, scale)
-    if q.dtype == torch.float32:
-        if dropout_rate > 0.0:
-            _build.require_bf16_training(q.dtype, "attention dropout")
-        fn = _build.function("usk_flash_attention_fwd_f32", _FWD_F32_SIGNATURE)
-        _build.launch(fn, "fused_attention", q.device, *args, _build.stream(q))
-    else:
-        seed = dropout_seed if dropout_rate > 0.0 else None
-        fn = _build.function("usk_flash_attention_fwd", _FWD_SIGNATURE)
-        _build.launch(fn, "fused_attention", q.device, *args, _ptr(seed),
-                      keep_threshold(dropout_rate) if seed is not None else 0,
-                      float(_dropout_scale(dropout_rate)) if seed is not None else 1.0,
-                      _build.stream(q))
+    seed = dropout_seed if dropout_rate > 0.0 else None
+    entry = "usk_flash_attention_fwd_f32" if q.dtype == torch.float32 else "usk_flash_attention_fwd"
+    fn = _build.function(entry, _FWD_SIGNATURE)
+    _build.launch(fn, "fused_attention", q.device, *args, _ptr(seed),
+                  keep_threshold(dropout_rate) if seed is not None else 0,
+                  float(_dropout_scale(dropout_rate)) if seed is not None else 1.0,
+                  _build.stream(q))
     launches += 1
     if hd != hd_in:
         out = out[..., :hd_in].contiguous()
     return out, lse
 
 
+def _check_backward(q, out, dout) -> None:
+    """Raise for a backward the kernels do not take: q in a compute dtype,
+    out and dO in q's dtype and shape."""
+    req = _build.require
+    req(q.dtype in _build.COMPUTE_DTYPES,
+        f"attention backward kernels take bf16 or fp32 q, k, v, not {q.dtype}")
+    req(dout.dtype == out.dtype == q.dtype and dout.shape == out.shape == q.shape,
+        f"dO and out must be {q.dtype} (q's) {tuple(q.shape)}, got {dout.dtype} / "
+        f"{out.dtype} {tuple(dout.shape)}")
+
+
 def _backward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rate,
                    dropout_seed, out, lse, dout):
     global backward_launches
-    _build.require_bf16_training(q.dtype, "the attention backward kernel")
     hd_in = q.shape[-1]
     hd = kernel_head_dim(hd_in)
+    _check_backward(q, out, dout)
     req = _build.require
-    req(dout.dtype == torch.bfloat16 and out.dtype == torch.bfloat16
-        and dout.shape == out.shape == q.shape, "dO and out must be bf16 (B, T, H, hd)")
-    # the kernel's dq^ is unscaled: dq = bf16(dq^) * scale below
+    dt = q.dtype
+    # the kernel's dq^ is unscaled: dq = dt(dq^) * scale below
     scale = scale_in_dtype(hd_in, q.dtype)
     q, kscale = kernel_q(q)
     q, k, v, out, dout = (pad_head(t, hd) for t in (q, k, v, out.contiguous(), dout.contiguous()))
@@ -284,19 +288,23 @@ def _backward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rat
     req(lse.dtype == torch.float32 and lse.shape == (B, H, T), "lse must be fp32 (B, H, T)")
     dev = q.device
     n_qt, n_kt = -(-T // 64), -(-S // 64)
-    # cross-block sums, added by the kernel's TMA reductions: dgate and dbias
-    # padded to whole 64-wide tiles
+    # cross-block sums: the bf16 kernel adds them by TMA reductions into
+    # dgate and dbias padded to whole 64-wide tiles, the fp32 kernel by
+    # atomics into the exact shapes
+    f32 = dt == torch.float32
     dq_acc = torch.zeros((B, T, H, hd), dtype=torch.float32, device=dev)
-    dk = torch.empty((B, S, H, hd), dtype=torch.bfloat16, device=dev)
-    dv = torch.empty((B, S, H, hd), dtype=torch.bfloat16, device=dev)
+    dk = torch.empty((B, S, H, hd), dtype=dt, device=dev)
+    dv = torch.empty((B, S, H, hd), dtype=dt, device=dev)
     rows = torch.empty((B * H, n_qt, 3, 64), dtype=torch.float32, device=dev)
     dbias_acc = dgate_acc = None
     if bias is not None:
-        dbias_acc = torch.zeros((H, T, n_kt * 64), dtype=torch.float32, device=dev)
+        dbias_acc = torch.zeros((H, T, S if f32 else n_kt * 64), dtype=torch.float32, device=dev)
         if gate is not None:
-            dgate_acc = torch.zeros((B * H, n_qt * 64), dtype=torch.float32, device=dev)
+            dgate_acc = torch.zeros((B * H, T if f32 else n_qt * 64), dtype=torch.float32,
+                                    device=dev)
     seed = dropout_seed if dropout_rate > 0.0 else None
-    fn = _build.function("usk_flash_attention_bwd", _BWD_SIGNATURE)
+    fn = _build.function("usk_flash_attention_bwd_f32" if f32 else "usk_flash_attention_bwd",
+                         _BWD_SIGNATURE)
     _build.launch(
         fn, "fused_attention_backward", dev,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
@@ -311,7 +319,7 @@ def _backward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rat
         float(_dropout_scale(dropout_rate)) if seed is not None else 1.0,
         _ptr(seed), _build.stream(q))
     backward_launches += 2  # the rows pre-pass and the backward kernel
-    dq = dq_acc.to(torch.bfloat16) * scale
+    dq = dq_acc.to(dt) * scale
     if hd != hd_in:
         dq, dk, dv = (t[..., :hd_in].contiguous() for t in (dq, dk, dv))
     dbias = None if dbias_acc is None else dbias_acc[..., :S].to(bias.dtype)
@@ -381,8 +389,7 @@ def fused_attention(
     through ``bias_rows`` (``compute_rel_pos_bias``'s view is taken as it
     is). Differentiable in q, k, v, bias and gate. CPU tensors take the
     plain versions; a CUDA tensor launches the kernels (bf16 or fp32 q, k,
-    v of one dtype, head dim up to ``MAX_HEAD_DIM``; in fp32 without
-    dropout and backward) or raises."""
+    v of one dtype, head dim up to ``MAX_HEAD_DIM``) or raises."""
     _check_dropout(dropout_rate, dropout_seed)
     if bias is not None:
         bias = bias.to(q.dtype)

@@ -10,8 +10,8 @@ one launch, y1 computed on tensor cores from the JAX kernel's collapsed
 waveform layout by persistent blocks; the forward writes y1 with streaming
 stores, the backward reads dy by TMA); CPU tensors to the plain versions
 below. ``dtype`` is bf16 or fp32 (the models' default): fp32 launches the
-fp32 forward of ``csrc/l1_frontend_f32.cu`` (CUDA-core FMAs, nothing
-rounded); its backward is not ported yet and raises.
+fp32 kernels of ``csrc/l1_frontend_f32.cu`` in both directions (CUDA-core
+FMAs, nothing rounded).
 """
 
 from __future__ import annotations
@@ -119,33 +119,44 @@ def _forward(wav, kernel, stride, dtype, with_stats):
     return y, s1, s2, t1
 
 
+def _check_backward(wav, kernel, stride, dy, dtype):
+    """Raise for a backward the kernels do not take (dy in ``dtype``, the
+    forward's output shape); returns the forward's geometry and weights."""
+    B, NS, t1, k, C, w = _geometry_cuda(wav, kernel, stride, dtype)
+    req = _build.require
+    req(C <= 1024, f"L1 backward kernel takes C <= 1024 channels, got {C}")
+    req(dy.dtype == dtype and dy.shape == (B, t1, C) and dy.device == wav.device,
+        f"dy must be {dtype} ({B}, {t1}, {C}) on the waveform's device, got {dy.dtype} "
+        f"{tuple(dy.shape)}")
+    return B, NS, t1, k, C, w
+
+
 def l1_conv_backward(wav, kernel, stride: int, dy, ds1=None, ds2=None,
                      dtype=torch.bfloat16):
     """The weight gradient of ``l1_conv_with_stats`` from the cotangents of
     y1 (B, t1, C) and of the sums (B, C) (None: no such term). CPU tensors
-    take the plain version; a CUDA tensor launches the kernel or raises.
-    Returns (k, 1, C) fp32."""
+    take the plain version; a CUDA tensor launches the kernel (bf16 or fp32
+    ``dtype``, dy in it) or raises. Returns (k, 1, C) fp32."""
     global backward_launches
     if not wav.is_cuda:
         return l1_conv_backward_plain(wav, kernel, stride, dy, ds1, ds2, dtype)
-    B, NS, t1, k, C, w = _geometry_cuda(wav, kernel, stride, dtype)
-    _build.require_bf16_training(dtype, "the L1 backward kernel")
+    B, NS, t1, k, C, w = _check_backward(wav, kernel, stride, dy, dtype)
     req = _build.require
-    req(C <= 1024, f"L1 backward kernel takes C <= 1024 channels, got {C}")
     dy = dy.contiguous()
-    # the kernel reads dy and the waveform by TMA: 16-byte aligned
+    # the bf16 kernel reads dy and the waveform by TMA, the fp32 one dy and
+    # the taps as float4: 16-byte aligned
     dy = dy.clone() if dy.data_ptr() % 16 else dy
     wav = wav.clone() if wav.data_ptr() % 16 else wav
-    req(dy.dtype == torch.bfloat16 and dy.shape == (B, t1, C) and dy.device == wav.device,
-        f"dy must be bf16 ({B}, {t1}, {C}) on the waveform's device")
     sums = []
     for name, t in (("ds1", ds1), ("ds2", ds2)):
         if t is not None:
             t = t.to(torch.float32).contiguous()
+            t = t.clone() if t.data_ptr() % 16 else t
             req(t.shape == (B, C) and t.device == wav.device, f"{name} must be ({B}, {C})")
         sums.append(t)
     dw = torch.zeros((k, C), dtype=torch.float32, device=wav.device)
-    fn = _build.function("usk_l1_conv_bwd", _BWD_SIGNATURE)
+    fn = _build.function("usk_l1_conv_bwd_f32" if dtype == torch.float32 else "usk_l1_conv_bwd",
+                         _BWD_SIGNATURE)
     _build.launch(fn, "l1_conv_backward", wav.device, wav.data_ptr(), w.data_ptr(),
                   dy.data_ptr(), None if sums[0] is None else sums[0].data_ptr(),
                   None if sums[1] is None else sums[1].data_ptr(), dw.data_ptr(),
@@ -180,7 +191,7 @@ def l1_conv_with_stats(wav: torch.Tensor, kernel: torch.Tensor, stride: int,
     sums of y1 and y1**2 over time, both None without ``with_stats`` (the
     kernel then writes y1 alone). Differentiable in ``kernel``. CPU tensors
     take the plain versions; a CUDA tensor launches the kernels (bf16 or
-    fp32 ``dtype``; the backward in bf16 only) or raises.
+    fp32 ``dtype``) or raises.
     """
     if torch.is_grad_enabled() and kernel.requires_grad:
         out = _L1WithStats.apply(wav, kernel, stride, dtype, with_stats)
