@@ -38,14 +38,24 @@ Phases, one line each (any failure raises and exits non-zero):
              at 495 TFLOP/s; the L1's at 67 TFLOP/s), plain version and
              library call (F.conv1d fp32, SDPA fp32 with a float mask), the
              forwards' ms, audio-seconds per second and peak memory
+    tf32_pin the fp32 convolutions under PyTorch's default cuDNN flag
+             (allow_tf32 True, which runs an fp32 cuDNN convolution in
+             TF32): WavLM-Base+ built without a dtype, extract_features with
+             the flag on against its plain path with it off (the fp32
+             models' gate, relative L2 1e-4), and a seed-0 ECAPA-TDNN head
+             (the verification head, fp32) over its layer features on the
+             card with the flag on against the CPU (the speaker heads'
+             gate, 1e-4 of the output's scale); printed beside them, the
+             positional conv's F.conv1d with the flag on against the pinned
+             conv (no gate: what the pin removes); the flag restored after
     fp32_bwd the fp32 backward kernels and the fp32 attention dropout (TF32
              off for the plain versions) at the pretraining shapes, in the
              Base forms and the Large layer_norm forms (a row of length 0,
              dO 0 on it): the products (dq, dk, dv, dx, the dropout
              forward's out) relative L2 <= 1e-5 and max abs <= 1e-4 of max
-             |plain|, the sums taken by fp32 atomics (dW of the L1 and the
-             conv blocks, da, db, dbias, dgate) within 1e-5 of the sum of
-             |terms| per element, lse 1e-4 on the rows with a key, the
+             |plain|, the sums taken in a run-dependent order (fp32 atomics:
+             dW of the L1 and the conv blocks, da, db, dgate; TMA tile
+             reductions: dbias) within 1e-5 of the sum of |terms| per element, lse 1e-4 on the rows with a key, the
              dropout forward's keep mask equal to attention_keep over all
              768 keys
     fp32_train, fp32_large_train  phase 8's pretraining steps with the
@@ -4122,6 +4132,54 @@ def fp32_phase(dev, wav, lengths, base_cfg, card, tmp):
     return rows, e2e
 
 
+def tf32_pin_phase(dev, wav, lengths, base_cfg):
+    """tf32_pin: the fp32 model and the ECAPA head with the process's cuDNN
+    flag at PyTorch's default (allow_tf32 True), held to the fp32 models'
+    gate against the plain path with the flag off and to the speaker heads'
+    gate against the CPU; the flag restored after. Returns the distances."""
+    from unispeech_tpu_torch.configs import WavLMModelConfig
+    from unispeech_tpu_torch.downstream import ecapa_tdnn as ecapa
+    from unispeech_tpu_torch.models.wavlm import WavLM
+    from unispeech_tpu_torch.ops import fp32_conv
+
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        model = WavLM(WavLMModelConfig(encoder=base_cfg),
+                      generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
+        torch.backends.cudnn.allow_tf32 = True
+        out = model.extract_features(wav, lengths=lengths, collect_layer_outputs=True)
+        torch.backends.cudnn.allow_tf32 = False
+        with plain_ops():
+            plain = model.extract_features(wav, lengths=lengths).x
+        torch.backends.cudnn.allow_tf32 = True
+        e_model = rel_l2(out.x, plain)
+        # what the pin removes: the positional conv's input through F.conv1d
+        # with the flag on (TF32) against the pinned fp32 conv
+        pc = model.encoder.pos_conv
+        x = plain.transpose(1, 2).contiguous()
+        v = pc[0].weight_v
+        w = pc[0].weight_g / v.norm(dim=(0, 1), keepdim=True).clamp_min(1e-12) * v
+        with torch.no_grad():
+            e_conv = rel_l2(F.conv1d(x, w, groups=pc.groups, padding=w.shape[-1] // 2),
+                            fp32_conv.conv1d(x, w, groups=pc.groups, padding=w.shape[-1] // 2))
+        phase("tf32_pin", model="base_plus", cudnn_allow_tf32=True,
+              rel_l2_vs_plain_tf32_off=f"{e_model:.3g}", tol=F32_MODEL_REL_L2,
+              pos_conv_unpinned_rel_l2=f"{e_conv:.3g}")
+        if not e_model <= F32_MODEL_REL_L2:
+            fail(f"tf32_pin: the fp32 Base+ forward with cudnn.allow_tf32 on is {e_model} "
+                 "from its plain path")
+        head = ecapa.EcapaTdnn(ecapa.EcapaConfig(), base_cfg.encoder_embed_dim,
+                               generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
+        with torch.no_grad():
+            got = head(out.layer_outputs, out.padding_mask)
+        e_head = card_vs_cpu("tf32_pin", got,
+                             head_on_cpu(head, out.layer_outputs.float(), out.padding_mask))
+        del model, head, out, plain
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    return e_model, e_head
+
+
 def fp32_training_phases(dev, clock):
     """fp32_bwd, fp32_train and fp32_large_train, then the times rows of the
     fp32 backward kernels and dropout forward per fp32 train step (measured
@@ -4308,6 +4366,8 @@ def main() -> int:
     # the fp32 forward kernels: Base+ and Large at the models' default dtype
     fp32_rows, fp32_e2e = fp32_phase(dev, wav, lengths, cfg, smi, _build.BUILD_DIR / "smoke_fp32")
     clock.done("fp32")
+    tf32_pin_phase(dev, wav, lengths, cfg)
+    clock.done("tf32_pin")
 
     # fp32 training: the fp32 backward kernels and dropout forward, then
     # WavLM-Base and WavLM-Large pretraining at the models' default dtype

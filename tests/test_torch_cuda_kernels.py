@@ -912,7 +912,11 @@ def _attn_fp32_inputs(dev, hd, B, T, H, case):
 
 
 FP32_ATTN_HDS = [16, 24, 36, 64, 80, 128]
-FP32_ATTN_SHAPES = [(1, 1, 1), (3, 65, 4), (2, 200, 3), (4, 799, 2)]
+# T = S of 1, 63, 65, 129 and 799 cross the fp32 kernels' tiles: the forward's
+# 64-key steps and 128-query blocks (64 at width 128), the backward's 64-key
+# blocks and 32-query steps (33 and 63 one row past and short of a step)
+FP32_ATTN_SHAPES = [(1, 1, 1), (3, 65, 4), (2, 200, 3), (4, 799, 2), (2, 63, 3), (3, 129, 2),
+                    (2, 33, 2)]
 FP32_ATTN_CASES = ["gate+kpm", "bias+kpm+mask", "none", "bias_view"]
 
 
@@ -1012,6 +1016,49 @@ def test_attention_dropout_mask_is_bit_identical_fp32(dev):
                                             v.to(torch.bfloat16), dropout_rate=0.25,
                                             dropout_seed=seed)
     assert torch.equal(out16 != 0, out != 0)
+
+
+@pytest.mark.parametrize("T", [1, 63, 65, 129, 799])
+def test_attention_dropout_mask_is_bit_identical_fp32_tiles(dev, T):
+    """The fp32 dropout forward's keep mask over T = S keys that cross its
+    steps and blocks: q = k = 0 (p uniform), v the indicator of keys 64 j ..
+    64 j + 63 in its 64 columns, one call per j; out != 0 exactly where
+    attention_keep keeps (b, h, t, 64 j + c)."""
+    from unispeech_tpu_torch.ops.kernels.philox import attention_keep
+
+    B, H = 2, 3
+    q = torch.zeros(B, T, H, 64, device=dev)
+    seed = torch.tensor([123456789 + T], dtype=torch.int64, device=dev)
+    keep = attention_keep(seed, B, H, T, T, 0.25)
+    for j in range(-(-T // 64)):
+        v = torch.zeros(T, 64, device=dev)
+        n = min(64, T - 64 * j)
+        v[64 * j:64 * j + n] = torch.eye(64, device=dev)[:n]
+        v = v[None, :, None, :].expand(B, T, H, 64).contiguous()
+        out = flash_attention.fused_attention(q, q, v, dropout_rate=0.25, dropout_seed=seed)
+        assert torch.equal(out.permute(0, 2, 1, 3)[..., :n] != 0, keep[..., 64 * j:64 * j + n])
+        assert (out[..., n:] == 0).all()
+
+
+@pytest.mark.parametrize("hd", [64, 80])
+@pytest.mark.parametrize("case", ["gate+kpm", "none"])
+def test_attention_backward_fp32_dk_dv_deterministic(dev, hd, case):
+    """dK and dV of the fp32 backward are summed in a fixed order (in
+    registers over the query steps), so two calls give them bit for bit; dq,
+    dbias and dgate are sums over blocks in a run-dependent order."""
+    B, T, H = 3, 129, 2
+    q, k, v, lengths, kw = _attn_fp32_inputs(dev, hd, B, T, H, case)
+    rate, seed = 0.1, torch.tensor([T + hd], dtype=torch.int64, device=dev)
+    out, lse = flash_attention.fused_attention_plain(q, k, v, **kw, dropout_rate=rate,
+                                                     dropout_seed=seed, return_lse=True)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(hd)).to(dev)
+    dout = dout * (lengths > 0)[:, None, None, None]
+    args = (q, k, v, kw.get("bias"), kw.get("gate"), kw.get("key_padding_mask"), None, rate,
+            seed, out, lse, dout)
+    first = flash_attention.fused_attention_backward(*args)
+    second = flash_attention.fused_attention_backward(*args)
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    assert torch.isfinite(first[1]).all() and torch.isfinite(first[2]).all()
 
 
 @pytest.mark.parametrize("B,t1,C", [(1, 79, 512), (3, 999, 64), (2, 9600, 512), (2, 97, 512),

@@ -1,5 +1,6 @@
 // fp32 products on the tensor cores for the port's fp32 kernels: the
-// 3xTF32 split on mma.sync.m16n8k8, and cp.async copies into shared memory.
+// 3xTF32 split on mma.sync.m16n8k8, tiles split once for wgmma (TF32) in
+// the 128-byte swizzle, and cp.async copies into shared memory.
 //
 // A single TF32 product keeps 11 significant bits of each operand (~1e-3
 // relative error), so it is not an fp32 product. The split a = hi + lo,
@@ -61,6 +62,24 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4
     mma_tf32_1688(t, ah, bh0, bh1);
 #pragma unroll
     for (int i = 0; i < 4; ++i) d[i] += t[i];
+}
+
+// A tile split once for TF32 products: each element's (hi, lo) pair, the TF32
+// bit patterns as floats (valid fp32 values), stored by the loader into a hi
+// tile and a lo tile, so no product splits what another product reads.
+__device__ __forceinline__ float2 split_pair(float x) {
+    uint32_t hi, lo;
+    split_tf32(x, hi, lo);
+    return make_float2(__uint_as_float(hi), __uint_as_float(lo));
+}
+
+// wgmma's K-major operands in fp32 (TF32) are tiles in the 128-byte swizzle
+// (hopper.cuh): rows of 32 floats per atom column, the 16-byte chunk c of
+// row r at c ^ (r % 8). The byte offset of element (r, c) of such a tile
+// whose atom columns hold `rows` rows each:
+__device__ __forceinline__ uint32_t sw_tf32(int r, int c, int rows) {
+    return (uint32_t)(c >> 5) * (uint32_t)rows * 128u + (uint32_t)r * 128u +
+           ((((uint32_t)(c & 31) >> 2) ^ (uint32_t)(r & 7)) << 4) + ((uint32_t)c & 3u) * 4u;
 }
 
 // 16 bytes global -> shared, asynchronously; zeros when !valid (src is then

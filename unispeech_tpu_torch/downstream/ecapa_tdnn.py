@@ -28,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from unispeech_tpu_torch.ops import fp32_conv
+
 FLAX_LN_EPS = 1e-6
 
 
@@ -102,7 +104,7 @@ class BatchNorm(nn.Module):
 
 def _conv(cin: int, cout: int, kernel: int = 1, dilation: int = 1) -> nn.Conv1d:
     # flax "SAME": (k - 1) * dilation padding split low-first, as torch's "same"
-    return nn.Conv1d(cin, cout, kernel, dilation=dilation, padding="same")
+    return fp32_conv.Conv1d(cin, cout, kernel, dilation=dilation, padding="same")
 
 
 class TdnnBn(nn.Module):

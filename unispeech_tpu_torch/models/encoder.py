@@ -63,6 +63,7 @@ from torch.utils.checkpoint import checkpoint
 from unispeech_tpu_torch.configs import EncoderConfig
 from unispeech_tpu_torch.ops.attention import multihead_attention, rel_pos_gate
 from unispeech_tpu_torch.ops.dropout import draw_seeds, fold_ranks, seed_dropout
+from unispeech_tpu_torch.ops.fp32_conv import conv1d
 from unispeech_tpu_torch.ops.kernels.conv_stack import conv_gelu_block
 from unispeech_tpu_torch.ops.kernels.flash_attention import fused_attention
 from unispeech_tpu_torch.ops.kernels.l1_frontend import l1_conv_with_stats
@@ -256,8 +257,8 @@ class Conv1dMM(nn.Module):
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:  # (B, T, Cin)
         bias = None if self.bias is None else self.bias.to(self.dtype)
-        y = F.conv1d(h.to(self.dtype).transpose(1, 2), self.weight.to(self.dtype),
-                     bias, stride=self.stride)
+        y = conv1d(h.to(self.dtype).transpose(1, 2), self.weight.to(self.dtype), bias,
+                   stride=self.stride)
         return y.transpose(1, 2)
 
 
@@ -414,8 +415,8 @@ class PosConv(nn.Sequential):
         v = p.weight_v.float()
         norm = torch.sqrt((v * v).sum(dim=(0, 1), keepdim=True))
         w = (p.weight_g / torch.clamp(norm, min=1e-12)) * v
-        y = F.conv1d(x.to(self.dtype).transpose(1, 2), w.to(self.dtype),
-                     p.bias.to(self.dtype), padding=K // 2, groups=self.groups)
+        y = conv1d(x.to(self.dtype).transpose(1, 2), w.to(self.dtype), p.bias.to(self.dtype),
+                   padding=K // 2, groups=self.groups)
         y = y.transpose(1, 2)
         if K % 2 == 0:
             y = y[:, :-1]

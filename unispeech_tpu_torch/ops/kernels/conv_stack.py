@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from unispeech_tpu_torch.ops.fp32_conv import conv1d
 from unispeech_tpu_torch.ops.kernels import _build
 
 launches = 0  # forward kernel launches made by the blocks (the H pass and the GEMM)
@@ -70,14 +71,14 @@ def dgelu(x: torch.Tensor) -> torch.Tensor:
 def conv_gelu_block_plain(x, kernel, valid_len: int, gelu_in: bool = False,
                           gelu_out: bool = True, affine: Affine = None,
                           return_pre: bool = False):
-    """Plain version: the same roundings as the kernel, the conv by
-    F.conv1d in fp32 on the dtype-rounded operands. With ``return_pre``
+    """Plain version: the same roundings as the kernel, the conv in fp32
+    (``fp32_conv.conv1d``: no TF32) on the dtype-rounded operands. With ``return_pre``
     also the dtype-rounded pre-activation (the conv output before the
     output GELU)."""
     t_out = _check(kernel, valid_len, x.shape[1])
     _, h = _block_input(x, valid_len, gelu_in, affine)
     w = kernel.to(x.dtype).float().permute(2, 1, 0)  # (C_out, C_in, k)
-    y = F.conv1d(h.float().transpose(1, 2), w, stride=2).transpose(1, 2)
+    y = conv1d(h.float().transpose(1, 2), w, stride=2).transpose(1, 2)
     pre = y.to(x.dtype).contiguous()
     if gelu_out:
         y = F.gelu(y)

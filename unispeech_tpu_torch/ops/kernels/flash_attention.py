@@ -288,9 +288,10 @@ def _backward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rat
     req(lse.dtype == torch.float32 and lse.shape == (B, H, T), "lse must be fp32 (B, H, T)")
     dev = q.device
     n_qt, n_kt = -(-T // 64), -(-S // 64)
-    # cross-block sums: the bf16 kernel adds them by TMA reductions into
-    # dgate and dbias padded to whole 64-wide tiles, the fp32 kernel by
-    # atomics into the exact shapes
+    # cross-block sums into zeroed fp32 buffers: dq^ (over key tiles) and
+    # dbias (over the batch, rows padded to whole 64-key tiles) by the TMA
+    # unit's tile reductions; dgate by bulk reductions padded to 64-query
+    # tiles in bf16, by one atomic per query and block in fp32
     f32 = dt == torch.float32
     dq_acc = torch.zeros((B, T, H, hd), dtype=torch.float32, device=dev)
     dk = torch.empty((B, S, H, hd), dtype=dt, device=dev)
@@ -298,7 +299,7 @@ def _backward_cuda(q, k, v, bias, gate, key_padding_mask, attn_mask, dropout_rat
     rows = torch.empty((B * H, n_qt, 3, 64), dtype=torch.float32, device=dev)
     dbias_acc = dgate_acc = None
     if bias is not None:
-        dbias_acc = torch.zeros((H, T, S if f32 else n_kt * 64), dtype=torch.float32, device=dev)
+        dbias_acc = torch.zeros((H, T, n_kt * 64), dtype=torch.float32, device=dev)
         if gate is not None:
             dgate_acc = torch.zeros((B * H, T if f32 else n_qt * 64), dtype=torch.float32,
                                     device=dev)

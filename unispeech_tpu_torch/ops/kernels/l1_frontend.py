@@ -19,8 +19,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
+from unispeech_tpu_torch.ops.fp32_conv import conv1d
 from unispeech_tpu_torch.ops.kernels import _build
 
 launches = 0  # forward kernel launches made by l1_conv_with_stats (bf16 and fp32)
@@ -49,7 +49,7 @@ def l1_conv_with_stats_plain(wav, kernel, stride: int, dtype=torch.bfloat16,
     check_geometry(k, stride)
     x = wav.to(dtype).float()[:, None, :]
     w = kernel.to(dtype).float().permute(2, 1, 0)  # (C, 1, k)
-    y = F.conv1d(x, w, stride=stride).transpose(1, 2).to(dtype).contiguous()
+    y = conv1d(x, w, stride=stride).transpose(1, 2).to(dtype).contiguous()
     if not with_stats:
         return y, None, None, y.shape[1]
     yf = y.float()

@@ -1,6 +1,6 @@
 """Time the attention backward kernel on the card at the pretraining shape.
 
-    python -m unispeech_tpu_torch.scripts.bench_attention_backward [--shape xlarge]
+    python -m unispeech_tpu_torch.scripts.bench_attention_backward [--shape xlarge] [--dtype fp32]
 
 One call of ``fused_attention_backward`` as WavLM-Base pretraining makes it
 (6 crops of 768 frames, 12 heads of 64, the gated relative-position bias,
@@ -9,6 +9,9 @@ four cases: full, without dropout, without the gated bias, without either.
 ``--shape xlarge``: as HuBERT X-Large fine-tuning makes it on the padded
 smoke batch (4 rows of 799 frames, 599/349/149 valid in three, 16 heads of
 80; its path runs the case without the bias).
+``--dtype fp32``: the same in fp32, the models' default dtype (the fp32
+kernel, ``csrc/flash_attention_bwd_f32.cu``), with each output's relative L2
+distance to the plain version.
 For each it prints ms per call by CUDA events around 20 calls queued behind
 a busy card (the wrapper's zero fills and casts included), and the device
 time of the backward kernel alone under ``torch.profiler``. Inputs come from seed 0, so two builds of the kernel can be
@@ -33,13 +36,16 @@ ITERS = 20
 NUM_BUCKETS, MAX_DISTANCE = 320, 800
 
 
-def inputs(dev: torch.device, shape: str = "pretrain"):
+DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+def inputs(dev: torch.device, shape: str = "pretrain", dtype: torch.dtype = torch.bfloat16):
     """(q, k, v, bias, gate, key padding, dropout seed, out, lse, dO) from seed 0."""
     B, T, H, HD, valid = SHAPES[shape]
     g = torch.Generator().manual_seed(0)
-    q, k, v = (torch.randn(B, T, H, HD, generator=g).to(dev, torch.bfloat16) for _ in range(3))
+    q, k, v = (torch.randn(B, T, H, HD, generator=g).to(dev, dtype) for _ in range(3))
     table = (torch.randn(NUM_BUCKETS, H, generator=g) * 0.5).to(dev)
-    bias = compute_rel_pos_bias(table, T, T, NUM_BUCKETS, MAX_DISTANCE, dtype=torch.bfloat16)
+    bias = compute_rel_pos_bias(table, T, T, NUM_BUCKETS, MAX_DISTANCE, dtype=dtype)
     gate = (torch.rand(B, H, T, generator=g) * 2 + 1).to(dev)
     frames = torch.tensor(valid, device=dev)
     kpm = torch.arange(T, device=dev)[None, :] >= frames[:, None]
@@ -47,7 +53,7 @@ def inputs(dev: torch.device, shape: str = "pretrain"):
     out, lse = flash_attention.fused_attention(q, k, v, bias=bias, gate=gate, key_padding_mask=kpm,
                                                dropout_rate=0.1, dropout_seed=seed,
                                                return_lse=True)
-    dout = (torch.randn(B, T, H, HD, generator=g) * 1e-2).to(dev, torch.bfloat16)
+    dout = (torch.randn(B, T, H, HD, generator=g) * 1e-2).to(dev, dtype)
     return q, k, v, bias, gate, kpm, seed, out, lse, dout
 
 
@@ -96,11 +102,14 @@ def main(argv=None) -> Dict[str, float]:
 
     p = argparse.ArgumentParser()
     p.add_argument("--shape", choices=sorted(SHAPES), default="pretrain")
+    p.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("bench_attention_backward needs a CUDA device")
     dev = torch.device("cuda")
-    q, k, v, bias, gate, kpm, seed, out, lse, dout = inputs(dev, args.shape)
+    f32 = args.dtype == "fp32"
+    kernel = "flash_bwd_f32" if f32 else "flash_bwd_kernel"
+    q, k, v, bias, gate, kpm, seed, out, lse, dout = inputs(dev, args.shape, DTYPES[args.dtype])
     cases = {"full": (bias, gate, 0.1, seed), "no_dropout": (bias, gate, 0.0, None),
              "no_bias": (None, None, 0.1, seed), "neither": (None, None, 0.0, None)}
     card = torch.cuda.get_device_name(dev).replace(" ", "_")
@@ -108,10 +117,17 @@ def main(argv=None) -> Dict[str, float]:
     for case, (bb, gg, rate, sd) in cases.items():
         fn = lambda: flash_attention.fused_attention_backward(  # noqa: E731
             q, k, v, bb, gg, kpm, None, rate, sd, out, lse, dout)
+        err = ""
+        if f32:  # each output's relative L2 distance to the plain version
+            want = flash_attention.fused_attention_backward_plain(
+                q, k, v, bb, gg, kpm, None, rate, sd, out, lse, dout)
+            err = " rel_l2=" + ",".join(
+                f"{float((x - y).norm() / y.norm()):.2e}"
+                for x, y in zip(fn(), want) if y is not None)
         call = queued_ms(fn, ITERS)
-        kern = kernel_ms(fn, ITERS)
-        print(f"{args.shape} {case:10s} call_ms={call:.4f} flash_bwd_kernel_ms={kern:.4f} "
-              f"{card}", flush=True)
+        kern = kernel_ms(fn, ITERS, kernel)
+        print(f"{args.shape} {args.dtype} {case:10s} call_ms={call:.4f} {kernel}_ms={kern:.4f}"
+              f"{err} {card}", flush=True)
         res[case] = kern
     return res
 
