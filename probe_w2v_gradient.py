@@ -1,6 +1,6 @@
 """Trace the frontend LayerNorm bias's gradient in chip_smoke.py's w2v_train gate.
 
-    python3 probe_w2v_gradient.py [--attempts N]
+    python3 probe_w2v_gradient.py [--attempts N] [--control N]
 
 Run from the repository root, beside ``chip_smoke.py``, whose phase it
 repeats; needs one CUDA device. The gate of ``w2v_train`` stacks, per
@@ -50,6 +50,18 @@ stage:
   with its plain backward, or its plain forward with the backward kernel:
   the gradient entering the frontend (block 7's dy) on the padded rows,
   and the bias's gradient, against the fp32 path.
+
+With ``--control N`` it runs N attempts of a control instead: after the
+phase's three kernel steps, each draw's gradients also go through two
+reordered plain paths, the plain path whose conv blocks' forward values
+come from one GEMM over the stride-2 windows of H (cuBLAS, in fp32 with
+TF32 off, or in bf16 on the tensor cores with fp32 sums), the same
+function and roundings as the plain version in another summation order,
+with the plain version's backward. It prints the gate's worst ratio and
+the bias's ratio for the kernel path and for each reordered path against
+the plain path, and for the plain path against the fp32-reordered one,
+and the share of conv block outputs (bf16) on the kernel path and each
+reordered path that differ from the plain version's.
 """
 
 from __future__ import annotations
@@ -430,9 +442,152 @@ def analyse(cs, dev, model, cfg, batch, step_no, seed):
           flush=True)
 
 
+# path -> [conv block outputs unlike the plain version's, outputs], per attempt
+REORDERED_UNEQUAL = {}
+
+
+@contextlib.contextmanager
+def reordered_frontend(variant: str):
+    """Plain ops everywhere, except that each conv block's forward values
+    (the layer_norm form: no output GELU) are computed as one GEMM of the
+    stride-2 windows of H (B t_out, k C) by the (k C, C) kernel: in fp32 by cuBLAS with TF32 off ("fp32") or in
+    bf16 on the tensor cores with fp32 sums and no reduced-precision
+    reduction ("bf16"), pre rounded to bf16 as the plain version rounds
+    it. The gradient flows through the plain version."""
+    from unispeech_tpu_torch.models import encoder
+    from unispeech_tpu_torch.ops.kernels import conv_stack, flash_attention, l1_frontend
+
+    def block(x, kernel, valid_len, gelu_in=False, gelu_out=True, affine=None):
+        if gelu_out:
+            # the plain block takes the output GELU of the fp32 sum, which a
+            # bf16 GEMM does not return; the layer_norm form has none
+            raise ValueError("the reordered block takes the layer_norm form (no output GELU)")
+        y_p, t_out = conv_stack.conv_gelu_block_plain(x, kernel, valid_len, gelu_in, gelu_out,
+                                                      affine)
+        with torch.no_grad():
+            _, h = conv_stack._block_input(x, valid_len, gelu_in, affine)
+            h = h.contiguous()
+            B, T, C = h.shape
+            k = kernel.shape[0]
+            win = h.as_strided((B, t_out, k * C), (T * C, 2 * C, 1)).reshape(-1, k * C)
+            w = conv_stack.gemm_weight(kernel.to(x.dtype))  # (C_out, k C_in)
+            if variant == "fp32":
+                pre = (win.float() @ w.float().t()).to(x.dtype)
+            else:
+                pre = win @ w.t()
+            y_r = pre.reshape(B, t_out, -1)
+            tally = REORDERED_UNEQUAL.setdefault(variant, [0, 0])
+            tally[0] += int((y_r != y_p).sum())
+            tally[1] += y_p.numel()
+        # forward value y_r exactly (a difference of two bf16 values and its
+        # sum are exact in fp32), gradient through the plain version
+        return (y_p.float() + (y_r.float() - y_p.float()).detach()).to(x.dtype), t_out
+
+    saved = (encoder.l1_conv_with_stats, encoder.conv_gelu_block, encoder.fused_attention,
+             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+    encoder.l1_conv_with_stats = l1_frontend.l1_conv_with_stats_plain
+    encoder.conv_gelu_block = block
+    encoder.fused_attention = flash_attention.fused_attention_plain
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        (encoder.l1_conv_with_stats, encoder.conv_gelu_block, encoder.fused_attention,
+         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction) = saved
+
+
+@contextlib.contextmanager
+def kernel_frontend_tallied():
+    """The kernel path, each conv block's forward values also compared with
+    the plain version's on the same inputs (REORDERED_UNEQUAL["kernel"])."""
+    from unispeech_tpu_torch.models import encoder
+    from unispeech_tpu_torch.ops.kernels import conv_stack
+
+    kernel_block = encoder.conv_gelu_block
+
+    def block(x, kernel, valid_len, gelu_in=False, gelu_out=True, affine=None):
+        y, t_out = kernel_block(x, kernel, valid_len, gelu_in, gelu_out, affine)
+        with torch.no_grad():
+            y_p, _ = conv_stack.conv_gelu_block_plain(x, kernel, valid_len, gelu_in, gelu_out,
+                                                      affine)
+            tally = REORDERED_UNEQUAL.setdefault("kernel", [0, 0])
+            tally[0] += int((y != y_p).sum())
+            tally[1] += y_p.numel()
+        return y, t_out
+
+    encoder.conv_gelu_block = block
+    try:
+        yield
+    finally:
+        encoder.conv_gelu_block = kernel_block
+
+
+def control_attempts(cs, dev, wav, lengths, attempts: int):
+    """The gate, per attempt, for the kernel path and the two reordered
+    plain paths against the plain path, and for the plain path against the
+    fp32-reordered one: the worst ratio over the tensors (the gate fails
+    above 1) and the bias tensor's, the codeword choices pinned to the
+    kernel path's for every path."""
+    from unispeech_tpu_torch.train.optim import OptimConfig
+    from unispeech_tpu_torch.train.state import create_train_state, make_train_step
+
+    pairs = (("kernel", "plain"), ("fp32", "plain"), ("bf16", "plain"), ("plain", "fp32"))
+    fails = {p: 0 for p in pairs}
+    for a in range(attempts):
+        t0 = time.perf_counter()
+        cfg, model, batch, loss_fn, gen = cs.contrastive_setup(dev, "w2v_train", wav, lengths)
+        state = create_train_state(model, OptimConfig(lr=5e-4, warmup_steps=100,
+                                                      total_steps=1000), device=dev)
+        step = make_train_step(loss_fn)
+        for _ in range(3):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+        model32 = type(model)(cfg).to(dev)
+        model32.load_state_dict(model.state_dict())
+        names = [n for n, _ in model.named_parameters()]
+        jb = names.index(BIAS)
+        per_draw = {p: [] for p in pairs}
+        for d in range(cs.GRAD_DRAWS):
+            seed = cs.SEED + 24 + d
+            picks, flips = [], []
+            g = {}
+            with cs.pinned_codewords(picks, flips), kernel_frontend_tallied():
+                g["kernel"] = cs.contrastive_grads(model, True, batch, state.step, seed)
+            with cs.pinned_codewords(picks, flips), cs.plain_ops():
+                g["plain"] = cs.contrastive_grads(model, True, batch, state.step, seed)
+            for variant in ("fp32", "bf16"):
+                with cs.pinned_codewords(picks, flips), reordered_frontend(variant):
+                    g[variant] = cs.contrastive_grads(model, True, batch, state.step, seed)
+            with cs.pinned_codewords(picks, flips), cs.plain_ops():
+                g32 = cs.contrastive_grads(model32, True, batch, state.step, seed)
+            for pa, pb in pairs:
+                per_draw[(pa, pb)].append(torch.stack([
+                    torch.stack([((x - y) ** 2).sum(), (y * y).sum(), ((x - c) ** 2).sum(),
+                                 ((y - c) ** 2).sum()])
+                    for x, y, c in zip(g[pa], g[pb], g32)], 1).double().cpu())
+            del g, g32
+        del model, model32, state
+        parts = []
+        for p in pairs:
+            worst, _ = cs.contrastive_worst(per_draw[p], names)
+            bias = next(w for w in worst if w[-1] == jb)
+            fails[p] += worst[0][0] > 1.0
+            parts.append(f"{p[0]}_vs_{p[1]}=(worst {worst[0][0]:.3f} {worst[0][2]}, "
+                         f"bias {bias[0]:.3f}, bias_error_ratio {bias[4] / max(bias[5], 1e-30):.3f})")
+        unequal = " ".join(f"{v}_unequal={n / max(m, 1):.3g}"
+                           for v, (n, m) in REORDERED_UNEQUAL.items())
+        REORDERED_UNEQUAL.clear()
+        print(f"[control] attempt={a} seconds={time.perf_counter() - t0:.1f} {unequal} "
+              + " ".join(parts), flush=True)
+    print("[control] gate_failures " + " ".join(
+        f"{pa}_vs_{pb}={n}/{attempts}" for (pa, pb), n in fails.items()), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--attempts", type=int, default=6)
+    ap.add_argument("--control", type=int, default=0,
+                    help="run this many attempts of the reordered-plain control instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("probe_w2v_gradient needs a CUDA device")
@@ -444,6 +599,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     print(torch.cuda.get_device_name(0), flush=True)
     wav, lengths = cs.smoke_batch(dev)
+    if args.control:
+        control_attempts(cs, dev, wav, lengths, args.control)
+        return 0
     keep = None
     for a in range(args.attempts):
         t0 = time.perf_counter()

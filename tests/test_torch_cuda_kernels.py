@@ -820,6 +820,62 @@ def test_conv_block_fp32_edges(dev, k, B, T, valid, C, gelu_in, affine, gelu_out
     the output GELU, the H pass with the affine or the input GELU, dx, dW)
     and matches the plain backward: dx as the products, dW / da / db within
     1e-5 of the sum of |terms|."""
+    _check_conv_block_fp32(dev, k, B, T, valid, C, gelu_in, affine, gelu_out)
+
+
+def _dw_split_crosses(dev, B, t_out, C, k):
+    """Whether a split of the fp32 dW kernel's plan on this card holds steps
+    of two utterances."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per, splits = conv_stack.dw_split_plan(B, t_out, C, k, sms)
+    nkb = -(-t_out // conv_stack.DW_STEP_ROWS)
+    return any(len({s // nkb for s in range(i * per, min((i + 1) * per, B * nkb))}) > 1
+               for i in range(splits))
+
+
+FEW_ROWS = 8  # valid rows under which da/db are held as products (every case above has more)
+
+# the fp32 GEMMs' tiling edges (128 x 128 tiles; dx both parities per block;
+# dW split-K over (utterance, 32-row) steps): (k, B, T, valid, C)
+FP32_TILING_CASES = {
+    "bt_below_64": (3, 2, 40, 40, 128),          # B t_out = 38: one partial tile, one dW step each
+    "t_out_1": (3, 2, 3, 3, 256),                # a single output row; dx's rows 0-2 from one g row
+    "t_out_1_k2": (2, 3, 2, 2, 128),
+    "c384": (3, 2, 300, 300, 384),               # three channel tiles, no 256-wide one
+    "k2_parity0_one_tap": (2, 2, 600, 597, 512),
+    "valid_odd_last_even_row": (3, 2, 301, 299, 256),  # row valid - 1 = 298 of parity 0
+    "k2_valid_odd": (2, 3, 130, 129, 128),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FP32_TILING_CASES))
+@pytest.mark.parametrize("gelu_in,affine,gelu_out", [
+    (True, True, True), (False, False, True), (True, False, False)])
+def test_conv_fp32_tiling_edges(dev, case, gelu_in, affine, gelu_out):
+    """The redesigned fp32 GEMMs at their tiling's edges, in the block's
+    three forms, to the gates and launch counts of the edge cases above.
+    The backward takes the plain forward's pre, as its plain version does:
+    over a few rows (t_out = 1) the sum rule cannot absorb g's response to
+    pre's last bits near gelu''s zero (a 1e-6 relative change of pre moves
+    dW by ~1e-4 of the sum of |terms| there)."""
+    k, B, T, valid, C = FP32_TILING_CASES[case]
+    _check_conv_block_fp32(dev, k, B, T, valid, C, gelu_in, affine, gelu_out, same_pre=True)
+
+
+@pytest.mark.parametrize("k,first", [(3, True), (2, False)])
+def test_conv_fp32_dw_split_across_utterances(dev, k, first):
+    """A dW split whose steps run from one utterance into the next (the
+    card's own plan; the shape is the first of a few whose plan does)."""
+    B, C = 3, 128
+    T = next(t for t in range(1000, 4000, 37)
+             if _dw_split_crosses(dev, B, (t - 1 - k) // 2 + 1, C, k))
+    _check_conv_block_fp32(dev, k, B, T, T - 1, C, first, first, True, same_pre=True)
+
+
+def _check_conv_block_fp32(dev, k, B, T, valid, C, gelu_in, affine, gelu_out, same_pre=False):
+    """The forward against the plain forward; the backward through autograd
+    (from the kernel's own pre) or, with ``same_pre``, called on the plain
+    forward's pre, against the plain backward from that pre."""
     g = torch.Generator().manual_seed(T * 10 + k + C)
     x = torch.randn(B, T, C, generator=g).to(dev)
     w = (torch.randn(k, C, C, generator=g) * (2.0 / (k * C)) ** 0.5).to(dev)
@@ -833,22 +889,36 @@ def test_conv_block_fp32_edges(dev, k, B, T, valid, C, gelu_in, affine, gelu_out
     assert t == pt == (valid - k) // 2 + 1
     _close_f32(y, py)
     _close_f32(pre, ppre)
-    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
-    abg = None if ab is None else tuple(t.clone().requires_grad_() for t in ab)
-    yg, t_out = conv_stack.conv_gelu_block(xg, wg, valid, gelu_in, gelu_out, abg)
-    dy = torch.randn(B, t_out, C, generator=g).to(dev)
-    before = conv_stack.backward_launches
-    yg.backward(dy)
+    dy = torch.randn(B, t, C, generator=g).to(dev)
+    if same_pre:
+        before = conv_stack.backward_launches
+        dx, dw, da, db = conv_stack.conv_gelu_block_backward(x, w, valid, gelu_in, gelu_out, ab,
+                                                             dy, ppre)
+    else:
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        abg = None if ab is None else tuple(t.clone().requires_grad_() for t in ab)
+        yg, _ = conv_stack.conv_gelu_block(xg, wg, valid, gelu_in, gelu_out, abg)
+        before = conv_stack.backward_launches
+        yg.backward(dy)
+        dx, dw = xg.grad, wg.grad
+        da, db = (None, None) if ab is None else (abg[0].grad, abg[1].grad)
     assert conv_stack.backward_launches == before + 2 + gelu_out + (gelu_in or affine)
     want = conv_stack.conv_gelu_block_backward_plain(x, w, valid, gelu_in, gelu_out, ab, dy,
                                                      ppre)
-    _close_f32(xg.grad, want[0])
-    assert (xg.grad[:, valid:] == 0).all()
+    _close_f32(dx, want[0])
+    assert (dx[:, valid:] == 0).all()
     terms = conv_terms(x, w, valid, gelu_in, gelu_out, ab, dy, ppre, want[0])
-    _sum_close(wg.grad, want[1], terms[0])
-    if affine:
-        _sum_close(abg[0].grad, want[2], terms[1])
-        _sum_close(abg[1].grad, want[3], terms[2])
+    _sum_close(dw, want[1], terms[0])
+    if affine and valid < FEW_ROWS:
+        # da/db over so few rows are products, as dx: the sum rule counts dX^
+        # as exact, and one element of it can cancel many-fold in its own sum
+        # over the output channels (t_out = 1, k = 2 read 2.6e-5 of the
+        # rule's |terms|)
+        _close_f32(da, want[2])
+        _close_f32(db, want[3])
+    elif affine:
+        _sum_close(da, want[2], terms[1])
+        _sum_close(db, want[3], terms[2])
 
 
 @pytest.mark.parametrize("parts", [conv_stack.BWD_DX, conv_stack.BWD_DW])

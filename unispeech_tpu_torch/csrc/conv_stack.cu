@@ -20,13 +20,22 @@
 //    even row t, tap 1 odd row t, tap 2 even row t + 1, so every tap of a
 //    128-row tile is one plain 128 x 64 box; rows past the input load as
 //    zeros, and nothing is stored past t_out;
-//  - one block per 128 x 256 output tile: a producer warp keeps TMA loads
-//    of 64-deep K steps (A 128 x 64 of the input, B 256 x 64 of the weight
+//  - one block per 128 x 128 output tile: a producer warp keeps TMA loads
+//    of 64-deep K steps (A 128 x 64 of the input, B 128 x 64 of the weight
 //    transposed to (C_out, k * C_in), both 128-byte swizzled) in a 4-stage
 //    ring on mbarriers; two consumer warpgroups (setmaxnreg 232) each run
-//    wgmma.m64n256k16 on 64 of the rows with fp32 accumulators in
-//    registers, one wgmma group in flight while the previous stage is
-//    released to the producer;
+//    wgmma.m64n128k16 on 64 of the rows. Each K step's four products go
+//    into a fresh fp32 sum in registers (the first wgmma overwrites it),
+//    which one fp32 add per element puts into the running sum once the
+//    step's group is done and its stage released. The tensor cores' fp32
+//    accumulation truncates: a sum kept in them over all of K = 1536 (as
+//    cuBLAS's bf16 GEMM keeps it) rounds pre otherwise than the plain
+//    version's fp32 sum in 0.06-0.10% of elements, and that moves the
+//    UniSpeech frontend's gradient on padded rows, where LayerNorms of
+//    near-zero variance amplify it; with a fresh sum per step 0.016-0.021%
+//    (an fp32 GEMM in another order: 0.020-0.032%; probe_w2v_gradient.py
+//    --control). A running and a fresh 64 x 128 sum are 128 registers a
+//    thread, so a block holds 128 x 128;
 //  - the epilogue applies the output GELU (exact erf, fp32) to the
 //    accumulators and stores bf16 pairs, and pre when asked.
 //
@@ -42,11 +51,13 @@
 // kernel's polynomial. Bound on the H100: operations; at the pretraining
 // batch (6 x 245,840 samples) dx and dW of the six blocks are 899 GFLOP,
 // 0.909 ms at the bf16 tensor-core peak of 989 TFLOP/s. Design (Hopper),
-// in four launches; both GEMMs have the forward GEMM's shape (a producer
-// warp keeping TMA loads in a 4-stage mbarrier ring, two consumer
-// warpgroups on wgmma.m64n256k16 with 128 fp32 accumulators each under
-// setmaxnreg 232, 128 x 256 tiles, one block per SM), except the first
-// block's dx (below):
+// in four launches; both GEMMs are a producer warp keeping TMA loads in a
+// 4-stage mbarrier ring and two consumer warpgroups on wgmma.m64n256k16
+// with 128 fp32 accumulators each under setmaxnreg 232 (128 x 256 tiles,
+// one block per SM), except the first block's dx (below). Their sums stay
+// in the tensor cores over K: dx and dW are as close to fp64 as the plain
+// backward at every block of the UniSpeech frontend
+// (probe_w2v_gradient.py):
 //   conv_bwd_g_kernel   g (elementwise, 16-byte vectors; skipped without
 //                       the output GELU, where g is dy itself)
 //   conv_h_kernel       H (elementwise; only with affine or gelu_in, i.e.
@@ -112,6 +123,10 @@ constexpr uint32_t kFABytes = kFM * kFK * 2;  // 16 KB
 constexpr uint32_t kFBBytes = kFN * kFK * 2;  // 32 KB
 constexpr uint32_t kBox = 64 * 128;           // one 64 x 64 bf16 (or 64 x 32 fp32) box
 constexpr size_t kFSmem = 1024 + (size_t)kFStages * (kFABytes + kFBBytes) + 2 * kFStages * 8;
+// the forward GEMM's tile: 128 rows x 128 columns, a fresh sum per K step
+constexpr int kGN = 128;
+constexpr uint32_t kGBBytes = kGN * kFK * 2;  // 16 KB
+constexpr size_t kGSmem = 1024 + (size_t)kFStages * (kFABytes + kGBBytes) + 2 * kFStages * 8;
 
 // ------------------------------------------------------------------ backward
 
@@ -642,11 +657,11 @@ __global__ void __launch_bounds__(kFThreads, 1) conv_gemm_kernel(
     unsigned char* smem = reinterpret_cast<unsigned char*>(
         (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
     unsigned char* sA = smem;                             // [stage][128 rows][128 B]
-    unsigned char* sB = smem + kFStages * kFABytes;       // [stage][256 rows][128 B]
-    uint64_t* full = reinterpret_cast<uint64_t*>(sB + kFStages * kFBBytes);
+    unsigned char* sB = smem + kFStages * kFABytes;       // [stage][128 rows][128 B]
+    uint64_t* full = reinterpret_cast<uint64_t*>(sB + kFStages * kGBBytes);
     uint64_t* empty = full + kFStages;
 
-    const int n0 = blockIdx.x * kFN, m0 = blockIdx.y * kFM, b = blockIdx.z;
+    const int n0 = blockIdx.x * kGN, m0 = blockIdx.y * kFM, b = blockIdx.z;
     const int nk = k * C / kFK;
     const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
     if (threadIdx.x == 0) {
@@ -664,37 +679,40 @@ __global__ void __launch_bounds__(kFThreads, 1) conv_gemm_kernel(
             for (int ks = 0; ks < nk; ++ks) {
                 const int s = ks % kFStages;
                 usk::mbar_wait(&empty[s], ((ks / kFStages) & 1) ^ 1);
-                usk::mbar_expect_tx(&full[s], kFABytes + kFBBytes);
+                usk::mbar_expect_tx(&full[s], kFABytes + kGBBytes);
                 const int kk = ks * kFK, tap = kk / C, c0 = kk % C;
                 // tap 0: even row t, tap 1: odd row t, tap 2: even row t + 1
                 usk::tma_load_3d(sA + s * kFABytes, tap == 1 ? &maps.odd : &maps.even, &full[s],
                                  c0, m0 + (tap >> 1), b);
-                usk::tma_load_2d(sB + s * kFBBytes, &maps.w, &full[s], kk, n0);
+                usk::tma_load_2d(sB + s * kGBBytes, &maps.w, &full[s], kk, n0);
             }
         }
     } else {  // consumers: rows m0 + 64 * wg ...
         usk::reg_alloc<232>();
-        float acc[kFN / 2];
+        // each K step's 64-deep products go into a fresh sum that one fp32
+        // add puts into the running sum (see the header)
+        float acc[kGN / 2], fresh[kGN / 2];
 #pragma unroll
-        for (int i = 0; i < kFN / 2; ++i) acc[i] = 0.f;
+        for (int i = 0; i < kGN / 2; ++i) acc[i] = fresh[i] = 0.f;
         for (int ks = 0; ks < nk; ++ks) {
             const int s = ks % kFStages;
             usk::mbar_wait(&full[s], (ks / kFStages) & 1);
             const unsigned char* a = sA + s * kFABytes + wg * 64 * 128;
-            const unsigned char* bt = sB + s * kFBBytes;
-            usk::fence_regs(acc);
+            const unsigned char* bt = sB + s * kGBBytes;
+            usk::fence_regs(fresh);
             usk::wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < kFK / 16; ++kk)
-                usk::wgmma_m64n256k16_ss<0, 0>(acc, usk::desc_sw128(a + kk * 32, 16, 1024),
-                                               usk::desc_sw128(bt + kk * 32, 16, 1024));
+                usk::wgmma_m64n128k16_ss<0, 0>(fresh, usk::desc_sw128(a + kk * 32, 16, 1024),
+                                               usk::desc_sw128(bt + kk * 32, 16, 1024),
+                                               kk > 0 ? 1 : 0);
             usk::wgmma_commit();
-            usk::wgmma_wait<1>();  // the previous step's products are done
-            usk::fence_regs(acc);
-            if (ks > 0 && tid == 0) usk::mbar_arrive(&empty[(ks - 1) % kFStages]);
+            usk::wgmma_wait<0>();
+            usk::fence_regs(fresh);
+            if (tid == 0) usk::mbar_arrive(&empty[s]);
+#pragma unroll
+            for (int i = 0; i < kGN / 2; ++i) acc[i] = __fadd_rn(acc[i], fresh[i]);
         }
-        usk::wgmma_wait<0>();
-        usk::fence_regs(acc);
 
         // epilogue: rows r / r + 8 of this warp's 16, column pairs of each
         // 8-wide slice j
@@ -706,7 +724,7 @@ __global__ void __launch_bounds__(kFThreads, 1) conv_gemm_kernel(
             if (t >= t_out) continue;
             const size_t row = ((size_t)b * t_out + t) * C;
 #pragma unroll
-            for (int j = 0; j < kFN / 8; ++j) {
+            for (int j = 0; j < kGN / 8; ++j) {
                 const int n = n0 + j * 8 + c2;
                 if (n >= C) continue;
                 float v0 = acc[4 * j + 2 * e], v1 = acc[4 * j + 2 * e + 1];
@@ -728,18 +746,18 @@ cudaError_t launch_conv_gemm(const void* src, const void* w_t, void* y, void* pr
     ConvMaps maps;
     const uint64_t w_dims[2] = {(uint64_t)k * C, (uint64_t)C};
     const uint64_t w_strides[1] = {(uint64_t)k * C * 2};
-    const uint32_t w_box[2] = {kFK, kFN};
+    const uint32_t w_box[2] = {kFK, kGN};
     if (!parity_maps(&maps.even, &maps.odd, src, B, ts, C, kFM) ||
         !usk::make_tensor_map(&maps.w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w_t, w_dims,
                               w_strides, w_box, CU_TENSOR_MAP_SWIZZLE_128B))
         return cudaErrorInvalidValue;
     auto kernel = gelu_out ? conv_gemm_kernel<true> : conv_gemm_kernel<false>;
     const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFSmem);
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kGSmem);
     if (err != cudaSuccess) return err;
     // channel tiles fastest: the tiles sharing an A row block run together
-    const dim3 grid((C + kFN - 1) / kFN, (t_out + kFM - 1) / kFM, B);
-    kernel<<<grid, kFThreads, kFSmem, stream>>>(maps, (__nv_bfloat16*)y, (__nv_bfloat16*)pre,
+    const dim3 grid((C + kGN - 1) / kGN, (t_out + kFM - 1) / kFM, B);
+    kernel<<<grid, kFThreads, kGSmem, stream>>>(maps, (__nv_bfloat16*)y, (__nv_bfloat16*)pre,
                                                 t_out, C, k);
     return cudaGetLastError();
 }

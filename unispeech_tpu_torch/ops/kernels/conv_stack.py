@@ -7,8 +7,11 @@ its backward (dx, dW, da, db from the saved bf16 pre-activation). GELU and
 its derivative are exact erf (the TPU kernel's polynomials exist only
 because Mosaic has no erf). CUDA tensors go to the kernels in
 ``csrc/conv_stack.cu`` (bf16) and ``csrc/conv_stack_f32.cu`` (fp32, both
-directions: the GEMMs as 3xTF32 tensor-core products, so fp32 to a few
-ulps); CPU tensors to the plain versions below.
+directions: the GEMMs as 3xTF32 products on TF32 ``wgmma``, each operand
+split into TF32 hi and lo once per tile, so fp32 to a few ulps); CPU
+tensors to the plain versions below. ``gemm_weight`` and ``dw_split_plan``
+give the forward's weight layout and the dW kernel's split of the rows,
+which the CPU tests hold against the plain versions.
 """
 
 from __future__ import annotations
@@ -28,9 +31,10 @@ backward_launches = 0  # backward kernel launches made by conv_gelu_block_backwa
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURE = [_P] * 7 + [_I] * 8 + [_P]
 _BWD_SIGNATURE = [_P] * 12 + [_I] * 8 + [_P]
-_BWD_ENTRIES = {torch.bfloat16: "usk_conv_gelu_block_bwd",
-                torch.float32: "usk_conv_gelu_block_bwd_f32"}
+_BWD_F32_SIGNATURE = [_P] * 12 + [_I] * 9 + [_P]  # and the dW split's steps
 BWD_DX, BWD_DW = 1, 2  # the backward's two GEMMs, as bits of ``parts``
+DW_STEP_ROWS = 32  # rows of one K step of the fp32 dW kernel (inside one utterance)
+TILE = 128  # the fp32 GEMMs' tile: 128 rows x 128 channels per block, one per SM
 
 Affine = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -120,6 +124,34 @@ def conv_gelu_block_backward_plain(x, kernel, valid_len: int, gelu_in: bool,
     return dx, dw, da, db
 
 
+def gemm_weight(kernel: torch.Tensor) -> torch.Tensor:
+    """The forward GEMM's right operand: the (k, C_in, C_out) kernel as
+    (C_out, k * C_in), row n = W[:, :, n] flattened, contiguous. Both
+    dtypes' forward kernels read it K-major (TF32 ``wgmma`` takes a
+    shared-memory operand in no other layout)."""
+    k, cin, cout = kernel.shape
+    return kernel.reshape(k * cin, cout).t().contiguous()
+
+
+def dw_split_plan(B: int, t_out: int, C: int, k: int, sms: int) -> Tuple[int, int]:
+    """(steps per split, splits) of the fp32 dW kernel's split-K: the B *
+    ceil(t_out / 32) steps (32 rows inside one utterance each) go to
+    ``splits`` blocks per (tap, 128 x 128) tile, consecutive steps each, the
+    count chosen among one to four waves of ``sms`` blocks for the fullest
+    last wave (the fewest waves among equals)."""
+    steps = B * -(-t_out // DW_STEP_ROWS)
+    tiles = k * (C // TILE) ** 2
+    best = None
+    for waves in range(1, 5):
+        per = -(-steps // max(1, min(steps, waves * sms // tiles)))
+        splits = -(-steps // per)
+        blocks = tiles * splits
+        fill = blocks / (-(-blocks // sms) * sms)
+        if best is None or fill > best[0] + 0.02:
+            best = (fill, per, splits)
+    return best[1], best[2]
+
+
 def _check_cuda(x, kernel, valid_len, affine):
     """Raise for CUDA inputs the kernels do not take; returns the geometry,
     the kernel in x's dtype and the fp32 affine."""
@@ -153,15 +185,12 @@ def _forward(x, kernel, valid_len, gelu_in, gelu_out, affine, want_pre):
         return y, t_out, pre if want_pre else None
     B, ts, C, t_out, w, ab = _check_cuda(x, kernel, valid_len, affine)
     k = kernel.shape[0]
+    w = gemm_weight(w)
+    entry = "usk_conv_gelu_block"
     if x.dtype == torch.float32:
-        # the fp32 GEMM reads the (k C_in, C_out) kernel as it lies, and x
-        # (or H) and W by 16-byte copies
+        # the fp32 loaders read x (or H) by TMA and W by 16-byte loads
         entry = "usk_conv_gelu_block_f32"
-        x, w = (t.clone() if t.data_ptr() % 16 else t for t in (x, w))
-    else:
-        # the bf16 GEMM's B operand K-major: (C_out, k * C_in), row n = W[:, :, n]
-        entry = "usk_conv_gelu_block"
-        w = w.reshape(k * C, C).t().contiguous()
+        x = x.clone() if x.data_ptr() % 16 else x
     y = torch.empty((B, t_out, C), dtype=x.dtype, device=x.device)
     pre = torch.empty_like(y) if want_pre else None
     # H = gelu_in?(x * a + b) of the valid rows, written once by an
@@ -231,12 +260,18 @@ def backward_parts(x, kernel, valid_len: int, gelu_in: bool, gelu_out: bool, aff
         da = torch.zeros((B, C), dtype=torch.float32, device=dev)
         db = torch.zeros((B, C), dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    fn = _build.function(_BWD_ENTRIES[x.dtype], _BWD_SIGNATURE)
+    if x.dtype == torch.float32:
+        fn = _build.function("usk_conv_gelu_block_bwd_f32", _BWD_F32_SIGNATURE)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        extra = (dw_split_plan(B, t_out, C, k, sms)[0],)
+    else:
+        fn = _build.function("usk_conv_gelu_block_bwd", _BWD_SIGNATURE)
+        extra = ()
     _build.launch(fn, "conv_gelu_block_backward", dev, x.data_ptr(), w.data_ptr(),
                   ptr(None if ab is None else ab[0]), ptr(None if ab is None else ab[1]),
                   dy.data_ptr(), ptr(pre if gelu_out else None), ptr(g_buf), ptr(h_buf),
                   dx.data_ptr(), dw.data_ptr(), ptr(da), ptr(db), B, ts, valid_len, t_out,
-                  C, k, int(gelu_in), parts, _build.stream(x))
+                  C, k, int(gelu_in), parts, *extra, _build.stream(x))
     # dx and dW, after the g pass (output GELU) and the H pass where they run
     backward_launches += (bool(parts & BWD_DX) + bool(parts & BWD_DW) + (g_buf is not None)
                           + (h_buf is not None))
