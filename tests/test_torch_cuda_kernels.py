@@ -1131,15 +1131,60 @@ def test_attention_backward_fp32_dk_dv_deterministic(dev, hd, case):
     assert torch.isfinite(first[1]).all() and torch.isfinite(first[2]).all()
 
 
-@pytest.mark.parametrize("B,t1,C", [(1, 79, 512), (3, 999, 64), (2, 9600, 512), (2, 97, 512),
-                                    (1, 1000, 1024), (2, 333, 192)])
+# (B, t1, C) for the fp32 backward (l1_frontend.bwd_f32_plan: R = 16 rows
+# per tile at C = 512, 128 at C = 64, 40 at C = 192, 8 at C = 1024): fewer
+# tiles than blocks (1 x 79 rows: 5 tiles); more tiles than blocks, so the
+# persistent blocks walk several utterances and refill the ring (2 x 9600 at
+# C = 512: 1,200 tiles; 6 x 4097 at C = 1024; 3 x 9601 at C = 64); t1 one
+# row before, on and after a tile's end (a tile cut by t1 copies its rows
+# < t1 alone, and a thread whose rows all lie past t1 skips the tile)
+L1_BWD_F32_SHAPES = [(1, 79, 512), (3, 999, 64), (2, 9600, 512), (2, 97, 512), (1, 1000, 1024),
+                     (2, 333, 192), (6, 4097, 1024), (3, 9601, 64), (2, 15, 512), (2, 16, 512),
+                     (2, 17, 512), (1, 127, 64), (1, 129, 64), (2, 7, 1024), (2, 9, 1024)]
+
+
+@pytest.mark.parametrize("B,t1,C", L1_BWD_F32_SHAPES)
 @pytest.mark.parametrize("k,stride", [(10, 5), (8, 4)])
 @pytest.mark.parametrize("stats", [True, False])
 def test_l1_backward_fp32_edges(dev, B, t1, C, k, stride, stats):
     """The fp32 L1 backward, with and without the sums' cotangents, against
     the plain version: one launch, dW within 1e-5 of the sum of |terms|."""
+    _check_l1_backward_fp32(dev, B, t1, C, k, stride, stats, t1 % stride)
+
+
+@pytest.mark.parametrize("extra", [0, 1, 2, 3])
+@pytest.mark.parametrize("B,t1,C", [(3, 97, 512), (3, 1000, 64), (4, 333, 192)])
+@pytest.mark.parametrize("k,stride", [(10, 5), (8, 4)])
+@pytest.mark.parametrize("stats", [True, False])
+def test_l1_backward_fp32_window_offsets(dev, B, t1, C, k, stride, stats, extra):
+    """Utterances of (t1 - 1) stride + k + extra samples: with ns % 4 != 0
+    the utterances after the first start off a 16-byte boundary, so the
+    kernel takes each tile's samples from the boundary before its first."""
+    _check_l1_backward_fp32(dev, B, t1, C, k, stride, stats, extra)
+
+
+def test_l1_backward_fp32_unaligned_views(dev):
+    """A waveform and a dy that start 4 bytes into their buffers, and sums
+    8 bytes in: the fp32 kernel reads the waveform by TMA, dy by bulk
+    copies and the sums as float4, all of which need 16-byte alignment."""
+    g = torch.Generator().manual_seed(8)
+    B, t1, C, k, s = 2, 97, 512, 10, 5
+    ns = (t1 - 1) * s + k + 1
+    wav = (torch.randn(B * ns + 1, generator=g) * 0.1).to(dev)[1:].view(B, ns)
+    dy = torch.randn(B * t1 * C + 1, generator=g).to(dev)[1:].view(B, t1, C)
+    w = (torch.randn(k, 1, C, generator=g) * 0.4).to(dev)
+    ds1 = (torch.randn(B * C + 2, generator=g) * 1e-2).to(dev)[2:].view(B, C)
+    ds2 = (torch.randn(B * C + 2, generator=g) * 1e-2).to(dev)[2:].view(B, C)
+    assert wav.data_ptr() % 16 and dy.data_ptr() % 16 and ds1.data_ptr() % 16
+    for sums in ((ds1, ds2), (None, None)):
+        got = l1_frontend.l1_conv_backward(wav, w, s, dy, *sums, dtype=torch.float32)
+        want = l1_frontend.l1_conv_backward_plain(wav, w, s, dy, *sums, torch.float32)
+        _sum_close(got, want, l1_terms(wav, w, s, dy, *sums))
+
+
+def _check_l1_backward_fp32(dev, B, t1, C, k, stride, stats, extra):
     g = torch.Generator().manual_seed(t1 + k + 5)
-    ns = (t1 - 1) * stride + k + t1 % stride
+    ns = (t1 - 1) * stride + k + extra
     wav = (torch.randn(B, ns, generator=g) * 0.1).to(dev)
     w = (torch.randn(k, 1, C, generator=g) * 0.4).to(dev)
     dy = torch.randn(B, t1, C, generator=g).to(dev)

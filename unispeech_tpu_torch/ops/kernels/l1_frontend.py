@@ -11,12 +11,18 @@ waveform layout by persistent blocks; the forward writes y1 with streaming
 stores, the backward reads dy by TMA); CPU tensors to the plain versions
 below. ``dtype`` is bf16 or fp32 (the models' default): fp32 launches the
 fp32 kernels of ``csrc/l1_frontend_f32.cu`` in both directions (CUDA-core
-FMAs, nothing rounded).
+FMAs, nothing rounded). The fp32 backward is bound by its read of dy: one
+persistent block per SM walks (utterance, R-row) tiles, a producer thread
+brings each tile's dy (one bulk copy) and samples (TMA boxes) into an
+mbarrier ring, and eight consumer warps keep the dW partial sums in
+registers until one reduction per block; ``bwd_f32_plan`` gives its tiles,
+ring and grid, which the CPU tests hold.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -29,6 +35,51 @@ backward_launches = 0  # backward kernel launches made by l1_conv_backward
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _BWD_SIGNATURE = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_BWD_F32_SIGNATURE = _BWD_SIGNATURE[:-1] + [_I, _I, _I, _I, _P]
+
+# the fp32 backward kernel's constants (csrc/l1_frontend_f32.cu)
+BWD_F32_WARPS = 8  # consumer warps; a thread owns 4 channels
+BWD_F32_ROWS = 8  # consecutive rows of a thread per tile
+BWD_F32_STAGES = 4  # ring stages at most
+BWD_F32_X_BOX = 128  # fp32 samples per TMA box of the waveform
+SMEM_BLOCK_MAX = 232_448  # dynamic shared memory a block may take (227 KB)
+SMEM_SM = 233_472  # shared memory of an SM, 1 KB of it reserved per block
+
+
+class BwdF32Plan(NamedTuple):
+    """The fp32 backward kernel's launch: tiles of ``rows`` rows of one
+    utterance (``tiles_per_b`` per utterance), each a ring stage of
+    ``stage_bytes`` (its dy, then ``x_boxes`` boxes of samples), ``stages``
+    of them, ``smem`` bytes with the barriers and the 1024-byte alignment,
+    ``grid`` persistent blocks."""
+    rows: int
+    x_boxes: int
+    stage_bytes: int
+    stages: int
+    smem: int
+    tiles_per_b: int
+    grid: int
+
+
+def bwd_f32_plan(B: int, t1: int, C: int, k: int, stride: int, sms: int) -> BwdF32Plan:
+    """The fp32 L1 backward's tiles, ring and grid for ``sms`` SMs. The
+    256 consumer threads own 4 channels each: C / 4 threads per row lane,
+    as many row lanes as fit, each BWD_F32_ROWS consecutive rows of a tile,
+    so R = BWD_F32_ROWS x 1024 // C rows (~32 KB of dy). A stage's samples
+    start at the 16-byte boundary at or before the tile's first (up to 3
+    more). As many stages as fit, at most four (six read no faster); one
+    block per SM (the ring takes over half of its shared memory), never
+    more blocks than tiles."""
+    lanes = 32 * BWD_F32_WARPS // (C // 4)
+    rows = lanes * BWD_F32_ROWS
+    x_boxes = -(-(stride * rows + k - stride + 3) // BWD_F32_X_BOX)
+    stage_bytes = -(-(rows * C * 4 + x_boxes * BWD_F32_X_BOX * 4) // 1024) * 1024
+    stages = min(BWD_F32_STAGES, (SMEM_BLOCK_MAX - 1024) // (stage_bytes + 16))
+    smem = stages * stage_bytes + 16 * stages + 1024
+    tiles_per_b = -(-t1 // rows)
+    resident = SMEM_SM // (smem + 1024)
+    return BwdF32Plan(rows, x_boxes, stage_bytes, stages, smem, tiles_per_b,
+                      min(B * tiles_per_b, sms * resident))
 
 
 def check_geometry(kernel_size: int, stride: int) -> None:
@@ -143,8 +194,8 @@ def l1_conv_backward(wav, kernel, stride: int, dy, ds1=None, ds2=None,
     B, NS, t1, k, C, w = _check_backward(wav, kernel, stride, dy, dtype)
     req = _build.require
     dy = dy.contiguous()
-    # the bf16 kernel reads dy and the waveform by TMA, the fp32 one dy and
-    # the taps as float4: 16-byte aligned
+    # both kernels read dy and the waveform by bulk copies or TMA, the fp32
+    # one the taps and the sums as float4: 16-byte aligned
     dy = dy.clone() if dy.data_ptr() % 16 else dy
     wav = wav.clone() if wav.data_ptr() % 16 else wav
     sums = []
@@ -155,12 +206,18 @@ def l1_conv_backward(wav, kernel, stride: int, dy, ds1=None, ds2=None,
             req(t.shape == (B, C) and t.device == wav.device, f"{name} must be ({B}, {C})")
         sums.append(t)
     dw = torch.zeros((k, C), dtype=torch.float32, device=wav.device)
-    fn = _build.function("usk_l1_conv_bwd_f32" if dtype == torch.float32 else "usk_l1_conv_bwd",
-                         _BWD_SIGNATURE)
+    if dtype == torch.float32:
+        fn = _build.function("usk_l1_conv_bwd_f32", _BWD_F32_SIGNATURE)
+        sms = torch.cuda.get_device_properties(wav.device).multi_processor_count
+        plan = bwd_f32_plan(B, t1, C, k, stride, sms)
+        extra = (plan.rows, plan.stages, plan.grid, plan.smem)
+    else:
+        fn = _build.function("usk_l1_conv_bwd", _BWD_SIGNATURE)
+        extra = ()
     _build.launch(fn, "l1_conv_backward", wav.device, wav.data_ptr(), w.data_ptr(),
                   dy.data_ptr(), None if sums[0] is None else sums[0].data_ptr(),
                   None if sums[1] is None else sums[1].data_ptr(), dw.data_ptr(),
-                  B, NS, t1, C, k, stride, _build.stream(wav))
+                  B, NS, t1, C, k, stride, *extra, _build.stream(wav))
     backward_launches += 1
     return dw[:, None, :]
 

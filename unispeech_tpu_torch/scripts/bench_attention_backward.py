@@ -13,8 +13,16 @@ smoke batch (4 rows of 799 frames, 599/349/149 valid in three, 16 heads of
 kernel, ``csrc/flash_attention_bwd_f32.cu``), with each output's relative L2
 distance to the plain version.
 For each it prints ms per call by CUDA events around 20 calls queued behind
-a busy card (the wrapper's zero fills and casts included), and the device
-time of the backward kernel alone under ``torch.profiler``. Inputs come from seed 0, so two builds of the kernel can be
+a busy card (the wrapper's zero fills and casts included), the device
+time of the backward kernel alone under ``torch.profiler`` and the bound:
+the bytes (q, k, v, out, dO read, dq, dk, dv written, the bias read and
+its gradient written, lse, delta, the key mask) at 3.35 TB/s, or the
+operations (10 H T keys hd over the valid keys; in fp32 three TF32
+products each at the TF32 peak) at the tensor cores' peak, whichever is
+longer, and the same backward by one PyTorch call as a yardstick
+(``sdpa_bwd_ms``: ``torch.autograd.grad`` of
+``F.scaled_dot_product_attention`` with the same mask, bias and dropout
+rate, its own dropout draws), by CUDA events as above. Inputs come from seed 0, so two builds of the kernel can be
 compared in one run on one card. Needs a CUDA device.
 """
 
@@ -24,8 +32,14 @@ import time
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
-from unispeech_tpu_torch.ops.kernels import flash_attention
+from unispeech_tpu_torch.ops.kernels import (
+    BF16_TC_FLOPS,
+    HBM_BYTES_PER_S,
+    TF32_TC_FLOPS,
+    flash_attention,
+)
 from unispeech_tpu_torch.ops.rel_pos import compute_rel_pos_bias
 
 SHAPES = {  # (B, T, H, head dim, valid frames per row)
@@ -95,6 +109,31 @@ def kernel_ms(fn, iters: int, name: str = "flash_bwd_kernel") -> float:
     return us / 1e3 / iters
 
 
+def bound_ms(shape: str, esz: int, bias: bool) -> float:
+    """The least time of one backward call: bytes or operations."""
+    B, T, H, HD, valid = SHAPES[shape]
+    nbytes = 8 * B * T * H * HD * esz + 3 * B * H * T * 4 + B * T
+    nbytes += 2 * H * T * T * esz if bias else 0
+    mult, peak = (3, TF32_TC_FLOPS) if esz == 4 else (1, BF16_TC_FLOPS)
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, mult * 10 * H * T * sum(valid) * HD / peak)
+
+
+def library_backward(q, k, v, bias, gate, kpm, rate, dout):
+    """A closure computing the same backward by SDPA's autograd: the mask is
+    the gated bias plus the key padding (a boolean key mask without bias)."""
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    if bias is None:
+        mask = ~kpm[:, None, None, :]
+        inputs = (qh, kh, vh)
+    else:
+        mask = (gate[..., None] * bias.float()[None]
+                + torch.where(kpm, -1e30, 0.0)[:, None, None, :]).to(q.dtype).requires_grad_()
+        inputs = (qh, kh, vh, mask)
+    y = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, dropout_p=rate)
+    grad = dout.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(y, inputs, grad, retain_graph=True)
+
+
 def main(argv=None) -> Dict[str, float]:
     """Times the four cases and prints one line each; returns the kernel's
     device ms per call by case."""
@@ -126,7 +165,10 @@ def main(argv=None) -> Dict[str, float]:
                 for x, y in zip(fn(), want) if y is not None)
         call = queued_ms(fn, ITERS)
         kern = kernel_ms(fn, ITERS, kernel)
+        sdpa = queued_ms(library_backward(q, k, v, bb, gg, kpm, rate, dout), ITERS)
         print(f"{args.shape} {args.dtype} {case:10s} call_ms={call:.4f} {kernel}_ms={kern:.4f}"
+              f" bound_ms={bound_ms(args.shape, 4 if f32 else 2, bb is not None):.4f}"
+              f" sdpa_bwd_ms={sdpa:.4f}"
               f"{err} {card}", flush=True)
         res[case] = kern
     return res
