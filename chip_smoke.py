@@ -55,9 +55,15 @@ Phases, one line each (any failure raises and exits non-zero):
              forward's out) relative L2 <= 1e-5 and max abs <= 1e-4 of max
              |plain|, the sums taken in a run-dependent order (fp32 atomics:
              dW of the L1 and the conv blocks, da, db, dgate; TMA tile
-             reductions: dbias) within 1e-5 of the sum of |terms| per element, lse 1e-4 on the rows with a key, the
-             dropout forward's keep mask equal to attention_keep over all
-             768 keys
+             reductions: dbias) within 1e-5 of the sum of |terms| per
+             element, lse 1e-4 on the rows with a key, the dropout
+             forward's keep mask equal to attention_keep over all 768
+             keys; then the attention backward above head dim 64 (its
+             width-80 and width-128 forms): X-Large's 16 heads of 80 over
+             its frames of the smoke batch and a fifth row of length 0, hd
+             72 and 128 on 3 rows of 333 (one of length 0), each with key
+             padding and dropout 0.1 (no bias) and with the gated bias and
+             key padding, by the same rules, two launches per call
     fp32_train, fp32_large_train  phase 8's pretraining steps with the
              models built without a dtype (fp32, the default): launches per
              step as in bf16, the gradients against the plain path per
@@ -137,12 +143,25 @@ Phases, one line each (any failure raises and exits non-zero):
              with its launches, 5 steps (2 frozen) with launch counts
              (attention 48/96 forward, 0/96 backward), one unfrozen step's
              gradients against the plain path, step ms, host enqueue,
-             audio-seconds per second, peak memory, 10 unfrozen steps of
+             audio-seconds per second, peak memory, 5 unfrozen steps of
              falling loss; rows 1X / 2X (the hd-80 attention forward per
              eval forward, its backward per unfrozen step, with SDPA); (c)
              finetune-ctc 2 updates on the pipeline's files with
              --export-params and decode --decoder viterbi of the export:
              finite losses, launches, one hypothesis per file, the WER report
+    fp32_xlarge  xlarge (b) with the model built without a dtype (fp32, the
+             default; 962,534,816 parameters, seed 0) through the fp32
+             kernels: the eval forward within relative L2 1e-4 of its plain
+             path, launches (1, 0, 12, 0, 48, 0); 5 steps, 2 frozen, with
+             launches per step (frozen 48 attention forward, unfrozen 96
+             forward and 96 backward: the fp32 backward at hd 80, row 2fX);
+             one unfrozen step's gradients by the fp32 rule (1e-3 |g| +
+             1e-6 |global|); 5 unfrozen steps of falling loss from a fresh
+             head; step ms, host enqueue, audio-seconds per second, peak
+             memory, a profiled unfrozen step; rows 1fX (the fp32 forward
+             at hd 80 per eval forward), 1dfX (with dropout per unfrozen
+             step) and 2fX against their plain versions by f32_check, with
+             bound and SDPA in fp32
     s2s_train  seq2seq fine-tuning at WavLM-Large's full width (the model
              finetune-seq2seq --arch large builds: the encoder as ctc_train,
              the default decoder 768 wide, 3072 FFN, 6 layers, 4 heads,
@@ -238,7 +257,8 @@ Phases, one line each (any failure raises and exits non-zero):
              batch and per diarized recording; the fp32 backward kernels and
              dropout forward per fp32 train step (SDPA fp32, the fp32
              F.conv1d input + weight backward and the L1's fp32 weight
-             backward as library calls); audio-seconds per second of
+             backward as library calls); the fp32 X-Large step
+             (e2e_fp32_xlarge, beside the bf16 step); audio-seconds per second of
              the forward, of the train steps, of the fine-tuning steps and
              of the UniSpeech and UniSpeech-SAT steps; the speaker CLIs'
              seconds per call, trials/s, DER and peak memory
@@ -2081,7 +2101,8 @@ XLARGE_JSON = json.dumps(dict(encoder_layers=48, encoder_embed_dim=1280,
                               encoder_ffn_embed_dim=5120, encoder_attention_heads=16,
                               relative_position_embedding=False, gru_rel_pos=False))
 XL_HEAD_DIMS = (16, 24, 32, 36, 80, 120, 128)  # 36 runs on a copy padded to 40
-XL_FREEZE, XL_STEPS, XL_LEARN_STEPS = 2, 5, 10
+# over XL_LEARN_STEPS = 5 the loss falls from ~8.1 to ~5.3 in both dtypes
+XL_FREEZE, XL_STEPS, XL_LEARN_STEPS = 2, 5, 5
 
 
 def xlarge_config(freeze: int):
@@ -2152,7 +2173,7 @@ def xlarge_head_dims(dev):
     return err_f, err_b
 
 
-def xlarge_train_phase(dev, counters, wav, lengths, card):
+def xlarge_train_phase(dev, counters, wav, lengths, card, dtype=torch.bfloat16):
     """xlarge (b): HuBERT X-Large CTC fine-tuning at full width and depth
     (the model finetune-ctc --arch large --encoder-json XLARGE_JSON builds,
     seed-0 weights, bf16) on the padded smoke batch with random letter
@@ -2160,8 +2181,13 @@ def xlarge_train_phase(dev, counters, wav, lengths, card):
     (relative L2 5e-2) with its launches; 5 steps, the first 2 frozen, with
     launch counts per step; one unfrozen step's gradients, kernel path
     against plain path (GRAD_TOL, GRAD_FLOOR); step ms, host enqueue,
-    audio-seconds per second, peak memory; 10 unfrozen steps on one batch
-    from a fresh head, the loss must fall. Returns the counts and numbers."""
+    audio-seconds per second, peak memory; XL_LEARN_STEPS unfrozen steps on one batch
+    from a fresh head, the loss must fall. fp32_xlarge (``dtype`` fp32): the
+    same model built without a dtype (fp32, the default), through the fp32
+    kernels (the attention backward at hd 80 is row 2fX): the eval forward
+    within relative L2 1e-4 of its plain path, the gradients by the fp32
+    rule (GRAD_TOL_F32, GRAD_FLOOR_F32), and one profiled unfrozen step.
+    Returns the counts and numbers."""
     from unispeech_tpu_torch.data.dictionary import Dictionary
     from unispeech_tpu_torch.models.ctc import CtcFinetuneModel
     from unispeech_tpu_torch.models.encoder import reset_parameters
@@ -2170,15 +2196,22 @@ def xlarge_train_phase(dev, counters, wav, lengths, card):
     from unispeech_tpu_torch.train.state import create_train_state, make_train_step
     from unispeech_tpu_torch.train.tasks import make_ctc_finetune_loss_fn
 
+    f32 = dtype == torch.float32
+    tag = "fp32_xlarge" if f32 else "xlarge"
+    fwd_tol = 1e-4 if f32 else 5e-2
+    tol, floor = (GRAD_TOL_F32, GRAD_FLOOR_F32) if f32 else (GRAD_TOL, GRAD_FLOOR)
     d = Dictionary.letters()
     cfg = xlarge_config(XL_FREEZE)
     enc = cfg.encoder
     if enc.encoder_embed_dim // enc.encoder_attention_heads != 80:
-        fail("xlarge: the head dim is not 80")
+        fail(f"{tag}: the head dim is not 80")
     t0 = time.perf_counter()
-    model = CtcFinetuneModel(cfg, dtype=torch.bfloat16,
+    # fp32: built without a dtype, the models' default
+    model = CtcFinetuneModel(cfg, **({} if f32 else {"dtype": dtype}),
                              generator=torch.Generator().manual_seed(SEED)).to(dev)
     build_s = time.perf_counter() - t0
+    if any(p.dtype != torch.float32 for p in model.parameters()) or model.dtype != dtype:
+        fail(f"{tag}: parameters not fp32 or compute dtype {model.dtype} is not {dtype}")
     nparams = sum(p.numel() for p in model.parameters())
     B = wav.shape[0]
     rng = np.random.default_rng(SEED + 32)
@@ -2209,12 +2242,11 @@ def xlarge_train_phase(dev, counters, wav, lengths, card):
         plain_logits = model(wav, lengths, deterministic=True, step=XL_FREEZE).logits
     e_fwd = rel_l2(logits, plain_logits)
     if not torch.isfinite(logits).all() or fwd_counts != (1, 0, 12, 0, L, 0):
-        fail(f"xlarge: eval forward launches {fwd_counts} or non-finite logits")
-    phase("xlarge", params=nparams, build_s=f"{build_s:.1f}", logits=tuple(logits.shape),
-          eval_launches_l1_conv_attn_fwd_bwd=fwd_counts, rel_l2_vs_plain=f"{e_fwd:.3g}",
-          tol="5e-2")
-    if not e_fwd <= 5e-2:
-        fail("xlarge: the forward's kernel path disagrees with the plain path")
+        fail(f"{tag}: eval forward launches {fwd_counts} or non-finite logits")
+    phase(tag, params=nparams, build_s=f"{build_s:.1f}", logits=tuple(logits.shape),
+          eval_launches_l1_conv_attn_fwd_bwd=fwd_counts, rel_l2_vs_plain=f"{e_fwd:.3g}", tol=fwd_tol)
+    if not e_fwd <= fwd_tol:
+        fail(f"{tag}: the forward's kernel path disagrees with the plain path")
     del logits, plain_logits
     model.train()
 
@@ -2233,13 +2265,13 @@ def xlarge_train_phase(dev, counters, wav, lengths, card):
         kept = L - met["layers_dropped"]
         want = (1, 0, 12, 0) + ((kept, 0) if frozen else (2 * kept, 2 * kept))
         loss, gnorm = float(met["loss_per_sample"]), float(met["grad_norm"])
-        phase("xlarge", step=i, frozen=frozen, loss_per_token=f"{loss:.4f}",
+        phase(tag, step=i, frozen=frozen, loss_per_token=f"{loss:.4f}",
               grad_norm=f"{gnorm:.4f}", ntokens=int(met["sample_size"]),
               layers_dropped=met["layers_dropped"], launches_l1_conv_attn_fwd_bwd=counts)
         if counts != want:
-            fail(f"xlarge step {i}: launches {counts} != {want}")
+            fail(f"{tag} step {i}: launches {counts} != {want}")
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
-            fail(f"xlarge step {i}: loss {loss}, grad_norm {gnorm}")
+            fail(f"{tag} step {i}: loss {loss}, grad_norm {gnorm}")
         xl_counts.setdefault("frozen" if frozen else "unfrozen", counts)
 
     # one unfrozen step's gradients, kernel path against plain path: no
@@ -2261,15 +2293,15 @@ def xlarge_train_phase(dev, counters, wav, lengths, card):
     worst = []
     for (name, _), a, b in zip(model.named_parameters(), gk, gp):
         diff, ref = float((a - b).norm()), float(b.norm())
-        worst.append((diff / (GRAD_TOL * ref + GRAD_FLOOR * total), name, diff / max(ref, 1e-30)))
+        worst.append((diff / (tol * ref + floor * total), name, diff / max(ref, 1e-30)))
     del gk, gp
     worst.sort(reverse=True)
     for ratio, name, rel in worst[:5]:
-        phase("xlarge", grad_vs_plain=name, rel_l2=f"{rel:.3g}", of_tolerance=f"{ratio:.3g}")
-    phase("xlarge", grad_tol=f"{GRAD_TOL} * |g| + {GRAD_FLOOR} * |global|",
+        phase(tag, grad_vs_plain=name, rel_l2=f"{rel:.3g}", of_tolerance=f"{ratio:.3g}")
+    phase(tag, grad_tol=f"{tol} * |g| + {floor} * |global|",
           global_grad_norm=f"{total:.4g}", tensors=len(worst))
     if worst[0][0] > 1.0:
-        fail(f"xlarge: gradient of {worst[0][1]}: kernel path disagrees with the plain path")
+        fail(f"{tag}: gradient of {worst[0][1]}: kernel path disagrees with the plain path")
 
     # ms per step (back to back), host enqueue on an idle queue, peak memory
     def timed(frozen, n=3):
@@ -2291,8 +2323,16 @@ def xlarge_train_phase(dev, counters, wav, lengths, card):
     torch.cuda.reset_peak_memory_stats()
     unfrozen_ms, host_unfrozen = timed(False)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = (0.0, 0.0, 0)
+    if f32:  # where an unfrozen fp32 step's device time goes
 
-    # learning: 10 unfrozen steps on one batch at a fixed learning rate, from
+        def unfrozen():
+            state.step = XL_FREEZE
+            step(state, batch, gen)
+
+        prof = profile_once(unfrozen, f"{tag}_profile")
+
+    # learning: unfrozen steps on one batch at a fixed learning rate, from
     # a fresh head
     fresh = torch.nn.Linear(model.proj.in_features, model.proj.out_features)
     reset_parameters(fresh, torch.Generator().manual_seed(SEED + 34))
@@ -2301,13 +2341,13 @@ def xlarge_train_phase(dev, counters, wav, lengths, card):
     state = create_train_state(model, OptimConfig(lr=5e-5, schedule="fixed"), device=dev)
     state.step = XL_FREEZE
     losses = [float(step(state, batch, gen)["loss_per_sample"]) for _ in range(XL_LEARN_STEPS)]
-    phase("xlarge", learning_first=f"{losses[0]:.4f}", learning_last=f"{losses[-1]:.4f}",
+    phase(tag, learning_first=f"{losses[0]:.4f}", learning_last=f"{losses[-1]:.4f}",
           steps=len(losses), losses=",".join(f"{x:.3f}" for x in losses))
     if not losses[-1] < losses[0]:
-        fail(f"xlarge: {XL_LEARN_STEPS} steps on one batch: loss {losses[0]} -> "
+        fail(f"{tag}: {XL_LEARN_STEPS} steps on one batch: loss {losses[0]} -> "
              f"{losses[-1]} did not fall")
     audio_s = float(lengths.sum()) / SAMPLE_RATE
-    phase("xlarge", frozen_step_ms=f"{frozen_ms:.3f}", unfrozen_step_ms=f"{unfrozen_ms:.3f}",
+    phase(tag, frozen_step_ms=f"{frozen_ms:.3f}", unfrozen_step_ms=f"{unfrozen_ms:.3f}",
           host_enqueue_frozen_ms=f"{host_frozen:.3f}",
           host_enqueue_unfrozen_ms=f"{host_unfrozen:.3f}",
           audio_sec_per_s_frozen=f"{audio_s / (frozen_ms / 1e3):.1f}",
@@ -2317,25 +2357,35 @@ def xlarge_train_phase(dev, counters, wav, lengths, card):
     torch.cuda.empty_cache()
     return dict(params=nparams, counts=xl_counts, fwd_counts=fwd_counts, e_fwd=e_fwd,
                 frozen_ms=frozen_ms, unfrozen_ms=unfrozen_ms, host_frozen_ms=host_frozen,
-                host_unfrozen_ms=host_unfrozen, peak_gb=peak_gb, audio_s=audio_s)
+                host_unfrozen_ms=host_unfrozen, peak_gb=peak_gb, audio_s=audio_s,
+                busy_ms=prof[0], wall_ms=prof[1], launches=prof[2])
 
 
-def xlarge_attention_rows(dev, lengths, xl):
+def xlarge_attention_rows(dev, lengths, xl, dtype=torch.bfloat16):
     """Rows 1X and 2X: the attention forward as X-Large serves (key
     padding, no bias, no dropout, hd 80, 16 heads) per eval forward, and
     its backward as X-Large fine-tunes (dropout 0.1) per unfrozen step, on
     the padded smoke batch (4 rows of 799 frames, 599/349/149 valid keys
     in three), against their plain versions (forward 1 bf16 ulp; dropout
     forward and dq/dk/dv 2), with bound, plain time and SDPA (the same
-    boolean key mask; dropout_p for the backward)."""
-    from unispeech_tpu_torch.ops.kernels import flash_attention
+    boolean key mask; dropout_p for the backward). ``dtype`` fp32 (``xl``
+    from fp32_xlarge): rows 1fX, 1dfX (the dropout forward per unfrozen
+    step) and 2fX, held by f32_check, their bounds as 3xTF32 at the TF32
+    peak, SDPA in fp32."""
+    from unispeech_tpu_torch.ops.kernels import TF32_TC_FLOPS, flash_attention
+
+    f32 = dtype == torch.float32
+    pre_, src, esz = ("fp32.", "_f32.cu", 4) if f32 else ("", ".cu", 2)
+    mult, peak = (3, TF32_TC_FLOPS) if f32 else (1, BF16_TC_FLOPS)
+
+    def check(name, got, want, ulps=1.0):
+        return f32_check(name, got, want) if f32 else compare(name, got, want, tol_ulps=ulps)
 
     enc = xlarge_config(0).encoder
     gen = torch.Generator().manual_seed(SEED + 35)
     B, T = len(lengths), enc.num_frames(int(lengths.max()))
     H, hd = enc.encoder_attention_heads, enc.encoder_embed_dim // enc.encoder_attention_heads
-    q, kk, v = (torch.randn(B, T, H, hd, generator=gen).to(dev, torch.bfloat16)
-                for _ in range(3))
+    q, kk, v = (torch.randn(B, T, H, hd, generator=gen).to(dev, dtype) for _ in range(3))
     frames = torch.tensor([enc.num_frames(int(n)) for n in lengths.cpu()], device=dev)
     kpm = torch.arange(T, device=dev)[None, :] >= frames[:, None]
     seed = torch.randint(0, 2**62, (1,), generator=gen, dtype=torch.int64).to(dev)
@@ -2343,48 +2393,56 @@ def xlarge_attention_rows(dev, lengths, xl):
     out = flash_attention.fused_attention(q, kk, v, key_padding_mask=kpm)
     pout = flash_attention.fused_attention_plain(q, kk, v, key_padding_mask=kpm)
     torch.cuda.synchronize()
-    err_f = compare(f"fused_attention.nobias.hd{hd}.h{H}.padded", out, pout)
+    err_f = check(f"{pre_}fused_attention.nobias.hd{hd}.h{H}.padded", out, pout)
     drop = dict(key_padding_mask=kpm, dropout_rate=rate, dropout_seed=seed)
     dout_k, dlse = flash_attention.fused_attention(q, kk, v, **drop, return_lse=True)
     dpout, dplse = flash_attention.fused_attention_plain(q, kk, v, **drop, return_lse=True)
     torch.cuda.synchronize()
-    err_f = max(err_f, compare(f"fused_attention.nobias.hd{hd}.h{H}.padded.dropout", dout_k,
-                               dpout, tol_ulps=2.0))
-    dout = (torch.randn(B, T, H, hd, generator=gen) * 1e-2).to(dev, torch.bfloat16)
+    err_d = check(f"{pre_}fused_attention.nobias.hd{hd}.h{H}.padded.dropout", dout_k, dpout, 2.0)
+    dout = (torch.randn(B, T, H, hd, generator=gen) * 1e-2).to(dev, dtype)
     args = (q, kk, v, None, None, kpm, None, rate, seed, dpout, dplse, dout)
     got = flash_attention.fused_attention_backward(*args)
     want = flash_attention.fused_attention_backward_plain(*args)
     torch.cuda.synchronize()
     err_b = 0.0
     for name, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
-        err_b = max(err_b, compare(f"fused_attention_backward.nobias.hd{hd}.h{H}.padded.{name}",
-                                   a, b, tol_ulps=2.0))
+        err_b = max(err_b, check(f"{pre_}fused_attention_backward.nobias.hd{hd}.h{H}.padded.{name}",
+                                 a, b, 2.0))
     del got, want, out, pout, dout_k, dlse
     n_fwd = xl["fwd_counts"][4]  # calls per eval forward
+    n_drop = xl["counts"]["unfrozen"][4]  # dropout forward calls per unfrozen step
     n_bwd = xl["counts"]["unfrozen"][5] // 2  # backward calls per unfrozen step
     keys = int(frames.sum())
-    f_bound = bound(4 * B * T * H * hd * 2 + B * T, 4 * H * T * keys * hd, BF16_TC_FLOPS)
-    b_bound = bound(8 * B * T * H * hd * 2 + 3 * B * H * T * 4 + B * T,
-                    10 * H * T * keys * hd, BF16_TC_FLOPS)
+    f_bound = bound(4 * B * T * H * hd * esz + B * T, mult * 4 * H * T * keys * hd, peak)
+    b_bound = bound(8 * B * T * H * hd * esz + 3 * B * H * T * 4 + B * T,
+                    mult * 10 * H * T * keys * hd, peak)
     qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, kk, v))
     attend = ~kpm[:, None, None, :]
     ya = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=attend, dropout_p=rate)
     fwd = dict(key_padding_mask=kpm)
-    return [dict(
-        name=f"fused_attention.nobias.hd{hd}.h{H}.padded_xlarge", route="cuda",
-        source="unispeech_tpu_torch/csrc/flash_attention.cu",
-        replaces="unispeech_tpu/ops/pallas/flash_attention.py:217",
-        launches=n_fwd, max_abs_err=err_f,
-        ms=n_fwd * cuda_ms(lambda: flash_attention.fused_attention(q, kk, v, **fwd)),
-        device_ms=n_fwd * device_ms(lambda: flash_attention.fused_attention(q, kk, v, **fwd)),
-        plain_ms=n_fwd * cuda_ms(lambda: flash_attention.fused_attention_plain(q, kk, v, **fwd),
+
+    def forward_row(name, n, kw, err, dropout_p):
+        return dict(
+            name=name, route="cuda", source=f"unispeech_tpu_torch/csrc/flash_attention{src}",
+            replaces="unispeech_tpu/ops/pallas/flash_attention.py:217",
+            launches=n, max_abs_err=err,
+            ms=n * cuda_ms(lambda: flash_attention.fused_attention(q, kk, v, **kw)),
+            device_ms=n * device_ms(lambda: flash_attention.fused_attention(q, kk, v, **kw)),
+            plain_ms=n * cuda_ms(lambda: flash_attention.fused_attention_plain(q, kk, v, **kw),
                                  iters=2, warmup=1),
-        bound_ms=n_fwd * f_bound[0], bound_by=f_bound[1],
-        **library_row(lambda: F.scaled_dot_product_attention(
-            qh.detach(), kh.detach(), vh.detach(), attn_mask=attend), n_fwd),
-    ), dict(
-        name=f"fused_attention_backward.nobias.hd{hd}.h{H}.padded_xlarge", route="cuda",
-        source="unispeech_tpu_torch/csrc/flash_attention_bwd.cu",
+            bound_ms=n * f_bound[0], bound_by=f_bound[1],
+            **library_row(lambda: F.scaled_dot_product_attention(
+                qh.detach(), kh.detach(), vh.detach(), attn_mask=attend, dropout_p=dropout_p), n))
+
+    # bf16: row 1X carries the dropout forward's error too; fp32: row 1dfX
+    rows = [forward_row(f"{pre_}fused_attention.nobias.hd{hd}.h{H}.padded_xlarge", n_fwd, fwd,
+                        err_f if f32 else max(err_f, err_d), 0.0)]
+    if f32:
+        rows.append(forward_row(f"fp32.fused_attention.dropout.nobias.hd{hd}.h{H}.padded_xlarge",
+                                n_drop, drop, err_d, rate))
+    rows.append(dict(
+        name=f"{pre_}fused_attention_backward.nobias.hd{hd}.h{H}.padded_xlarge", route="cuda",
+        source=f"unispeech_tpu_torch/csrc/flash_attention_bwd{src}",
         replaces="unispeech_tpu/ops/pallas/flash_attention.py:583",
         launches=xl["counts"]["unfrozen"][5], max_abs_err=err_b,
         ms=n_bwd * cuda_ms(lambda: flash_attention.fused_attention_backward(*args)),
@@ -2392,7 +2450,8 @@ def xlarge_attention_rows(dev, lengths, xl):
         plain_ms=n_bwd * cuda_ms(lambda: flash_attention.fused_attention_backward_plain(*args),
                                  iters=2, warmup=1),
         bound_ms=n_bwd * b_bound[0], bound_by=b_bound[1],
-        **library_row(grad_fn(ya, (qh, kh, vh), dout.transpose(1, 2).contiguous()), n_bwd))]
+        **library_row(grad_fn(ya, (qh, kh, vh), dout.transpose(1, 2).contiguous()), n_bwd)))
+    return rows
 
 
 def xlarge_cli_phase(counters, tmp):
@@ -4180,6 +4239,66 @@ def tf32_pin_phase(dev, wav, lengths, base_cfg):
     return e_model, e_head
 
 
+XL_F32_HEAD_DIMS = (72, 128)  # the ends of the fp32 backward's wide range, beside 80
+
+
+def fp32_wide_attention_parity(dev):
+    """fp32_bwd above head dim 64: the fp32 attention backward at X-Large's 16
+    heads of 80 over its frames of the smoke batch (799/599/349/149) and a
+    fifth row of length 0, and at hd 72 and 128 on 3 rows of 333 frames
+    (333/200/0) and 4 heads; each in the two forms that reach the wide
+    kernels: key padding with dropout 0.1 and no bias (X-Large's), and the
+    gated bias with key padding. dO is 0 on the row of length 0 (ROADMAP
+    3.5); both backwards take the plain forward's out and lse. dq, dk, dv by
+    f32_check; dbias and dgate within 1e-5 of the sum of |terms|; two
+    launches per call. Returns the max abs error of dq, dk, dv."""
+    from unispeech_tpu_torch.ops.kernels import flash_attention
+    from unispeech_tpu_torch.ops.kernels.sum_terms import attn_terms
+
+    enc = xlarge_config(0).encoder
+    wav_lengths = [s * SAMPLE_RATE for s in UTTERANCE_SECONDS]
+    xl_frames = [enc.num_frames(n) for n in wav_lengths] + [0]
+    H_xl = enc.encoder_attention_heads
+    hd_xl = enc.encoder_embed_dim // H_xl
+    gen = torch.Generator().manual_seed(SEED + 36)
+    err = 0.0
+    for hd, H, frames in [(hd_xl, H_xl, xl_frames)] + [(d, 4, [333, 200, 0])
+                                                        for d in XL_F32_HEAD_DIMS]:
+        B, T = len(frames), max(frames)
+        fr = torch.tensor(frames, device=dev)
+        kpm = torch.arange(T, device=dev)[None, :] >= fr[:, None]
+        q, kk, v = (torch.randn(B, T, H, hd, generator=gen).to(dev) for _ in range(3))
+        bias = torch.randn(H, T, T, generator=gen).to(dev)
+        gate = (torch.rand(B, H, T, generator=gen) * 2 + 1).to(dev)
+        seed = torch.randint(0, 2**62, (1,), generator=gen, dtype=torch.int64).to(dev)
+        dout = (torch.randn(B, T, H, hd, generator=gen) * 1e-2).to(dev)
+        dout = dout * (fr > 0)[:, None, None, None]
+        for form, kw in (("nobias_kpm_drop", dict(key_padding_mask=kpm, dropout_rate=0.1,
+                                                  dropout_seed=seed)),
+                         ("bias_gate_kpm", dict(bias=bias, gate=gate, key_padding_mask=kpm))):
+            name = f"fp32.fused_attention_backward.hd{hd}.h{H}.{form}"
+            pout, plse = flash_attention.fused_attention_plain(q, kk, v, **kw, return_lse=True)
+            args = (q, kk, v, kw.get("bias"), kw.get("gate"), kpm, None,
+                    kw.get("dropout_rate", 0.0), kw.get("dropout_seed"), pout, plse, dout)
+            before = flash_attention.backward_launches
+            got = flash_attention.fused_attention_backward(*args)
+            torch.cuda.synchronize()
+            if flash_attention.backward_launches != before + 2:
+                fail(f"{name}: {flash_attention.backward_launches - before} launches, not 2")
+            want = flash_attention.fused_attention_backward_plain(*args)
+            for gname, a, b in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+                err = max(err, f32_check(f"{name}.{gname}", a, b))
+            if "bias" in kw:
+                terms = attn_terms(*args)
+                sum_check(f"{name}.dbias", got[3], want[3], terms[0])
+                sum_check(f"{name}.dgate", got[4], want[4], terms[1])
+                del terms
+            elif got[3] is not None or got[4] is not None:
+                fail(f"{name}: dbias or dgate without a bias")
+            del got, want, pout, plse
+    return err
+
+
 def fp32_training_phases(dev, clock):
     """fp32_bwd, fp32_train and fp32_large_train, then the times rows of the
     fp32 backward kernels and dropout forward per fp32 train step (measured
@@ -4193,6 +4312,7 @@ def fp32_training_phases(dev, clock):
     bw_large = backward_parity(dev, large_encoder_config(relative_position_embedding=True,
                                                          gru_rel_pos=True),
                                B=LARGE_B, ln_form=True, dtype=f32)
+    fp32_wide_attention_parity(dev)
     clock.done("fp32_bwd")
     counts, large_counts = {}, {}
     e2e = {"fp32_train": train_phase(dev, kernel_counters(), counts, dtype=f32)}
@@ -4449,6 +4569,11 @@ def main() -> int:
         xl_rows = xlarge_attention_rows(dev, lengths, xl)
         xl.update(xlarge_cli_phase(counters, tmp))
         clock.done("xlarge")
+        # the same model built without a dtype (fp32): the fp32 attention
+        # backward at hd 80 (row 2fX) on the main path
+        xl32 = xlarge_train_phase(dev, counters, wav, lengths, smi, dtype=torch.float32)
+        xl_rows += xlarge_attention_rows(dev, lengths, xl32, dtype=torch.float32)
+        clock.done("fp32_xlarge")
         # seq2seq fine-tuning and decoding, the Transformer LM and its fusion
         s2s_counts = {}
         s2s = s2s_train_phase(dev, counters, s2s_counts, wav, lengths)
@@ -4672,6 +4797,19 @@ def main() -> int:
           audio_sec_per_s_unfrozen=f"{xl['audio_s'] / (xl['unfrozen_ms'] / 1e3):.1f}",
           peak_memory_gb=f"{xl['peak_gb']:.2f}", finetune_cli_s=f"{xl['train_s']:.1f}",
           decode_cli_s=f"{xl['decode_s']:.1f}", card=smi.replace(" ", "_"))
+    phase("e2e_fp32_xlarge", params=xl32["params"], frozen_step_ms=f"{xl32['frozen_ms']:.3f}",
+          unfrozen_step_ms=f"{xl32['unfrozen_ms']:.3f}",
+          host_enqueue_frozen_ms=f"{xl32['host_frozen_ms']:.3f}",
+          host_enqueue_unfrozen_ms=f"{xl32['host_unfrozen_ms']:.3f}",
+          audio_seconds_per_step=xl32["audio_s"], padded_seconds=B * NS / SAMPLE_RATE,
+          audio_sec_per_s_frozen=f"{xl32['audio_s'] / (xl32['frozen_ms'] / 1e3):.1f}",
+          audio_sec_per_s_unfrozen=f"{xl32['audio_s'] / (xl32['unfrozen_ms'] / 1e3):.1f}",
+          peak_memory_gb=f"{xl32['peak_gb']:.2f}",
+          profiled_busy_ms_unfrozen=f"{xl32['busy_ms']:.3f}",
+          profiled_wall_ms_unfrozen=f"{xl32['wall_ms']:.3f}",
+          kernel_launches_unfrozen=xl32["launches"], card=smi.replace(" ", "_"),
+          bf16_unfrozen_step_ms=f"{xl['unfrozen_ms']:.3f}",
+          bf16_peak_memory_gb=f"{xl['peak_gb']:.2f}")
     sp = s2s["profile"]
     phase("e2e_s2s_train", params=s2s["params"], frozen_step_ms=f"{s2s['frozen_ms']:.3f}",
           unfrozen_step_ms=f"{s2s['unfrozen_ms']:.3f}",

@@ -981,7 +981,8 @@ def _attn_fp32_inputs(dev, hd, B, T, H, case):
     return q, k, v, lengths, kw
 
 
-FP32_ATTN_HDS = [16, 24, 36, 64, 80, 128]
+# 72 and 80 run the backward's width-80 form, 120 and 128 the width-128 one
+FP32_ATTN_HDS = [16, 24, 36, 64, 72, 80, 120, 128]
 # T = S of 1, 63, 65, 129 and 799 cross the fp32 kernels' tiles: the forward's
 # 64-key steps and 128-query blocks (64 at width 128), the backward's 64-key
 # blocks and 32-query steps (33 and 63 one row past and short of a step)
@@ -1027,8 +1028,33 @@ def test_attention_backward_fp32_edges(dev, hd, B, T, H, case):
     is constant: dS, and with it dq, dk, dbias and dgate, is 0 but for fp32
     rounding of dP - delta on either side, so those are held to 1e-5 of
     the scale of their terms instead."""
+    _check_attention_backward_fp32(dev, hd, B, T, H, case, 0.1)
+
+
+# the backward's head dims above 64: 72 and 80 (the width-80 form), 88 and 96
+# (width 96), 120 and 128 (the width-128 form); T off the 32-query steps and
+# the 64-key blocks, utterances off a tile (799 frames: 799 / 666 / 0), a
+# row of length 0
+FP32_BWD_WIDE_HDS = [72, 80, 88, 96, 120, 128]
+FP32_BWD_WIDE_SHAPES = [(3, 799, 2), (2, 97, 3), (4, 161, 1)]
+
+
+@pytest.mark.parametrize("hd", FP32_BWD_WIDE_HDS)
+@pytest.mark.parametrize("B,T,H", FP32_BWD_WIDE_SHAPES)
+@pytest.mark.parametrize("case", ["gate+kpm", "kpm"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_backward_fp32_wide_instances(dev, hd, B, T, H, case, rate):
+    """The four instances of the fp32 backward (gated bias or none, dropout
+    or none) at head dims above 64, held as test_attention_backward_fp32_edges
+    holds them."""
+    _check_attention_backward_fp32(dev, hd, B, T, H, case, rate)
+
+
+def _check_attention_backward_fp32(dev, hd, B, T, H, case, rate):
+    """The body of test_attention_backward_fp32_edges at dropout ``rate``
+    (no seed at 0)."""
     q, k, v, lengths, kw = _attn_fp32_inputs(dev, hd, B, T, H, case)
-    rate, seed = 0.1, torch.tensor([T * 977 + hd], dtype=torch.int64, device=dev)
+    seed = torch.tensor([T * 977 + hd], dtype=torch.int64, device=dev) if rate > 0 else None
     before = flash_attention.launches
     out, lse = flash_attention.fused_attention(q, k, v, **kw, dropout_rate=rate,
                                                dropout_seed=seed, return_lse=True)
@@ -1110,7 +1136,7 @@ def test_attention_dropout_mask_is_bit_identical_fp32_tiles(dev, T):
         assert (out[..., n:] == 0).all()
 
 
-@pytest.mark.parametrize("hd", [64, 80])
+@pytest.mark.parametrize("hd", [64, 72, 80, 96, 128])
 @pytest.mark.parametrize("case", ["gate+kpm", "none"])
 def test_attention_backward_fp32_dk_dv_deterministic(dev, hd, case):
     """dK and dV of the fp32 backward are summed in a fixed order (in

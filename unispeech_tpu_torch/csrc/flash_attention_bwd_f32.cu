@@ -19,7 +19,7 @@
 // FLOP, 27.2 GFLOP; as 3xTF32 (three TF32 products each, tf32.cuh) 81.5
 // GFLOP of TF32, 0.165 ms at its 495 TFLOP/s peak, against ~60 MB of fp32
 // inputs and outputs (18 us at 3.35 TB/s).
-// Design at kD = 64 (the padded head dim of every fp32 model of the family),
+// Design at kD = 64 (WavLM Base, Base+ and Large: heads of 64),
 // the Hopper redesign of the first form (mma.sync with every fragment split
 // in every warp, dq^ and dbias by ~85 M scalar fp32 atomics per Base call,
 // 11% of the bound; an mma.sync form with tiles split once and tile
@@ -69,86 +69,35 @@
 // reductions (dq over key tiles, dbias over the batch, dgate over key tiles)
 // varies from run to run: those three agree with the plain version to fp32
 // rounding of a sum of (S/64, B, S/64) terms.
-// At kD = 128 (hd 72-128, which no fp32 model of the family has) the split
-// K, V and K^T alone would take 192 KB of shared memory, so the first form
-// runs there (flash_bwd_f32_wide_kernel: fp32 tiles split at each fragment
-// read on mma.sync, 64-query steps, atomics for dq^ and dbias into the same
-// buffers).
+// At hd 72-96 (HuBERT X-Large's 16 heads of 80, fine-tuned in fp32 through
+// the Python API) the width-64 layout would need ~236 KB at width 80 (split
+// K, V, K^T 120 KB alone). The width-80 / width-96 form
+// (flash_bwd_f32_mid_kernel in flash_attention_bwd_f32_mid.cu, kD = 80 for
+// hd 72-80, 96 for hd 88-96) keeps its steps, products and reductions, with
+// three changes:
+//  - K and V stay unsplit in fp32 rows of kD + 8 floats and reach S^T, dP^T
+//    (by rows) and dq^T = K^T.dS^T (by columns) as wgmma's A operand from
+//    registers, each k step's fragment read and split there while the last
+//    one's products run (a double buffer), so no split copy of K, V or K^T
+//    takes shared memory; q and dO tiles store their columns in the
+//    fragments' k order (k t <-> column 2 t, k t + 4 <-> 2 t + 1);
+//  - dK and dV run on m64n80k8 / m64n96k8, q^T and dO^T have kD rows, and
+//    dq^T runs as two passes of 64 columns (at width 80 the second on 16 of
+//    its 64 rows: 448 products per 400 useful);
+//  - a key tile whose keys are all padded, in a row with a key that is not
+//    and without a (T, S) mask, writes zero dK, dV and exits: its p is
+//    exactly 0 (X-Large's padded batch runs 32 of its 52 key tiles per head).
+// 199 KB of shared memory at width 80, 219 KB at 96. Bound: operations, as
+// above: at X-Large's fine-tuning call (4 x 799 frames, 16 heads of 80,
+// 1,896 valid keys) 0.1175 ms of 3xTF32 over the valid keys. At hd 104-128
+// the same layout needs 279 KB, so the first form runs there
+// (flash_bwd_f32_wide_kernel at kD = 128: fp32 tiles split at each
+// fragment read on mma.sync, 64-query steps, atomics for dq^ and dbias into
+// the same buffers).
 
-#include <math.h>
+#include "flash_attention_bwd_f32.cuh"
 
-#include "common.cuh"
-#include "hopper.cuh"
-#include "philox.cuh"
-#include "tf32.cuh"
-
-namespace {
-
-constexpr int kBKey = 64;   // keys per block
-constexpr int kBQ = 64;     // queries per rows tile (and per step of the wide kernel)
-constexpr int kMaxHd = 128;
-constexpr int kLdB = kBKey + 4;  // floats per bias row and per dS^T row in shared memory (wide)
-constexpr int kRowFloats = 3 * kBQ;  // lse log2 e, delta, gate of one query tile
-constexpr float kLog2e = 1.4426950408889634f;
-// a padded key's additive mask, exact under * log2 e (flash_attention_f32.cu)
-constexpr float kPadNeg = -1267650600228229401496703205376.0f;  // -2^100
-
-// the width-64 kernel: one warpgroup, 32-query steps; shared memory in
-// bytes from a 1024-byte aligned base: the staging boxes (dq^ 2, gate * dS
-// 2), then the split tiles (hi, lo each) in the 128-byte swizzle: K, V
-// [key][column], K^T [column][key], q, dO [query][column], q^T, dO^T
-// [column][query], dS [query][key]; the next step's q and dO in fp32, the
-// rows of two steps, the key mask, the step's dgate sums per warp, the step's bias
-constexpr int kQS = 32;                      // queries per step
-constexpr int kThreads64 = 128;
-constexpr int kThreadsWide = 256;
-constexpr uint32_t kBox = 32 * 32 * 4;       // 32 x 32 fp32, 128-byte swizzled
-constexpr uint32_t kTile64 = 64 * 64 * 4;    // a 64-row split tile (hi or lo)
-constexpr uint32_t kTile32 = kQS * 64 * 4;   // a 32-row one, or 64 rows of 32
-constexpr uint32_t kOffDqBox = 0;
-constexpr uint32_t kOffGdBox = 2 * kBox;
-constexpr uint32_t kOffK = 4 * kBox;
-constexpr uint32_t kOffV = kOffK + 2 * kTile64;
-constexpr uint32_t kOffKt = kOffV + 2 * kTile64;
-constexpr uint32_t kOffQ = kOffKt + 2 * kTile64;
-constexpr uint32_t kOffD = kOffQ + 2 * kTile32;
-constexpr uint32_t kOffQt = kOffD + 2 * kTile32;
-constexpr uint32_t kOffDt = kOffQt + 2 * kTile32;
-constexpr uint32_t kOffS = kOffDt + 2 * kTile32;
-constexpr uint32_t kOffStage = kOffS + 2 * kTile32;
-constexpr uint32_t kOffRows = kOffStage + 2 * kQS * 64 * 4;
-constexpr uint32_t kOffCol = kOffRows + 2 * 3 * kQS * 4;
-constexpr uint32_t kOffDg = kOffCol + kBKey * 4;
-constexpr int kLdBias = kBKey + 4;           // a bias tile row: conflict-free reads below
-constexpr uint32_t kOffBias = kOffDg + 4 * kQS * 4;  // the step's bias [query][key], fp32
-constexpr int kSmem64 = (int)(kOffBias + kQS * kLdBias * 4) + 1024;
-
-struct Maps {
-    CUtensorMap dq;     // fp32 (B, T, H, hd): dims {hd, H, T, B}, boxes of 32 x 32 rows
-    CUtensorMap dbias;  // fp32 (H, T, S64): dims {S64, T, H}, boxes of 32 x 32 rows
-};
-
-struct Args {
-    const float *q, *k, *v, *out, *dout;
-    const float* lse;  // (B, H, T)
-    long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs, do_bs, do_rs;  // elements
-    const float* bias;  // (H, T, S) rows bias_rs apart, or null
-    long long bias_rs;
-    const float* gate;     // (B, H, T) or null (gate 1 with bias)
-    const uint8_t* kpm;    // (B, S) 1 = padded key, or null
-    const float* amask;    // (T, S) or null
-    float* rows;           // (B * H, n_qt, 3, 64): lse log2 e, delta, gate per query tile
-    float* dq;             // (B, T, H, hd) zeroed: dq^ = dS . k
-    float *dk, *dv;        // (B, S, H, hd) contiguous
-    float* dgate;          // (B, H, T) zeroed, or null
-    float* dbias;          // (H, T, dbias_rs) zeroed, or null
-    long long dbias_rs;    // S rounded up to 64
-    const long long* seed; // dropout seed or null
-    unsigned threshold;
-    float drop_scale;
-    int H, T, S, hd, n_qt;
-    float scale;
-};
+namespace usk_attn_bwd_f32 {
 
 // rows[(b*H + h), t / 64, :, t % 64] = (lse * log2 e, delta = sum_d dO * out, gate)
 // for t < n_qt * 64, (inf, 0, 1) past T: 8 lanes per (b, h, t), each over
@@ -237,13 +186,6 @@ __global__ void __launch_bounds__(kThreads64, 1)
                                                          (long long)h * hd + c));
         return make_float4(0.f, 0.f, 0.f, 0.f);
     };
-    // x split into the hi and lo tiles at byte offset off
-    auto store_split = [&](unsigned char* hi, unsigned char* lo, uint32_t off, float4 x) {
-        const float2 p0 = usk::split_pair(x.x), p1 = usk::split_pair(x.y);
-        const float2 p2 = usk::split_pair(x.z), p3 = usk::split_pair(x.w);
-        *reinterpret_cast<float4*>(hi + off) = make_float4(p0.x, p1.x, p2.x, p3.x);
-        *reinterpret_cast<float4*>(lo + off) = make_float4(p0.y, p1.y, p2.y, p3.y);
-    };
 
     // K, V and K^T once: units of keys 4 a4 .. 4 a4 + 3 at columns 4 c
 #pragma unroll
@@ -253,14 +195,14 @@ __global__ void __launch_bounds__(kThreads64, 1)
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
             k[m] = load4(a.k, a.k_bs, a.k_rs, s0 + 4 * a4 + m, S, c);
-            store_split(Kh, Kl, usk::sw_tf32(4 * a4 + m, c, kBKey), k[m]);
-            store_split(Vh, Vl, usk::sw_tf32(4 * a4 + m, c, kBKey),
+            store_split4(Kh, Kl, usk::sw_tf32(4 * a4 + m, c, kBKey), k[m]);
+            store_split4(Vh, Vl, usk::sw_tf32(4 * a4 + m, c, kBKey),
                         load4(a.v, a.v_bs, a.v_rs, s0 + 4 * a4 + m, S, c));
         }
-        store_split(Kth, Ktl, usk::sw_tf32(c, 4 * a4, 64), make_float4(k[0].x, k[1].x, k[2].x, k[3].x));
-        store_split(Kth, Ktl, usk::sw_tf32(c + 1, 4 * a4, 64), make_float4(k[0].y, k[1].y, k[2].y, k[3].y));
-        store_split(Kth, Ktl, usk::sw_tf32(c + 2, 4 * a4, 64), make_float4(k[0].z, k[1].z, k[2].z, k[3].z));
-        store_split(Kth, Ktl, usk::sw_tf32(c + 3, 4 * a4, 64), make_float4(k[0].w, k[1].w, k[2].w, k[3].w));
+        store_split4(Kth, Ktl, usk::sw_tf32(c, 4 * a4, 64), make_float4(k[0].x, k[1].x, k[2].x, k[3].x));
+        store_split4(Kth, Ktl, usk::sw_tf32(c + 1, 4 * a4, 64), make_float4(k[0].y, k[1].y, k[2].y, k[3].y));
+        store_split4(Kth, Ktl, usk::sw_tf32(c + 2, 4 * a4, 64), make_float4(k[0].z, k[1].z, k[2].z, k[3].z));
+        store_split4(Kth, Ktl, usk::sw_tf32(c + 3, 4 * a4, 64), make_float4(k[0].w, k[1].w, k[2].w, k[3].w));
     }
     if (tid < kBKey) {
         const int s = s0 + tid;
@@ -313,18 +255,18 @@ __global__ void __launch_bounds__(kThreads64, 1)
         for (int m = 0; m < 4; ++m) {
             x[m] = *reinterpret_cast<const float4*>(stq + q_row(m) * 64 + qc);
             y[m] = *reinterpret_cast<const float4*>(stdo + q_row(m) * 64 + qc);
-            store_split(Qh, Ql, usk::sw_tf32(q_row(m), qc, kQS), x[m]);
-            store_split(Dh, Dl, usk::sw_tf32(q_row(m), qc, kQS), y[m]);
+            store_split4(Qh, Ql, usk::sw_tf32(q_row(m), qc, kQS), x[m]);
+            store_split4(Dh, Dl, usk::sw_tf32(q_row(m), qc, kQS), y[m]);
         }
         const int col = 8 * (qjp >> 1) + 4 * (qjp & 1);
-        store_split(Qth, Qtl, usk::sw_tf32(qc, col, 64), make_float4(x[0].x, x[1].x, x[2].x, x[3].x));
-        store_split(Qth, Qtl, usk::sw_tf32(qc + 1, col, 64), make_float4(x[0].y, x[1].y, x[2].y, x[3].y));
-        store_split(Qth, Qtl, usk::sw_tf32(qc + 2, col, 64), make_float4(x[0].z, x[1].z, x[2].z, x[3].z));
-        store_split(Qth, Qtl, usk::sw_tf32(qc + 3, col, 64), make_float4(x[0].w, x[1].w, x[2].w, x[3].w));
-        store_split(Dth, Dtl, usk::sw_tf32(qc, col, 64), make_float4(y[0].x, y[1].x, y[2].x, y[3].x));
-        store_split(Dth, Dtl, usk::sw_tf32(qc + 1, col, 64), make_float4(y[0].y, y[1].y, y[2].y, y[3].y));
-        store_split(Dth, Dtl, usk::sw_tf32(qc + 2, col, 64), make_float4(y[0].z, y[1].z, y[2].z, y[3].z));
-        store_split(Dth, Dtl, usk::sw_tf32(qc + 3, col, 64), make_float4(y[0].w, y[1].w, y[2].w, y[3].w));
+        store_split4(Qth, Qtl, usk::sw_tf32(qc, col, 64), make_float4(x[0].x, x[1].x, x[2].x, x[3].x));
+        store_split4(Qth, Qtl, usk::sw_tf32(qc + 1, col, 64), make_float4(x[0].y, x[1].y, x[2].y, x[3].y));
+        store_split4(Qth, Qtl, usk::sw_tf32(qc + 2, col, 64), make_float4(x[0].z, x[1].z, x[2].z, x[3].z));
+        store_split4(Qth, Qtl, usk::sw_tf32(qc + 3, col, 64), make_float4(x[0].w, x[1].w, x[2].w, x[3].w));
+        store_split4(Dth, Dtl, usk::sw_tf32(qc, col, 64), make_float4(y[0].x, y[1].x, y[2].x, y[3].x));
+        store_split4(Dth, Dtl, usk::sw_tf32(qc + 1, col, 64), make_float4(y[0].y, y[1].y, y[2].y, y[3].y));
+        store_split4(Dth, Dtl, usk::sw_tf32(qc + 2, col, 64), make_float4(y[0].z, y[1].z, y[2].z, y[3].z));
+        store_split4(Dth, Dtl, usk::sw_tf32(qc + 3, col, 64), make_float4(y[0].w, y[1].w, y[2].w, y[3].w));
     };
     issue_step(0, 0);
     if (kBias) issue_bias(0);
@@ -349,7 +291,6 @@ __global__ void __launch_bounds__(kThreads64, 1)
         // a logit behind the -1e4 (T, S) mask rounds at 1e-3 there; such rows
         // carry dO = 0 into the backward, which multiplies their p by 0.)
         float st[16], dpt[16];
-        uint32_t keep = 0xffffffffu;  // bit 4 n + e: element 4 n + e
         usk::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk) {
@@ -366,58 +307,14 @@ __global__ void __launch_bounds__(kThreads64, 1)
         }
         usk::wgmma_commit();
         // while the products run: the keep bits
-        if (kDrop) {
-            uint32_t own = 0, other = 0;
-#pragma unroll
-            for (int m = 0; m < 2; ++m) {
-                const int n = 2 * m + (g & 1);
-#pragma unroll
-                for (int i = 0; i < 2; ++i) {
-                    const int s = s0 + kl0 + 8 * i, t = t0 + 8 * n + 2 * tq;
-                    const usk::Philox4 w = usk::philox4x32_10(
-                        (uint32_t)(s >> 1), (uint32_t)(t >> 1), (uint32_t)h, (uint32_t)b,
-                        (uint32_t)seed, (uint32_t)(seed >> 32));
-                    // word (s & 1) | (t & 1) << 1: this key's (t, t + 1) and the other key's
-                    const uint32_t e0 = (g & 1) ? w.x[1] : w.x[0];
-                    const uint32_t e1 = (g & 1) ? w.x[3] : w.x[2];
-                    const uint32_t o0 = (g & 1) ? w.x[0] : w.x[1];
-                    const uint32_t o1 = (g & 1) ? w.x[2] : w.x[3];
-                    const int sh = 4 * n + 2 * i;
-                    own |= ((uint32_t)(e0 >= a.threshold) | (uint32_t)(e1 >= a.threshold) << 1)
-                           << sh;
-                    other |= ((uint32_t)(o0 >= a.threshold) | (uint32_t)(o1 >= a.threshold) << 1)
-                             << sh;
-                }
-            }
-            keep = own | __shfl_xor_sync(0xffffffffu, other, 4);
-        }
+        const uint32_t keep = kDrop ? step_keep(a, seed, s0 + kl0, t0, g, tq, h, b) : 0xffffffffu;
         usk::wgmma_wait<0>();
         usk::fence_regs(st);
         usk::fence_regs(dpt);
 
         // p, p c and dS per element; st becomes p c, dpt dS
         float dg[4][2];  // dS * bias summed over this lane's keys
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-            dg[n][0] = dg[n][1] = 0.f;
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int kl = kl0 + 8 * (e >> 1), s = s0 + kl;
-                const int ql = 8 * n + 2 * tq + (e & 1), t = t0 + ql;
-                float x = st[4 * n + e] * a.scale;
-                const float bv = kBias ? bias_s[ql * kLdBias + kl] : 0.f;
-                if (kBias) x = __fadd_rn(x, __fmul_rn(rw[2 * kQS + ql], bv));
-                if (a.amask != nullptr && t < T && s < S) x = __fadd_rn(x, a.amask[(size_t)t * S + s]);
-                x += colneg[kl];
-                const float p = usk::ex2(fmaf(x, kLog2e, -rw[ql]));
-                const float c = kDrop ? (((keep >> (4 * n + e)) & 1u) ? a.drop_scale : 0.f) : 1.f;
-                const float ds = kDrop ? __fmul_rn(p, __fsub_rn(__fmul_rn(c, dpt[4 * n + e]), rw[kQS + ql]))
-                                       : __fmul_rn(p, __fsub_rn(dpt[4 * n + e], rw[kQS + ql]));
-                st[4 * n + e] = kDrop ? __fmul_rn(p, c) : p;
-                dpt[4 * n + e] = ds;
-                if (kBias) dg[n][e & 1] = fmaf(ds, bv, dg[n][e & 1]);
-            }
-        }
+        step_probs<kBias, kDrop>(a, st, dpt, dg, keep, rw, bias_s, colneg, kl0, tq, s0, t0);
         // dV += (p c)^T.dO: A = (p c)^T from the registers (k index permuted:
         // k tq <-> query 2 tq, k tq + 4 <-> 2 tq + 1; dO^T's columns are in
         // that order), three products per 8 queries into a fresh accumulator;
@@ -913,11 +810,13 @@ cudaError_t launch(const Maps& maps, const Args& a, dim3 grid, cudaStream_t st) 
                               : launch64<true, false>(maps, a, grid, st);
         return drop ? launch64<false, true>(maps, a, grid, st) : launch64<false, false>(maps, a, grid, st);
     }
+    if (a.hd <= 80) return launch_mid_any<80>(maps, a, grid, st);
+    if (a.hd <= kMidMaxHd) return launch_mid_any<96>(maps, a, grid, st);
     if (bias) return drop ? launch_wide<true, true>(a, grid, st) : launch_wide<true, false>(a, grid, st);
     return drop ? launch_wide<false, true>(a, grid, st) : launch_wide<false, false>(a, grid, st);
 }
 
-}  // namespace
+}  // namespace usk_attn_bwd_f32
 
 // q, out, dout (B, T, H, hd) and k, v (B, S, H, hd) fp32 by (batch, row)
 // strides in elements, rows of H hd contiguous floats, 16-byte aligned; lse
@@ -936,11 +835,12 @@ extern "C" int usk_flash_attention_bwd_f32(
     const void* amask, void* dq, void* dk, void* dv, void* dgate, void* dbias, int B, int T,
     int S, int H, int hd, float scale, void* rows, unsigned threshold, float drop_scale,
     const void* seed, void* stream) {
+    using namespace usk_attn_bwd_f32;
     if (hd < 8 || hd > kMaxHd || hd % 8 != 0 || B > 65535 || H > 65535)
         return (int)cudaErrorInvalidValue;
     const int n_kt = (S + kBKey - 1) / kBKey;
     Maps maps = {};
-    if (hd <= 64) {
+    if (hd <= kMidMaxHd) {
         const uint64_t qdims[4] = {(uint64_t)hd, (uint64_t)H, (uint64_t)T, (uint64_t)B};
         const uint64_t qstrides[3] = {(uint64_t)hd * 4, (uint64_t)H * hd * 4,
                                       (uint64_t)T * H * hd * 4};

@@ -40,6 +40,9 @@ _FWD_SIGNATURE = [_P] * 4 + [_L] * 8 + [_P, _L] + [_P] * 4 + [_I] * 5 + [_F, _P,
 _BWD_SIGNATURE = ([_P] * 6 + [_L] * 10 + [_P, _L] + [_P] * 8 + [_I] * 5
                   + [_F, _P, _U, _F, _P, _P])
 MAX_HEAD_DIM = 128  # the kernels' widest head (two 64-column boxes per row)
+# the fp32 backward's widths (``csrc/flash_attention_bwd_f32.cu`` ``launch``):
+# TF32 wgmma forms at 64, 80 and 96 columns, 3xTF32 mma.sync at 128
+BWD_F32_WIDTHS = (64, 80, 96, 128)
 
 
 def _dropout_scale(rate: float) -> torch.Tensor:
@@ -143,6 +146,14 @@ def kernel_head_dim(hd: int) -> int:
     _build.require(1 <= hd <= MAX_HEAD_DIM,
                    f"attention kernels take head dims 1-{MAX_HEAD_DIM}, got {hd}")
     return -(-hd // 8) * 8
+
+
+def backward_f32_width(hd: int) -> int:
+    """The width of the fp32 backward kernel that runs head dim ``hd`` (a
+    multiple of 8 up to ``MAX_HEAD_DIM``, as ``kernel_head_dim`` gives it):
+    the narrowest of ``BWD_F32_WIDTHS`` that holds it. Columns from hd to
+    the width are zeros in its tiles and are never written out."""
+    return next(w for w in BWD_F32_WIDTHS if hd <= w)
 
 
 def pad_head(x: torch.Tensor, hd: int) -> torch.Tensor:

@@ -10,7 +10,9 @@ four cases: full, without dropout, without the gated bias, without either.
 smoke batch (4 rows of 799 frames, 599/349/149 valid in three, 16 heads of
 80; its path runs the case without the bias).
 ``--dtype fp32``: the same in fp32, the models' default dtype (the fp32
-kernel, ``csrc/flash_attention_bwd_f32.cu``), with each output's relative L2
+kernel, ``csrc/flash_attention_bwd_f32.cu``, at the width
+``flash_attention.backward_f32_width`` gives the head dim: 64 at the
+pretraining shape, 80 at X-Large's), with each output's relative L2
 distance to the plain version.
 For each it prints ms per call by CUDA events around 20 calls queued behind
 a busy card (the wrapper's zero fills and casts included), the device
@@ -152,6 +154,8 @@ def main(argv=None) -> Dict[str, float]:
     cases = {"full": (bias, gate, 0.1, seed), "no_dropout": (bias, gate, 0.0, None),
              "no_bias": (None, None, 0.1, seed), "neither": (None, None, 0.0, None)}
     card = torch.cuda.get_device_name(dev).replace(" ", "_")
+    hd = SHAPES[args.shape][3]
+    width = f" width={flash_attention.backward_f32_width(hd)}" if f32 else ""
     res = {}
     for case, (bb, gg, rate, sd) in cases.items():
         fn = lambda: flash_attention.fused_attention_backward(  # noqa: E731
@@ -168,7 +172,7 @@ def main(argv=None) -> Dict[str, float]:
         sdpa = queued_ms(library_backward(q, k, v, bb, gg, kpm, rate, dout), ITERS)
         print(f"{args.shape} {args.dtype} {case:10s} call_ms={call:.4f} {kernel}_ms={kern:.4f}"
               f" bound_ms={bound_ms(args.shape, 4 if f32 else 2, bb is not None):.4f}"
-              f" sdpa_bwd_ms={sdpa:.4f}"
+              f" sdpa_bwd_ms={sdpa:.4f}{width}"
               f"{err} {card}", flush=True)
         res[case] = kern
     return res
