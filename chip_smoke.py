@@ -58,12 +58,19 @@ Phases, one line each (any failure raises and exits non-zero):
              reductions: dbias) within 1e-5 of the sum of |terms| per
              element, lse 1e-4 on the rows with a key, the dropout
              forward's keep mask equal to attention_keep over all 768
-             keys; then the attention backward above head dim 64 (its
-             width-80 and width-128 forms): X-Large's 16 heads of 80 over
-             its frames of the smoke batch and a fifth row of length 0, hd
-             72 and 128 on 3 rows of 333 (one of length 0), each with key
-             padding and dropout 0.1 (no bias) and with the gated bias and
-             key padding, by the same rules, two launches per call
+             keys; then the attention forward and backward above head dim
+             64 (their width-80, width-96 and width-128 forms): X-Large's
+             16 heads of 80 over its frames of the smoke batch and a fifth
+             row of length 0, hd 72, 96 and 128 on 3 rows of 333 (one of
+             length 0); the forward with key padding and dropout 0.1 (no
+             bias), with the gated bias and key padding, and with key
+             padding and a (T, S) -1e4 band mask (every key tile runs):
+             out by the products' rule (the rows whose open keys all sit
+             behind the band within 2^-10, one fp32 ulp at 1e4), lse 1e-4
+             plus 2 ulps on the rows with a key, one launch per call, the
+             row of length 0 the mean of v where there is no dropout; the
+             backward in the first two
+             forms by the same rules, two launches per call
     fp32_train, fp32_large_train  phase 8's pretraining steps with the
              models built without a dtype (fp32, the default): launches per
              step as in bf16, the gradients against the plain path per
@@ -160,8 +167,8 @@ Phases, one line each (any failure raises and exits non-zero):
              head; step ms, host enqueue, audio-seconds per second, peak
              memory, a profiled unfrozen step; rows 1fX (the fp32 forward
              at hd 80 per eval forward), 1dfX (with dropout per unfrozen
-             step) and 2fX against their plain versions by f32_check, with
-             bound and SDPA in fp32
+             step) and 2fX (the width-80 forms, csrc/*_f32_mid.cu) against
+             their plain versions by f32_check, with bound and SDPA in fp32
     s2s_train  seq2seq fine-tuning at WavLM-Large's full width (the model
              finetune-seq2seq --arch large builds: the encoder as ctc_train,
              the default decoder 768 wide, 3072 FFN, 6 layers, 4 heads,
@@ -2371,20 +2378,23 @@ def xlarge_attention_rows(dev, lengths, xl, dtype=torch.bfloat16):
     boolean key mask; dropout_p for the backward). ``dtype`` fp32 (``xl``
     from fp32_xlarge): rows 1fX, 1dfX (the dropout forward per unfrozen
     step) and 2fX, held by f32_check, their bounds as 3xTF32 at the TF32
-    peak, SDPA in fp32."""
+    peak, SDPA in fp32; their source is the width-80 forms' (``_mid.cu``)."""
     from unispeech_tpu_torch.ops.kernels import TF32_TC_FLOPS, flash_attention
 
     f32 = dtype == torch.float32
     pre_, src, esz = ("fp32.", "_f32.cu", 4) if f32 else ("", ".cu", 2)
+    enc = xlarge_config(0).encoder
+    hd = enc.encoder_embed_dim // enc.encoder_attention_heads
+    if f32 and flash_attention.f32_width(hd) in (80, 96):  # the width-80 / width-96 forms
+        src = "_f32_mid.cu"
     mult, peak = (3, TF32_TC_FLOPS) if f32 else (1, BF16_TC_FLOPS)
 
     def check(name, got, want, ulps=1.0):
         return f32_check(name, got, want) if f32 else compare(name, got, want, tol_ulps=ulps)
 
-    enc = xlarge_config(0).encoder
     gen = torch.Generator().manual_seed(SEED + 35)
     B, T = len(lengths), enc.num_frames(int(lengths.max()))
-    H, hd = enc.encoder_attention_heads, enc.encoder_embed_dim // enc.encoder_attention_heads
+    H = enc.encoder_attention_heads
     q, kk, v = (torch.randn(B, T, H, hd, generator=gen).to(dev, dtype) for _ in range(3))
     frames = torch.tensor([enc.num_frames(int(n)) for n in lengths.cpu()], device=dev)
     kpm = torch.arange(T, device=dev)[None, :] >= frames[:, None]
@@ -3904,6 +3914,12 @@ def speaker_phase(dev, tmp, files):
 F32_REL_L2, F32_MAX_OF_SCALE = 1e-5, 1e-4
 # the fp32 features, kernel path against plain path through 12 or 24 layers
 F32_MODEL_REL_L2 = 1e-4
+# a query row whose open keys all sit behind a -1e4 (T, S) mask has logits
+# near -1e4, where one fp32 ulp is 2^-10: the kernel and the plain version
+# each round them to half an ulp, so the last bits of S flip p there by up
+# to an ulp (tests/test_torch_attn_fwd_f32_mid_layout.py); other rows take
+# F32_REL_L2
+F32_BEHIND_MASK_REL_L2 = 2.0 ** -10
 
 
 def f32_check(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -4239,19 +4255,78 @@ def tf32_pin_phase(dev, wav, lengths, base_cfg):
     return e_model, e_head
 
 
-XL_F32_HEAD_DIMS = (72, 128)  # the ends of the fp32 backward's wide range, beside 80
+# beside X-Large's 80: the narrowest head of width 80, and widths 96 and 128
+XL_F32_HEAD_DIMS = (72, 96, 128)
+
+
+def fp32_wide_forward_parity(dev, q, kk, v, bias, gate, kpm, seed, frames):
+    """The fp32 forward above head dim 64, in three forms: key padding with
+    dropout 0.1 and no bias (X-Large's), the gated bias with key padding,
+    and key padding with a (T, S) -1e4 band mask (which runs every key
+    tile): out by f32_check (with the band mask on the rows with an open
+    key inside the band; the rows whose open keys all sit behind it within
+    F32_BEHIND_MASK_REL_L2), lse within 1e-4 plus 2 fp32 ulps of |lse| on
+    the rows with a key (the card tests' rule: a row whose open keys all
+    sit behind the -1e4 mask has an lse near -1e4, where one ulp is 1e-3),
+    one launch per call; without dropout the row of length 0 is uniform
+    over its S keys (the mean of v) in the kernel and the plain version.
+    Returns the max abs error of out."""
+    from unispeech_tpu_torch.ops.kernels import flash_attention
+
+    B, T, H, hd = q.shape
+    idx = torch.arange(T, device=dev)
+    band = torch.where((idx[:, None] - idx[None, :]).abs() > 40, -1e4, 0.0)
+    valid = frames > 0
+    err = 0.0
+    for form, kw in (("nobias_kpm_drop", dict(key_padding_mask=kpm, dropout_rate=0.1,
+                                              dropout_seed=seed)),
+                     ("bias_gate_kpm", dict(bias=bias, gate=gate, key_padding_mask=kpm)),
+                     ("kpm_band_mask", dict(key_padding_mask=kpm, attn_mask=band))):
+        name = f"fp32.fused_attention.hd{hd}.h{H}.{form}"
+        before = flash_attention.launches
+        out, lse = flash_attention.fused_attention(q, kk, v, **kw, return_lse=True)
+        torch.cuda.synchronize()
+        if flash_attention.launches != before + 1:
+            fail(f"{name}: {flash_attention.launches - before} launches, not 1")
+        pout, plse = flash_attention.fused_attention_plain(q, kk, v, **kw, return_lse=True)
+        if "attn_mask" in kw:
+            open_keys = ~kpm[:, None, :]
+            in_band = (open_keys & (band == 0)[None]).any(-1)
+            behind = open_keys.any(-1) & ~in_band
+            err = max(err, f32_check(name + ".rows_open_in_band", out[in_band], pout[in_band]))
+            rel = rel_l2(out[behind], pout[behind]) if behind.any() else 0.0
+            phase("fp32", parity=f"{name}.rows_behind_mask", rows=int(behind.sum()),
+                  rel_l2=f"{rel:.3g}", tol=f"rel_l2<={F32_BEHIND_MASK_REL_L2}")
+            if not (torch.isfinite(out).all() and rel <= F32_BEHIND_MASK_REL_L2):
+                fail(f"{name}: rows behind the mask at relative L2 {rel}, or non-finite")
+        else:
+            err = max(err, f32_check(name, out, pout))
+        lse_err = float(((lse[valid] - plse[valid]).abs()
+                         - 2 * 2.0 ** -23 * plse[valid].abs()).max())
+        phase("fp32", parity=f"{name}.lse", excess_over_2_ulps=f"{lse_err:.3g}", tol=1e-4)
+        if not lse_err <= 1e-4:
+            fail(f"{name}: lse off by {lse_err} beyond 2 ulps")
+        if "dropout_rate" not in kw:
+            for b in (~valid).nonzero().flatten().tolist():
+                mean = v[b].mean(0, keepdim=True).expand(T, H, hd)
+                f32_check(f"{name}.len0_row{b}", out[b], mean)
+                f32_check(f"{name}.len0_row{b}.plain", pout[b], mean)
+        del out, lse, pout, plse
+    return err
 
 
 def fp32_wide_attention_parity(dev):
-    """fp32_bwd above head dim 64: the fp32 attention backward at X-Large's 16
-    heads of 80 over its frames of the smoke batch (799/599/349/149) and a
-    fifth row of length 0, and at hd 72 and 128 on 3 rows of 333 frames
-    (333/200/0) and 4 heads; each in the two forms that reach the wide
-    kernels: key padding with dropout 0.1 and no bias (X-Large's), and the
-    gated bias with key padding. dO is 0 on the row of length 0 (ROADMAP
-    3.5); both backwards take the plain forward's out and lse. dq, dk, dv by
+    """fp32_bwd above head dim 64: the fp32 attention forward
+    (fp32_wide_forward_parity) and backward at X-Large's 16 heads of 80
+    over its frames of the smoke batch (799/599/349/149) and a fifth row of
+    length 0, and at hd 72, 96 and 128 on 3 rows of 333 frames (333/200/0)
+    and 4 heads. The backward in the two forms that reach the wide kernels:
+    key padding with dropout 0.1 and no bias (X-Large's), and the gated bias
+    with key padding. dO is 0 on the row of length 0 (ROADMAP 3.5); both
+    backwards take the plain forward's out and lse. dq, dk, dv by
     f32_check; dbias and dgate within 1e-5 of the sum of |terms|; two
-    launches per call. Returns the max abs error of dq, dk, dv."""
+    launches per call. Returns the max abs error of the forward's out and
+    of dq, dk, dv."""
     from unispeech_tpu_torch.ops.kernels import flash_attention
     from unispeech_tpu_torch.ops.kernels.sum_terms import attn_terms
 
@@ -4273,6 +4348,7 @@ def fp32_wide_attention_parity(dev):
         seed = torch.randint(0, 2**62, (1,), generator=gen, dtype=torch.int64).to(dev)
         dout = (torch.randn(B, T, H, hd, generator=gen) * 1e-2).to(dev)
         dout = dout * (fr > 0)[:, None, None, None]
+        err = max(err, fp32_wide_forward_parity(dev, q, kk, v, bias, gate, kpm, seed, fr))
         for form, kw in (("nobias_kpm_drop", dict(key_padding_mask=kpm, dropout_rate=0.1,
                                                   dropout_seed=seed)),
                          ("bias_gate_kpm", dict(bias=bias, gate=gate, key_padding_mask=kpm))):

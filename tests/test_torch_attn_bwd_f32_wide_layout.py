@@ -5,7 +5,7 @@ form in ``flash_attention_bwd_f32_mid.cu``, their shared pieces in
 ``flash_attention_bwd_f32.cuh``) runs only on the card.
 These tests hold what its host side and its layout decide, at head dims 72,
 80, 120 and 128 (and 88, 96 where a width is at stake):
-- the width each head dim runs at (``flash_attention.backward_f32_width``)
+- the width each head dim runs at (``flash_attention.f32_width``)
   against the source's dispatch; the width-80 / width-96 form's shared
   memory (its formulas read from the source) within a block's 227 KB, its
   swizzled tiles 1024-byte aligned, and its fp32 K / V rows read without a
@@ -96,9 +96,9 @@ def test_width_follows_the_source_dispatch(hd):
     assert re.search(r"if \(a\.hd <= 64\) \{", src)
     assert re.search(r"if \(a\.hd <= 80\) return launch_mid_any<80>", src)
     assert re.search(r"if \(a\.hd <= kMidMaxHd\) return launch_mid_any<96>", src)
-    assert fa.BWD_F32_WIDTHS == (64, 80, const["kMidMaxHd"], const["kMaxHd"])
+    assert fa.F32_WIDTHS == (64, 80, const["kMidMaxHd"], const["kMaxHd"])
     want = 64 if hd <= 64 else 80 if hd <= 80 else 96 if hd <= const["kMidMaxHd"] else 128
-    assert fa.backward_f32_width(hd) == want
+    assert fa.f32_width(hd) == want
     assert fa.kernel_head_dim(hd) == hd
 
 
@@ -219,7 +219,7 @@ def _emulate(q, k, v, bias, gate, kpm, rate, seed, out, lse, dout):
     dk, dv, dbias, dgate) as the wrapper does."""
     B, T, H, hd = q.shape
     S = k.shape[1]
-    kD = fa.backward_f32_width(hd)
+    kD = fa.f32_width(hd)
     qk, kscale = fa.kernel_q(q)
     pad = lambda x: torch.nn.functional.pad(x, (0, kD - hd))  # noqa: E731
     qp, kp, vp, dp = pad(qk), pad(k), pad(v), pad(dout)

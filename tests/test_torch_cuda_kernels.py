@@ -981,10 +981,11 @@ def _attn_fp32_inputs(dev, hd, B, T, H, case):
     return q, k, v, lengths, kw
 
 
-# 72 and 80 run the backward's width-80 form, 120 and 128 the width-128 one
-FP32_ATTN_HDS = [16, 24, 36, 64, 72, 80, 120, 128]
+# 72 and 80 run the forward's and the backward's width-80 forms, 88 and 96
+# their width-96 forms, 120 and 128 the width-128 ones
+FP32_ATTN_HDS = [16, 24, 36, 64, 72, 80, 88, 96, 120, 128]
 # T = S of 1, 63, 65, 129 and 799 cross the fp32 kernels' tiles: the forward's
-# 64-key steps and 128-query blocks (64 at width 128), the backward's 64-key
+# 64-key steps and 128-query blocks (64 at widths 96 and 128), the backward's 64-key
 # blocks and 32-query steps (33 and 63 one row past and short of a step)
 FP32_ATTN_SHAPES = [(1, 1, 1), (3, 65, 4), (2, 200, 3), (4, 799, 2), (2, 63, 3), (3, 129, 2),
                     (2, 33, 2)]

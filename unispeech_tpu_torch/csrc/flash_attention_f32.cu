@@ -26,7 +26,9 @@
 //  - products on wgmma (TF32, m64n64k8, fp32 accumulators in registers) by
 //    warpgroups of 64 queries, two per (128-query tile, head, utterance) at
 //    kD = 64 (195 KB of shared memory, one block per SM), one (64 queries)
-//    at kD = 128 (hd 72-128, which no fp32 model of the family has). TF32
+//    at kD = 128 (hd 104-128, which no model of the family has; hd 72-96,
+//    HuBERT X-Large's 80 among them, run the width-80 / width-96 form of
+//    flash_attention_f32_mid.cu, whose head says how it differs). TF32
 //    wgmma reads shared-memory operands only K-major, in the 128-byte
 //    swizzle (hopper.cuh: rows of 32 floats, atoms of 8 rows);
 //  - split once: the block's threads split q (once) and K and V (once per
@@ -71,21 +73,10 @@
 // accumulator elements by their (t, s), before P is permuted into the A
 // fragments of P.V.
 
-#include <math.h>
+#include "flash_attention_f32.cuh"
 
-#include "common.cuh"
-#include "hopper.cuh"
-#include "philox.cuh"
-#include "tf32.cuh"
-
+namespace usk_attn_fwd_f32 {
 namespace {
-
-constexpr int kBKey = 64;  // keys per step
-constexpr int kMaxHd = 128;
-// the padded-key logit: -2^100 absorbs any finite logit it is added to, so
-// an all-padded row is uniform over its keys, as the plain softmax's
-constexpr float kPadNeg = -1267650600228229401496703205376.0f;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // the width-kD kernel's block and shared memory (bytes, from a 1024-byte
 // aligned base): q hi and lo, then kBuf stages of K hi, K lo, V^T hi, V^T lo
@@ -107,23 +98,6 @@ struct Plan {
     static constexpr int kUnitsQ = kBQ * (kD / 4) / kThreads;
     static constexpr int kUnitsK = kBKey * (kD / 4) / kThreads;
     static constexpr int kUnitsV = (kBKey / 4) * (kD / 4) / kThreads;
-};
-
-struct Args {
-    const float *q, *k, *v;
-    float* out;
-    long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs;
-    const float* bias;  // (H, T, S) rows bias_rs apart, heads T rows apart
-    long long bias_rs;
-    const float* gate;     // (B, H, T) or null
-    const uint8_t* kpm;    // (B, S) or null
-    const float* amask;    // (T, S) or null
-    float* lse;            // (B, H, T) or null
-    const long long* seed; // dropout seed (1 element) or null: no dropout
-    unsigned threshold;    // keep iff the Philox word >= threshold
-    float drop_scale;      // 1 / (1 - rate)
-    int T, S, H, hd;
-    float scale;
 };
 
 template <int kD, bool kDrop>
@@ -149,13 +123,6 @@ __global__ void __launch_bounds__(Plan<kD>::kThreads, 1) flash_fwd_f32_kernel(Ar
             return __ldg(reinterpret_cast<const float4*>(src + b * bs + row * rs +
                                                          (long long)h * hd + c));
         return make_float4(0.f, 0.f, 0.f, 0.f);
-    };
-    // x split into the hi and lo tiles at byte offset off
-    auto store_split = [&](unsigned char* hi, unsigned char* lo, uint32_t off, float4 x) {
-        const float2 p0 = usk::split_pair(x.x), p1 = usk::split_pair(x.y);
-        const float2 p2 = usk::split_pair(x.z), p3 = usk::split_pair(x.w);
-        *reinterpret_cast<float4*>(hi + off) = make_float4(p0.x, p1.x, p2.x, p3.x);
-        *reinterpret_cast<float4*>(lo + off) = make_float4(p0.y, p1.y, p2.y, p3.y);
     };
     auto key_mask = [&](int s) {
         if (s >= S) return -INFINITY;
@@ -450,6 +417,7 @@ cudaError_t launch_width(const Args& a, int B, cudaStream_t st) {
 }
 
 }  // namespace
+}  // namespace usk_attn_fwd_f32
 
 // q (B, T, H, hd), k / v (B, S, H, hd) fp32 by (batch, row) strides in
 // elements, rows of H hd contiguous floats, every row 16-byte aligned; out
@@ -458,7 +426,8 @@ cudaError_t launch_width(const Args& a, int B, cudaStream_t st) {
 // bool or null; amask (T, S) fp32 or null; lse (B, H, T) fp32 or null;
 // seed a 1-element int64 dropout seed or null (no dropout), threshold and
 // drop_scale its keep threshold and 1 / (1 - rate); hd a multiple of 8 up
-// to 128
+// to 128: <= 64 runs width 64, 72-80 width 80, 88-96 width 96
+// (flash_attention_f32_mid.cu), 104-128 width 128
 extern "C" int usk_flash_attention_fwd_f32(
     const void* q, const void* k, const void* v, void* out,
     long long q_bs, long long q_rs, long long k_bs, long long k_rs,
@@ -466,6 +435,7 @@ extern "C" int usk_flash_attention_fwd_f32(
     const void* bias, long long bias_rs, const void* gate, const void* kpm, const void* amask,
     void* lse, int B, int T, int S, int H, int hd, float scale, const void* seed,
     unsigned threshold, float drop_scale, void* stream) {
+    using namespace usk_attn_fwd_f32;
     if (hd < 8 || hd > kMaxHd || hd % 8 != 0 || B > 65535 || H > 65535)
         return (int)cudaErrorInvalidValue;
     Args a;
@@ -488,5 +458,7 @@ extern "C" int usk_flash_attention_fwd_f32(
     a.scale = scale;
     cudaStream_t s = (cudaStream_t)stream;
     if (hd <= 64) return (int)launch_width<64>(a, B, s);
+    if (hd <= 80) return (int)launch_mid<80>(a, B, s);
+    if (hd <= kMidMaxHd) return (int)launch_mid<96>(a, B, s);
     return (int)launch_width<128>(a, B, s);
 }

@@ -5,7 +5,8 @@ softmax(q*scale . k^T + gate * bias + attn_mask - 1e30 * keypad), dropout on
 the probabilities, . v, and its merged backward, without a (B, H, T, S)
 tensor in device memory. The CUDA kernels (``csrc/flash_attention.cu``,
 ``csrc/flash_attention_bwd.cu`` in bf16; ``csrc/flash_attention_f32.cu``,
-``csrc/flash_attention_bwd_f32.cu`` in fp32) read q/k/v by strides in the natural
+``csrc/flash_attention_bwd_f32.cu`` in fp32, their width-80 / width-96 forms
+in the ``_mid.cu`` beside each, ``f32_width``) read q/k/v by strides in the natural
 (B, T, H*hd) layout, which covers both of the TPU's layouts, at any head dim
 up to 128: a multiple of 8 as it is, any other on a copy zero-padded to the
 next multiple of 8 (``kernel_head_dim``, ``pad_head``). q is scaled as the
@@ -40,9 +41,10 @@ _FWD_SIGNATURE = [_P] * 4 + [_L] * 8 + [_P, _L] + [_P] * 4 + [_I] * 5 + [_F, _P,
 _BWD_SIGNATURE = ([_P] * 6 + [_L] * 10 + [_P, _L] + [_P] * 8 + [_I] * 5
                   + [_F, _P, _U, _F, _P, _P])
 MAX_HEAD_DIM = 128  # the kernels' widest head (two 64-column boxes per row)
-# the fp32 backward's widths (``csrc/flash_attention_bwd_f32.cu`` ``launch``):
-# TF32 wgmma forms at 64, 80 and 96 columns, 3xTF32 mma.sync at 128
-BWD_F32_WIDTHS = (64, 80, 96, 128)
+# the fp32 kernels' widths, forward (``csrc/flash_attention_f32.cu``'s entry)
+# and backward (``csrc/flash_attention_bwd_f32.cu``'s ``launch``) alike: 64,
+# 80 and 96 (the ``_mid.cu`` forms) and 128
+F32_WIDTHS = (64, 80, 96, 128)
 
 
 def _dropout_scale(rate: float) -> torch.Tensor:
@@ -148,12 +150,12 @@ def kernel_head_dim(hd: int) -> int:
     return -(-hd // 8) * 8
 
 
-def backward_f32_width(hd: int) -> int:
-    """The width of the fp32 backward kernel that runs head dim ``hd`` (a
-    multiple of 8 up to ``MAX_HEAD_DIM``, as ``kernel_head_dim`` gives it):
-    the narrowest of ``BWD_F32_WIDTHS`` that holds it. Columns from hd to
-    the width are zeros in its tiles and are never written out."""
-    return next(w for w in BWD_F32_WIDTHS if hd <= w)
+def f32_width(hd: int) -> int:
+    """The width of the fp32 kernels, forward and backward, that run head
+    dim ``hd`` (a multiple of 8 up to ``MAX_HEAD_DIM``, as ``kernel_head_dim``
+    gives it): the narrowest of ``F32_WIDTHS`` that holds it. Columns from hd
+    to the width are zeros in their tiles and are never written out."""
+    return next(w for w in F32_WIDTHS if hd <= w)
 
 
 def pad_head(x: torch.Tensor, hd: int) -> torch.Tensor:

@@ -11,7 +11,7 @@ smoke batch (4 rows of 799 frames, 599/349/149 valid in three, 16 heads of
 80; its path runs the case without the bias).
 ``--dtype fp32``: the same in fp32, the models' default dtype (the fp32
 kernel, ``csrc/flash_attention_bwd_f32.cu``, at the width
-``flash_attention.backward_f32_width`` gives the head dim: 64 at the
+``flash_attention.f32_width`` gives the head dim: 64 at the
 pretraining shape, 80 at X-Large's), with each output's relative L2
 distance to the plain version.
 For each it prints ms per call by CUDA events around 20 calls queued behind
@@ -155,7 +155,7 @@ def main(argv=None) -> Dict[str, float]:
              "no_bias": (None, None, 0.1, seed), "neither": (None, None, 0.0, None)}
     card = torch.cuda.get_device_name(dev).replace(" ", "_")
     hd = SHAPES[args.shape][3]
-    width = f" width={flash_attention.backward_f32_width(hd)}" if f32 else ""
+    width = f" width={flash_attention.f32_width(hd)}" if f32 else ""
     res = {}
     for case, (bb, gg, rate, sd) in cases.items():
         fn = lambda: flash_attention.fused_attention_backward(  # noqa: E731
