@@ -61,7 +61,7 @@ Phases, one line each (any failure raises and exits non-zero):
              keys; then the attention forward and backward above head dim
              64 (their width-80, width-96 and width-128 forms): X-Large's
              16 heads of 80 over its frames of the smoke batch and a fifth
-             row of length 0, hd 72, 96 and 128 on 3 rows of 333 (one of
+             row of length 0, hd 72, 96, 104, 120 and 128 on 3 rows of 333 (one of
              length 0); the forward with key padding and dropout 0.1 (no
              bias), with the gated bias and key padding, and with key
              padding and a (T, S) -1e4 band mask (every key tile runs):
@@ -117,8 +117,9 @@ Phases, one line each (any failure raises and exits non-zero):
              --arch large --fsdp with the multi-process flags (NCCL, world
              size 1) on the pipeline's files for 2 updates, its losses
              against the pipeline's unsharded run; the bench's Large config
-             (dropout 0, a precomputed mask) one step on 4 crops of 245,840
-             samples in one process, then in two processes on the card over
+             at 4 of its 24 layers (dropout 0, a precomputed mask) one step
+             on 4 crops of 245,840 samples in one process, then in two
+             processes on the card over
              gloo on a (2, 1) mesh (2 rows each) and a (1, 2) mesh (tensor
              parallel, 8 heads each): every gradient tensor against the
              one-process step's by the train gate, sample size, loss and
@@ -169,6 +170,17 @@ Phases, one line each (any failure raises and exits non-zero):
              at hd 80 per eval forward), 1dfX (with dropout per unfrozen
              step) and 2fX (the width-80 forms, csrc/*_f32_mid.cu) against
              their plain versions by f32_check, with bound and SDPA in fp32
+    fp32_xlsr2b  fp32_xlarge's checks and gates on CTC fine-tuning at XLS-R
+             2B's width (1920 wide, FFN 7680, 16 heads of 120, the
+             positional conv in 16 groups of 120; 12 of its 48 layers;
+             fp32, seed 0, 565,894,176 parameters): launches (1, 0, 12, 0,
+             12, 0) per eval forward, attention 12 / 24 forward and 0 / 24
+             backward per frozen / unfrozen step, the learning steps at
+             lr 3.33e-5 (5e-5 at the other widths); rows 1fW (the fp32
+             forward at hd 120 per eval forward, the width-128 form,
+             csrc/flash_attention_f32_wide.cu), 1dfW (with dropout per
+             unfrozen step) and 2fW (the backward per unfrozen step,
+             csrc/flash_attention_bwd_f32.cu's width-128 form)
     s2s_train  seq2seq fine-tuning at WavLM-Large's full width (the model
              finetune-seq2seq --arch large builds: the encoder as ctc_train,
              the default decoder 768 wide, 3072 FFN, 6 layers, 4 heads,
@@ -265,7 +277,8 @@ Phases, one line each (any failure raises and exits non-zero):
              dropout forward per fp32 train step (SDPA fp32, the fp32
              F.conv1d input + weight backward and the L1's fp32 weight
              backward as library calls); the fp32 X-Large step
-             (e2e_fp32_xlarge, beside the bf16 step); audio-seconds per second of
+             (e2e_fp32_xlarge, beside the bf16 step) and the fp32 step at
+             XLS-R 2B's width (e2e_fp32_xlsr2b); audio-seconds per second of
              the forward, of the train steps, of the fine-tuning steps and
              of the UniSpeech and UniSpeech-SAT steps; the speaker CLIs'
              seconds per call, trials/s, DER and peak memory
@@ -1316,12 +1329,17 @@ DIST_LOSS_TOL = 1e-2
 WORKER_TIMEOUT = 400
 
 
+DIST_LAYERS = 4  # of Large's 24: the gates compare ranks with one process at any depth
+
+
 def dist_model_config():
-    """The bench's Large config with dropout, layerdrop and activation
-    dropout 0: one step across ranks computes what one process computes."""
+    """The bench's Large config at DIST_LAYERS layers (width, heads and FFN
+    Large's) with dropout, layerdrop and activation dropout 0: one step
+    across ranks computes what one process computes."""
     from unispeech_tpu_torch.configs import HubertPretrainConfig, MaskConfig, large_encoder_config
 
-    enc = large_encoder_config(relative_position_embedding=True, gru_rel_pos=True,
+    enc = large_encoder_config(encoder_layers=DIST_LAYERS,
+                               relative_position_embedding=True, gru_rel_pos=True,
                                encoder_layerdrop=0.0, dropout=0.0, attention_dropout=0.0,
                                activation_dropout=0.0, remat_ffn=True, remat_layers=False,
                                scan_layers=False)
@@ -2107,24 +2125,37 @@ def ctc_pipeline_phase(counters, tmp):
 XLARGE_JSON = json.dumps(dict(encoder_layers=48, encoder_embed_dim=1280,
                               encoder_ffn_embed_dim=5120, encoder_attention_heads=16,
                               relative_position_embedding=False, gru_rel_pos=False))
+# XLS-R 2B (Babu et al., arXiv:2111.09296, Table 1: 48 layers, width 1920,
+# FFN 7680, 16 heads of 120), the widest head of the wav2vec 2.0 line, on
+# the same pre-LN, layer_norm-extractor encoder; 12 of its 48 layers, to fit
+# chip_smoke.py's time
+XLSR2B_JSON = json.dumps(dict(encoder_layers=12, encoder_embed_dim=1920,
+                              encoder_ffn_embed_dim=7680, encoder_attention_heads=16,
+                              relative_position_embedding=False, gru_rel_pos=False))
 XL_HEAD_DIMS = (16, 24, 32, 36, 80, 120, 128)  # 36 runs on a copy padded to 40
 # over XL_LEARN_STEPS = 5 the loss falls from ~8.1 to ~5.3 in both dtypes
 XL_FREEZE, XL_STEPS, XL_LEARN_STEPS = 2, 5, 5
 
 
-def xlarge_config(freeze: int):
+def xlarge_config(freeze: int, encoder_json: str = XLARGE_JSON):
     """The CtcFinetuneModel finetune-ctc --arch large --encoder-json
-    XLARGE_JSON builds: X-Large's encoder (dropout 0.1, attention dropout
-    0.1, remat_layers), time mask 0.65/10, final dropout 0.1, the letter
-    dictionary."""
+    XLARGE_JSON (or ``encoder_json``) builds: X-Large's encoder (dropout
+    0.1, attention dropout 0.1, remat_layers), time mask 0.65/10, final
+    dropout 0.1, the letter dictionary."""
     from unispeech_tpu_torch.configs import MaskConfig, large_encoder_config, override_encoder
     from unispeech_tpu_torch.models.ctc import CtcFinetuneConfig
 
     enc = override_encoder(large_encoder_config(relative_position_embedding=True,
-                                                gru_rel_pos=True), XLARGE_JSON)
+                                                gru_rel_pos=True), encoder_json)
     return CtcFinetuneConfig(encoder=enc, vocab_size=len(LETTERS) + 4, apply_mask=True,
                              time_mask=MaskConfig(mask_prob=0.65, mask_length=10),
                              freeze_finetune_updates=freeze, final_dropout=0.1)
+
+
+def xlsr2b_config(freeze: int):
+    """xlarge_config at XLSR2B_JSON: the positional conv in its 16 groups
+    of 120 channels."""
+    return xlarge_config(freeze, XLSR2B_JSON)
 
 
 def xlarge_head_dims(dev):
@@ -2180,7 +2211,23 @@ def xlarge_head_dims(dev):
     return err_f, err_b
 
 
-def xlarge_train_phase(dev, counters, wav, lengths, card, dtype=torch.bfloat16):
+def xlarge_learning(model, step, batch, gen, dev, lr):
+    """XL_LEARN_STEPS unfrozen steps of ``step`` on one batch at the fixed
+    rate ``lr``, from a fresh head (seed SEED + 34); returns the losses."""
+    from unispeech_tpu_torch.models.encoder import reset_parameters
+    from unispeech_tpu_torch.train.optim import OptimConfig
+    from unispeech_tpu_torch.train.state import create_train_state
+
+    fresh = torch.nn.Linear(model.proj.in_features, model.proj.out_features)
+    reset_parameters(fresh, torch.Generator().manual_seed(SEED + 34))
+    model.proj.load_state_dict(fresh.state_dict())
+    state = create_train_state(model, OptimConfig(lr=lr, schedule="fixed"), device=dev)
+    state.step = XL_FREEZE
+    return [float(step(state, batch, gen)["loss_per_sample"]) for _ in range(XL_LEARN_STEPS)]
+
+
+def xlarge_train_phase(dev, counters, wav, lengths, card, dtype=torch.bfloat16,
+                       make_config=xlarge_config, tag=None, head_dim=80, lr=5e-5):
     """xlarge (b): HuBERT X-Large CTC fine-tuning at full width and depth
     (the model finetune-ctc --arch large --encoder-json XLARGE_JSON builds,
     seed-0 weights, bf16) on the padded smoke batch with random letter
@@ -2189,29 +2236,31 @@ def xlarge_train_phase(dev, counters, wav, lengths, card, dtype=torch.bfloat16):
     launch counts per step; one unfrozen step's gradients, kernel path
     against plain path (GRAD_TOL, GRAD_FLOOR); step ms, host enqueue,
     audio-seconds per second, peak memory; XL_LEARN_STEPS unfrozen steps on one batch
-    from a fresh head, the loss must fall. fp32_xlarge (``dtype`` fp32): the
+    from a fresh head at the fixed rate ``lr``, the loss must fall. fp32_xlarge (``dtype`` fp32): the
     same model built without a dtype (fp32, the default), through the fp32
     kernels (the attention backward at hd 80 is row 2fX): the eval forward
     within relative L2 1e-4 of its plain path, the gradients by the fp32
     rule (GRAD_TOL_F32, GRAD_FLOOR_F32), and one profiled unfrozen step.
-    Returns the counts and numbers."""
+    ``make_config`` (freeze updates -> the CtcFinetuneConfig), ``tag`` and
+    ``head_dim`` (the config's, or the phase fails) run the same checks on
+    another width: fp32_xlsr2b (xlsr2b_config, hd 120). Returns the counts
+    and numbers."""
     from unispeech_tpu_torch.data.dictionary import Dictionary
     from unispeech_tpu_torch.models.ctc import CtcFinetuneModel
-    from unispeech_tpu_torch.models.encoder import reset_parameters
     from unispeech_tpu_torch.ops.kernels import flash_attention
     from unispeech_tpu_torch.train.optim import OptimConfig
     from unispeech_tpu_torch.train.state import create_train_state, make_train_step
     from unispeech_tpu_torch.train.tasks import make_ctc_finetune_loss_fn
 
     f32 = dtype == torch.float32
-    tag = "fp32_xlarge" if f32 else "xlarge"
+    tag = tag or ("fp32_xlarge" if f32 else "xlarge")
     fwd_tol = 1e-4 if f32 else 5e-2
     tol, floor = (GRAD_TOL_F32, GRAD_FLOOR_F32) if f32 else (GRAD_TOL, GRAD_FLOOR)
     d = Dictionary.letters()
-    cfg = xlarge_config(XL_FREEZE)
+    cfg = make_config(XL_FREEZE)
     enc = cfg.encoder
-    if enc.encoder_embed_dim // enc.encoder_attention_heads != 80:
-        fail(f"{tag}: the head dim is not 80")
+    if enc.encoder_embed_dim // enc.encoder_attention_heads != head_dim:
+        fail(f"{tag}: the head dim is not {head_dim}")
     t0 = time.perf_counter()
     # fp32: built without a dtype, the models' default
     model = CtcFinetuneModel(cfg, **({} if f32 else {"dtype": dtype}),
@@ -2339,17 +2388,10 @@ def xlarge_train_phase(dev, counters, wav, lengths, card, dtype=torch.bfloat16):
 
         prof = profile_once(unfrozen, f"{tag}_profile")
 
-    # learning: unfrozen steps on one batch at a fixed learning rate, from
-    # a fresh head
-    fresh = torch.nn.Linear(model.proj.in_features, model.proj.out_features)
-    reset_parameters(fresh, torch.Generator().manual_seed(SEED + 34))
-    model.proj.load_state_dict(fresh.state_dict())
     del state
-    state = create_train_state(model, OptimConfig(lr=5e-5, schedule="fixed"), device=dev)
-    state.step = XL_FREEZE
-    losses = [float(step(state, batch, gen)["loss_per_sample"]) for _ in range(XL_LEARN_STEPS)]
+    losses = xlarge_learning(model, step, batch, gen, dev, lr)
     phase(tag, learning_first=f"{losses[0]:.4f}", learning_last=f"{losses[-1]:.4f}",
-          steps=len(losses), losses=",".join(f"{x:.3f}" for x in losses))
+          steps=len(losses), lr=f"{lr:.3g}", losses=",".join(f"{x:.3f}" for x in losses))
     if not losses[-1] < losses[0]:
         fail(f"{tag}: {XL_LEARN_STEPS} steps on one batch: loss {losses[0]} -> "
              f"{losses[-1]} did not fall")
@@ -2360,7 +2402,7 @@ def xlarge_train_phase(dev, counters, wav, lengths, card, dtype=torch.bfloat16):
           audio_sec_per_s_frozen=f"{audio_s / (frozen_ms / 1e3):.1f}",
           audio_sec_per_s_unfrozen=f"{audio_s / (unfrozen_ms / 1e3):.1f}",
           peak_memory_gb=f"{peak_gb:.2f}", card=card.replace(" ", "_"))
-    del state, model
+    del model
     torch.cuda.empty_cache()
     return dict(params=nparams, counts=xl_counts, fwd_counts=fwd_counts, e_fwd=e_fwd,
                 frozen_ms=frozen_ms, unfrozen_ms=unfrozen_ms, host_frozen_ms=host_frozen,
@@ -2368,7 +2410,8 @@ def xlarge_train_phase(dev, counters, wav, lengths, card, dtype=torch.bfloat16):
                 busy_ms=prof[0], wall_ms=prof[1], launches=prof[2])
 
 
-def xlarge_attention_rows(dev, lengths, xl, dtype=torch.bfloat16):
+def xlarge_attention_rows(dev, lengths, xl, dtype=torch.bfloat16, make_config=xlarge_config,
+                          path="xlarge"):
     """Rows 1X and 2X: the attention forward as X-Large serves (key
     padding, no bias, no dropout, hd 80, 16 heads) per eval forward, and
     its backward as X-Large fine-tunes (dropout 0.1) per unfrozen step, on
@@ -2378,15 +2421,23 @@ def xlarge_attention_rows(dev, lengths, xl, dtype=torch.bfloat16):
     boolean key mask; dropout_p for the backward). ``dtype`` fp32 (``xl``
     from fp32_xlarge): rows 1fX, 1dfX (the dropout forward per unfrozen
     step) and 2fX, held by f32_check, their bounds as 3xTF32 at the TF32
-    peak, SDPA in fp32; their source is the width-80 forms' (``_mid.cu``)."""
+    peak, SDPA in fp32; their source is the width-80 forms' (``_mid.cu``).
+    ``make_config`` and ``path`` (the rows' suffix) as fp32_xlsr2b gives
+    them: rows 1fW, 1dfW and 2fW at hd 120, the forward's width-128 form
+    (``_f32_wide.cu``) and the backward's (``_bwd_f32.cu``)."""
     from unispeech_tpu_torch.ops.kernels import TF32_TC_FLOPS, flash_attention
 
     f32 = dtype == torch.float32
-    pre_, src, esz = ("fp32.", "_f32.cu", 4) if f32 else ("", ".cu", 2)
-    enc = xlarge_config(0).encoder
+    pre_, esz = ("fp32.", 4) if f32 else ("", 2)
+    enc = make_config(0).encoder
     hd = enc.encoder_embed_dim // enc.encoder_attention_heads
+    # the forward's and the backward's source files
+    fwd_src, bwd_src = ("flash_attention_f32.cu", "flash_attention_bwd_f32.cu") if f32 else (
+        "flash_attention.cu", "flash_attention_bwd.cu")
     if f32 and flash_attention.f32_width(hd) in (80, 96):  # the width-80 / width-96 forms
-        src = "_f32_mid.cu"
+        fwd_src, bwd_src = "flash_attention_f32_mid.cu", "flash_attention_bwd_f32_mid.cu"
+    elif f32 and flash_attention.f32_width(hd) == 128:  # the forward's width-128 form
+        fwd_src = "flash_attention_f32_wide.cu"
     mult, peak = (3, TF32_TC_FLOPS) if f32 else (1, BF16_TC_FLOPS)
 
     def check(name, got, want, ulps=1.0):
@@ -2433,7 +2484,7 @@ def xlarge_attention_rows(dev, lengths, xl, dtype=torch.bfloat16):
 
     def forward_row(name, n, kw, err, dropout_p):
         return dict(
-            name=name, route="cuda", source=f"unispeech_tpu_torch/csrc/flash_attention{src}",
+            name=name, route="cuda", source=f"unispeech_tpu_torch/csrc/{fwd_src}",
             replaces="unispeech_tpu/ops/pallas/flash_attention.py:217",
             launches=n, max_abs_err=err,
             ms=n * cuda_ms(lambda: flash_attention.fused_attention(q, kk, v, **kw)),
@@ -2445,14 +2496,14 @@ def xlarge_attention_rows(dev, lengths, xl, dtype=torch.bfloat16):
                 qh.detach(), kh.detach(), vh.detach(), attn_mask=attend, dropout_p=dropout_p), n))
 
     # bf16: row 1X carries the dropout forward's error too; fp32: row 1dfX
-    rows = [forward_row(f"{pre_}fused_attention.nobias.hd{hd}.h{H}.padded_xlarge", n_fwd, fwd,
+    rows = [forward_row(f"{pre_}fused_attention.nobias.hd{hd}.h{H}.padded_{path}", n_fwd, fwd,
                         err_f if f32 else max(err_f, err_d), 0.0)]
     if f32:
-        rows.append(forward_row(f"fp32.fused_attention.dropout.nobias.hd{hd}.h{H}.padded_xlarge",
+        rows.append(forward_row(f"fp32.fused_attention.dropout.nobias.hd{hd}.h{H}.padded_{path}",
                                 n_drop, drop, err_d, rate))
     rows.append(dict(
-        name=f"{pre_}fused_attention_backward.nobias.hd{hd}.h{H}.padded_xlarge", route="cuda",
-        source=f"unispeech_tpu_torch/csrc/flash_attention_bwd{src}",
+        name=f"{pre_}fused_attention_backward.nobias.hd{hd}.h{H}.padded_{path}", route="cuda",
+        source=f"unispeech_tpu_torch/csrc/{bwd_src}",
         replaces="unispeech_tpu/ops/pallas/flash_attention.py:583",
         launches=xl["counts"]["unfrozen"][5], max_abs_err=err_b,
         ms=n_bwd * cuda_ms(lambda: flash_attention.fused_attention_backward(*args)),
@@ -4021,7 +4072,7 @@ def fp32_phase(dev, wav, lengths, base_cfg, card, tmp):
     del x0, y, py
 
     # attention at T = 799: Base+ (12 x 64), Large (16 x 64) and hd 80 (16
-    # x 80, width 128), gated rel-pos bias, key padding with a row of length
+    # x 80, width 80), gated rel-pos bias, key padding with a row of length
     # 0; Base+ also with a (T, S) mask. lse on the rows with a key within
     # 1e-4 (plus 2 fp32 ulps of |lse|: a row whose unmasked keys are all
     # padded sits near the mask's -1e4)
@@ -4255,8 +4306,9 @@ def tf32_pin_phase(dev, wav, lengths, base_cfg):
     return e_model, e_head
 
 
-# beside X-Large's 80: the narrowest head of width 80, and widths 96 and 128
-XL_F32_HEAD_DIMS = (72, 96, 128)
+# beside X-Large's 80: the narrowest head of width 80, width 96, and width
+# 128's narrowest, XLS-R 2B's 120 and its widest
+XL_F32_HEAD_DIMS = (72, 96, 104, 120, 128)
 
 
 def fp32_wide_forward_parity(dev, q, kk, v, bias, gate, kpm, seed, frames):
@@ -4319,7 +4371,7 @@ def fp32_wide_attention_parity(dev):
     """fp32_bwd above head dim 64: the fp32 attention forward
     (fp32_wide_forward_parity) and backward at X-Large's 16 heads of 80
     over its frames of the smoke batch (799/599/349/149) and a fifth row of
-    length 0, and at hd 72, 96 and 128 on 3 rows of 333 frames (333/200/0)
+    length 0, and at hd 72, 96, 104, 120 and 128 on 3 rows of 333 frames (333/200/0)
     and 4 heads. The backward in the two forms that reach the wide kernels:
     key padding with dropout 0.1 and no bias (X-Large's), and the gated bias
     with key padding. dO is 0 on the row of length 0 (ROADMAP 3.5); both
@@ -4650,6 +4702,17 @@ def main() -> int:
         xl32 = xlarge_train_phase(dev, counters, wav, lengths, smi, dtype=torch.float32)
         xl_rows += xlarge_attention_rows(dev, lengths, xl32, dtype=torch.float32)
         clock.done("fp32_xlarge")
+        # fp32 CTC fine-tuning at XLS-R 2B's width (16 heads of 120): the
+        # fp32 attention forward's width-128 form (rows 1fW, 1dfW) and the
+        # backward's (2fW) on the main path. Its learning steps at 3.33e-5:
+        # at 5e-5 the loss ended above its start (probe_xl_learning.py,
+        # PERF.md section 4)
+        xls = xlarge_train_phase(dev, counters, wav, lengths, smi, dtype=torch.float32,
+                                 make_config=xlsr2b_config, tag="fp32_xlsr2b", head_dim=120,
+                                 lr=3.33e-5)
+        xl_rows += xlarge_attention_rows(dev, lengths, xls, dtype=torch.float32,
+                                         make_config=xlsr2b_config, path="xlsr2b")
+        clock.done("fp32_xlsr2b")
         # seq2seq fine-tuning and decoding, the Transformer LM and its fusion
         s2s_counts = {}
         s2s = s2s_train_phase(dev, counters, s2s_counts, wav, lengths)
@@ -4886,6 +4949,17 @@ def main() -> int:
           kernel_launches_unfrozen=xl32["launches"], card=smi.replace(" ", "_"),
           bf16_unfrozen_step_ms=f"{xl['unfrozen_ms']:.3f}",
           bf16_peak_memory_gb=f"{xl['peak_gb']:.2f}")
+    phase("e2e_fp32_xlsr2b", params=xls["params"], frozen_step_ms=f"{xls['frozen_ms']:.3f}",
+          unfrozen_step_ms=f"{xls['unfrozen_ms']:.3f}",
+          host_enqueue_frozen_ms=f"{xls['host_frozen_ms']:.3f}",
+          host_enqueue_unfrozen_ms=f"{xls['host_unfrozen_ms']:.3f}",
+          audio_seconds_per_step=xls["audio_s"], padded_seconds=B * NS / SAMPLE_RATE,
+          audio_sec_per_s_frozen=f"{xls['audio_s'] / (xls['frozen_ms'] / 1e3):.1f}",
+          audio_sec_per_s_unfrozen=f"{xls['audio_s'] / (xls['unfrozen_ms'] / 1e3):.1f}",
+          peak_memory_gb=f"{xls['peak_gb']:.2f}",
+          profiled_busy_ms_unfrozen=f"{xls['busy_ms']:.3f}",
+          profiled_wall_ms_unfrozen=f"{xls['wall_ms']:.3f}",
+          kernel_launches_unfrozen=xls["launches"], card=smi.replace(" ", "_"))
     sp = s2s["profile"]
     phase("e2e_s2s_train", params=s2s["params"], frozen_step_ms=f"{s2s['frozen_ms']:.3f}",
           unfrozen_step_ms=f"{s2s['unfrozen_ms']:.3f}",

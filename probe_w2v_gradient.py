@@ -1,6 +1,6 @@
 """Trace the frontend LayerNorm bias's gradient in chip_smoke.py's w2v_train gate.
 
-    python3 probe_w2v_gradient.py [--attempts N] [--control N]
+    python3 probe_w2v_gradient.py [--attempts N] [--gate-only] [--control N]
 
 Run from the repository root, beside ``chip_smoke.py``, whose phase it
 repeats; needs one CUDA device. The gate of ``w2v_train`` stacks, per
@@ -586,6 +586,9 @@ def control_attempts(cs, dev, wav, lengths, attempts: int):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--attempts", type=int, default=6)
+    ap.add_argument("--gate-only", action="store_true",
+                    help="run every attempt (none stops early) and print the gate's "
+                         "ratios, without the analysis of the worst attempt")
     ap.add_argument("--control", type=int, default=0,
                     help="run this many attempts of the reordered-plain control instead")
     args = ap.parse_args(argv)
@@ -615,8 +618,10 @@ def main(argv=None) -> int:
         if keep is None or bias_row[0] > keep[0]:
             keep = (bias_row[0], ratios, model.state_dict(), step_no, cfg, batch, a)
         del model
-        if failed:
+        if failed and not args.gate_only:
             break
+    if args.gate_only:
+        return 0
     score, ratios, sd, step_no, cfg, batch, a = keep
     d = max(range(len(ratios)), key=lambda i: ratios[i])
     print(f"[probe] analysing attempt={a} bias_of_tol={score:.3f} draw={d}", flush=True)

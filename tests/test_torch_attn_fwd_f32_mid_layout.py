@@ -102,14 +102,15 @@ def _mid_layout(kD: int, kWG: int = None) -> dict:
 def test_width_follows_the_source_dispatch(hd):
     """The host's width per head dim is the forward kernel's: <= 64 the
     width-64 form, <= 80 and <= kMidMaxHd the width-80 / width-96 form
-    (``launch_mid<80>`` / ``<96>``), above it the width-128 form; the
-    backward runs the same widths (one ``f32_width`` for both)."""
+    (``launch_mid<80>`` / ``<96>``), above it the width-128 form
+    (``launch_wide``, flash_attention_f32_wide.cu); the backward runs the
+    same widths (one ``f32_width`` for both)."""
     src = _source()
     const = _file_constants()
     assert "if (hd <= 64) return (int)launch_width<64>(a, B, s);" in src
     assert "if (hd <= 80) return (int)launch_mid<80>(a, B, s);" in src
     assert "if (hd <= kMidMaxHd) return (int)launch_mid<96>(a, B, s);" in src
-    assert "return (int)launch_width<128>(a, B, s);" in src
+    assert "return (int)launch_wide(a, B, s);" in src
     assert fa.F32_WIDTHS == (64, 80, const["kMidMaxHd"], const["kMaxHd"])
     want = 64 if hd <= 64 else 80 if hd <= 80 else 96 if hd <= const["kMidMaxHd"] else 128
     assert fa.f32_width(hd) == want
@@ -140,8 +141,9 @@ def test_mid_layout_fits_and_aligns(kD):
 
 
 def test_what_does_not_fit_the_mid_layout():
-    """Why hd 104-128 keep the width-128 form: the same layout at 128
-    columns needs more than a block's shared memory; and why width 96 runs
+    """Why hd 104-128 run a width-128 form of their own
+    (flash_attention_f32_wide.cu): the same layout at 128 columns needs
+    more than a block's shared memory; and why width 96 runs
     one warpgroup: two (128 queries) need more too."""
     limit = _file_constants()["kSmemMax"]
     assert _mid_layout(128, 1)["kSmem"] > limit

@@ -982,8 +982,8 @@ def _attn_fp32_inputs(dev, hd, B, T, H, case):
 
 
 # 72 and 80 run the forward's and the backward's width-80 forms, 88 and 96
-# their width-96 forms, 120 and 128 the width-128 ones
-FP32_ATTN_HDS = [16, 24, 36, 64, 72, 80, 88, 96, 120, 128]
+# their width-96 forms, 104, 112, 120 and 128 the width-128 ones
+FP32_ATTN_HDS = [16, 24, 36, 64, 72, 80, 88, 96, 104, 112, 120, 128]
 # T = S of 1, 63, 65, 129 and 799 cross the fp32 kernels' tiles: the forward's
 # 64-key steps and 128-query blocks (64 at widths 96 and 128), the backward's 64-key
 # blocks and 32-query steps (33 and 63 one row past and short of a step)

@@ -24,11 +24,12 @@
 // split every fragment in every warp at every use and reached 8-10% of the
 // bound; the same kernel on mma.sync with tiles split once ran no faster):
 //  - products on wgmma (TF32, m64n64k8, fp32 accumulators in registers) by
-//    warpgroups of 64 queries, two per (128-query tile, head, utterance) at
-//    kD = 64 (195 KB of shared memory, one block per SM), one (64 queries)
-//    at kD = 128 (hd 104-128, which no model of the family has; hd 72-96,
-//    HuBERT X-Large's 80 among them, run the width-80 / width-96 form of
-//    flash_attention_f32_mid.cu, whose head says how it differs). TF32
+//    warpgroups of 64 queries, two per (128-query tile, head, utterance)
+//    (195 KB of shared memory, one block per SM). This file holds the width
+//    64 (hd <= 64) and the entry; hd 72-96, HuBERT X-Large's 80 among them,
+//    run the width-80 / width-96 form of flash_attention_f32_mid.cu, and hd
+//    104-128, XLS-R 2B's 120 among them, the width-128 form of
+//    flash_attention_f32_wide.cu; their heads say how they differ. TF32
 //    wgmma reads shared-memory operands only K-major, in the 128-byte
 //    swizzle (hopper.cuh: rows of 32 floats, atoms of 8 rows);
 //  - split once: the block's threads split q (once) and K and V (once per
@@ -58,10 +59,9 @@
 //    accumulator per step (per 64 columns of O), which one fp32 add puts
 //    into O after the online-softmax rescale: the tensor cores' fp32
 //    accumulation truncates, and O sums over all S keys (tf32.cuh);
-//  - a ring of two K/V stages at kD = 64: step s + 1's K and V go out into
-//    registers while S of step s runs and are split into the other stage
-//    while P.V runs, one barrier per step; at kD = 128 one stage, filled
-//    between two barriers.
+//  - a ring of two K/V stages: step s + 1's K and V go out into registers
+//    while S of step s runs and are split into the other stage while P.V
+//    runs, one barrier per step.
 // The output is divided by the row sum at the end and stored with 8-byte
 // stores. The keep mask (kDrop): one Philox call gives the words of a 2 x 2
 // (query, key) block. A lane holds query rows g and g + 8 and the key pairs
@@ -83,10 +83,11 @@ namespace {
 // and the step's key mask
 template <int kD>
 struct Plan {
-    static constexpr int kWG = kD == 64 ? 2 : 1;  // warpgroups of 64 queries
+    static_assert(kD == 64, "hd 72-128 run the forms of the _mid.cu and _wide.cu files");
+    static constexpr int kWG = 2;  // warpgroups of 64 queries
     static constexpr int kThreads = 128 * kWG;
     static constexpr int kBQ = 64 * kWG;
-    static constexpr int kBuf = kD == 64 ? 2 : 1;
+    static constexpr int kBuf = 2;
     static constexpr uint32_t kQTile = kBQ * kD * 4;
     static constexpr uint32_t kKTile = kBKey * kD * 4;
     static constexpr uint32_t kVTile = kD * kBKey * 4;
@@ -159,9 +160,8 @@ __global__ void __launch_bounds__(Plan<kD>::kThreads, 1) flash_fwd_f32_kernel(Ar
     }
 
     // K and V of the step at s0: into registers while S runs, then split
-    // into the next stage while P.V runs (kBuf 2), or straight into the one
-    // stage (kBuf 1)
-    constexpr int kPK = P::kBuf == 2 ? P::kUnitsK : 1, kPV = P::kBuf == 2 ? P::kUnitsV : 1;
+    // into the next stage while P.V runs
+    constexpr int kPK = P::kUnitsK, kPV = P::kUnitsV;
     float4 pk[kPK], pv[kPV][4];
     float pmask = 0.f;
     auto load_kv = [&](int s0) {
@@ -219,20 +219,11 @@ __global__ void __launch_bounds__(Plan<kD>::kThreads, 1) flash_fwd_f32_kernel(Ar
     float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
 
     const int n_steps = (S + kBKey - 1) / kBKey;
-    if constexpr (P::kBuf == 2) direct_kv(0, stage(0));
-    else usk::fence_proxy_async();  // q
+    direct_kv(0, stage(0));
     __syncthreads();
     for (int step = 0; step < n_steps; ++step) {
         const int s0 = step * kBKey;
-        unsigned char* st;
-        if constexpr (P::kBuf == 2) {
-            st = stage(step & 1);
-        } else {
-            st = stage(0);
-            if (step > 0) __syncthreads();  // the previous step's K and V are consumed
-            direct_kv(s0, st);
-            __syncthreads();
-        }
+        unsigned char* st = stage(step & 1);
         const unsigned char* Kh = st;
         const unsigned char* Kl = st + P::kKTile;
         const unsigned char* Vh = st + 2 * P::kKTile;
@@ -259,9 +250,7 @@ __global__ void __launch_bounds__(Plan<kD>::kThreads, 1) flash_fwd_f32_kernel(Ar
             usk::wgmma_m64n64k8_ss_tf32(t, dqh, dkh, 1);
             usk::wgmma_commit();
             if (kk == 0) {  // while the first products run
-                if constexpr (P::kBuf == 2) {
-                    if (step + 1 < n_steps) load_kv(s0 + kBKey);  // in flight over the products
-                }
+                if (step + 1 < n_steps) load_kv(s0 + kBKey);  // in flight over the products
 #pragma unroll
                 for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -367,9 +356,7 @@ __global__ void __launch_bounds__(Plan<kD>::kThreads, 1) flash_fwd_f32_kernel(Ar
                 usk::wgmma_m64n64k8_rs_tf32(ost, ph[j], dvh, 1);
             }
             usk::wgmma_commit();
-            if constexpr (P::kBuf == 2) {
-                if (hf == 0 && step + 1 < n_steps) store_kv(stage((step + 1) & 1));
-            }
+            if (hf == 0 && step + 1 < n_steps) store_kv(stage((step + 1) & 1));
             usk::wgmma_wait<0>();
             usk::fence_regs(ost);
 #pragma unroll
@@ -380,7 +367,7 @@ __global__ void __launch_bounds__(Plan<kD>::kThreads, 1) flash_fwd_f32_kernel(Ar
 #pragma unroll
             for (int i = 0; i < 32; ++i) o[32 * hf + i] += ost[i];
         }
-        if constexpr (P::kBuf == 2) __syncthreads();  // the next stage is complete; this one consumed
+        __syncthreads();  // the next stage is complete; this one consumed
     }
 
 #pragma unroll
@@ -428,6 +415,7 @@ cudaError_t launch_width(const Args& a, int B, cudaStream_t st) {
 // drop_scale its keep threshold and 1 / (1 - rate); hd a multiple of 8 up
 // to 128: <= 64 runs width 64, 72-80 width 80, 88-96 width 96
 // (flash_attention_f32_mid.cu), 104-128 width 128
+// (flash_attention_f32_wide.cu)
 extern "C" int usk_flash_attention_fwd_f32(
     const void* q, const void* k, const void* v, void* out,
     long long q_bs, long long q_rs, long long k_bs, long long k_rs,
@@ -460,5 +448,5 @@ extern "C" int usk_flash_attention_fwd_f32(
     if (hd <= 64) return (int)launch_width<64>(a, B, s);
     if (hd <= 80) return (int)launch_mid<80>(a, B, s);
     if (hd <= kMidMaxHd) return (int)launch_mid<96>(a, B, s);
-    return (int)launch_width<128>(a, B, s);
+    return (int)launch_wide(a, B, s);
 }

@@ -6,7 +6,8 @@ the probabilities, . v, and its merged backward, without a (B, H, T, S)
 tensor in device memory. The CUDA kernels (``csrc/flash_attention.cu``,
 ``csrc/flash_attention_bwd.cu`` in bf16; ``csrc/flash_attention_f32.cu``,
 ``csrc/flash_attention_bwd_f32.cu`` in fp32, their width-80 / width-96 forms
-in the ``_mid.cu`` beside each, ``f32_width``) read q/k/v by strides in the natural
+in the ``_mid.cu`` beside each and the forward's width-128 form in
+``flash_attention_f32_wide.cu``, ``f32_width``) read q/k/v by strides in the natural
 (B, T, H*hd) layout, which covers both of the TPU's layouts, at any head dim
 up to 128: a multiple of 8 as it is, any other on a copy zero-padded to the
 next multiple of 8 (``kernel_head_dim``, ``pad_head``). q is scaled as the
@@ -43,7 +44,7 @@ _BWD_SIGNATURE = ([_P] * 6 + [_L] * 10 + [_P, _L] + [_P] * 8 + [_I] * 5
 MAX_HEAD_DIM = 128  # the kernels' widest head (two 64-column boxes per row)
 # the fp32 kernels' widths, forward (``csrc/flash_attention_f32.cu``'s entry)
 # and backward (``csrc/flash_attention_bwd_f32.cu``'s ``launch``) alike: 64,
-# 80 and 96 (the ``_mid.cu`` forms) and 128
+# 80 and 96 (the ``_mid.cu`` forms) and 128 (the forward's ``_wide.cu`` form)
 F32_WIDTHS = (64, 80, 96, 128)
 
 

@@ -1,6 +1,6 @@
 """Time the attention backward kernel on the card at the pretraining shape.
 
-    python -m unispeech_tpu_torch.scripts.bench_attention_backward [--shape xlarge] [--dtype fp32]
+    python -m unispeech_tpu_torch.scripts.bench_attention_backward [--shape xlarge|xlsr2b] [--dtype fp32]
 
 One call of ``fused_attention_backward`` as WavLM-Base pretraining makes it
 (6 crops of 768 frames, 12 heads of 64, the gated relative-position bias,
@@ -8,11 +8,13 @@ attention dropout 0.1, the last two rows padded by 68 and 168 frames), in
 four cases: full, without dropout, without the gated bias, without either.
 ``--shape xlarge``: as HuBERT X-Large fine-tuning makes it on the padded
 smoke batch (4 rows of 799 frames, 599/349/149 valid in three, 16 heads of
-80; its path runs the case without the bias).
+80; its path runs the case without the bias). ``--shape xlsr2b``: the same
+at XLS-R 2B's 16 heads of 120 (fp32 CTC fine-tuning at that width runs the
+case without the bias).
 ``--dtype fp32``: the same in fp32, the models' default dtype (the fp32
 kernel, ``csrc/flash_attention_bwd_f32.cu``, at the width
 ``flash_attention.f32_width`` gives the head dim: 64 at the
-pretraining shape, 80 at X-Large's), with each output's relative L2
+pretraining shape, 80 at X-Large's, 128 at XLS-R 2B's), with each output's relative L2
 distance to the plain version.
 For each it prints ms per call by CUDA events around 20 calls queued behind
 a busy card (the wrapper's zero fills and casts included), the device
@@ -47,6 +49,7 @@ from unispeech_tpu_torch.ops.rel_pos import compute_rel_pos_bias
 SHAPES = {  # (B, T, H, head dim, valid frames per row)
     "pretrain": (6, 768, 12, 64, (768,) * 4 + (700, 600)),
     "xlarge": (4, 799, 16, 80, (799, 599, 349, 149)),
+    "xlsr2b": (4, 799, 16, 120, (799, 599, 349, 149)),
 }
 ITERS = 20
 NUM_BUCKETS, MAX_DISTANCE = 320, 800

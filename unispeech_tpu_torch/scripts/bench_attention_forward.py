@@ -1,7 +1,7 @@
 """Time the attention forward kernel on the card at the serving and the
-pretraining shapes, or at HuBERT X-Large's.
+pretraining shapes, or at HuBERT X-Large's or XLS-R 2B's.
 
-    python -m unispeech_tpu_torch.scripts.bench_attention_forward [--shape xlarge] [--dtype fp32] [--variants]
+    python -m unispeech_tpu_torch.scripts.bench_attention_forward [--shape xlarge|xlsr2b] [--dtype fp32] [--variants]
 
 One call of ``fused_attention`` as WavLM-Base+ serving makes it (4
 utterances padded to 799 frames, 12 heads of 64, the gated relative-position
@@ -9,11 +9,13 @@ bias, key padding) and one as WavLM-Base pretraining makes it (6 crops of 768
 frames, attention dropout 0.1). ``--shape xlarge``: as HuBERT X-Large makes
 it on the padded smoke batch (4 rows of 799 frames, 799/599/349/149 valid,
 16 heads of 80, key padding, no bias), without dropout (the eval forward)
-and with dropout 0.1 (fine-tuning). For each it prints ms per call by CUDA
+and with dropout 0.1 (fine-tuning). ``--shape xlsr2b``: the same at XLS-R
+2B's 16 heads of 120. For each it prints ms per call by CUDA
 events around calls queued behind a busy card, the device time of the
 kernel alone under ``torch.profiler`` (every kernel whose name holds
-``flash_fwd_f32`` in fp32: the width-64 / width-128 kernel and the
-width-80 / width-96 ``flash_fwd_f32_mid_kernel``), the largest error
+``flash_fwd_f32`` in fp32: the width-64 kernel, the width-80 / width-96
+``flash_fwd_f32_mid_kernel`` and the width-128
+``flash_fwd_f32_wide_kernel``), the largest error
 against the plain version (relative to its largest value; in fp32 also the
 relative L2 distance), the bound (the bytes of q, k, v, out and the bias at
 3.35 TB/s, or 4 H T keys hd operations over the valid keys, in fp32 three
@@ -23,11 +25,14 @@ the same forward by one PyTorch call as a yardstick (``sdpa_ms``:
 dropout rate, its own dropout draws), by CUDA events as above.
 ``--dtype fp32``: the same in fp32, the models' default dtype (the fp32
 kernels, ``csrc/flash_attention_f32.cu`` and, at hd 72-96,
-``csrc/flash_attention_f32_mid.cu``; ``width=`` says which width ran).
-``--variants`` (with ``--shape xlarge --dtype fp32``): builds copies of
-``csrc/flash_attention_f32.cu`` and ``flash_attention_f32_mid.cu`` with one
-piece of the width-80 form undone each (``VARIANTS``: one warpgroup per
-block, every key tile run, one wait per k step of S) into the gitignored
+``csrc/flash_attention_f32_mid.cu``, at hd 104-128
+``csrc/flash_attention_f32_wide.cu``; ``width=`` says which width ran).
+``--variants`` (with ``--dtype fp32`` and ``--shape xlarge`` or
+``xlsr2b``): builds copies of the fp32 forward's sources with one piece of
+the width-80 form (``VARIANTS``: one warpgroup per block, every key tile
+run, one wait per k step of S) or of the width-128 form
+(``WIDE_VARIANTS``: every key tile run, one wait per k step of S)
+changed each into the gitignored
 ``archive_check/attn_fwd_f32_variants/``, nvcc all at once (~1 min), and
 times a call through each one's entry in both cases as ``call_ms`` above
 (the wrapper's work included), with its relative L2 distance to the plain
@@ -72,12 +77,18 @@ CASES = {
                 "train_dropout": (6, 768, 12, 64, None, 0.1, True)},
     "xlarge": {"xlarge": (*SHAPES["xlarge"], 0.0, False),
                "xlarge_dropout": (*SHAPES["xlarge"], 0.1, False)},
+    "xlsr2b": {"xlsr2b": (*SHAPES["xlsr2b"], 0.0, False),
+               "xlsr2b_dropout": (*SHAPES["xlsr2b"], 0.1, False)},
 }
 
 
 # gitignored, in the checkout
 VARIANT_DIR = _build.PACKAGE_DIR.parent / "archive_check" / "attn_fwd_f32_variants"
-MID_SOURCE = "flash_attention_f32_mid.cu"
+# the fp32 forward's translation units: the entry and width 64, widths 80 /
+# 96, width 128
+F32_SOURCES = ("flash_attention_f32.cu", "flash_attention_f32_mid.cu",
+               "flash_attention_f32_wide.cu")
+MID_SOURCE, WIDE_SOURCE = F32_SOURCES[1:]
 # name -> [(text, replacement)] in csrc/flash_attention_f32_mid.cu
 VARIANTS: Dict[str, List[Tuple[str, str]]] = {
     "one_warpgroup": [("constexpr int kWG80 = 2; ", "constexpr int kWG80 = 1; ")],
@@ -87,24 +98,35 @@ VARIANTS: Dict[str, List[Tuple[str, str]]] = {
     "serial_s": [("                usk::wgmma_wait<1>();  // step kk - 1's products",
                   "                usk::wgmma_wait<0>();")],
 }
+# name -> [(text, replacement)] in csrc/flash_attention_f32_wide.cu
+WIDE_VARIANTS: Dict[str, List[Tuple[str, str]]] = {
+    "every_tile": [("    const bool masked = a.kpm != nullptr && a.amask == nullptr;",
+                    "    const bool masked = false;")],
+    # one wait per k step of S in place of two accumulators in turn
+    "serial_s": [("                usk::wgmma_wait<1>();  // step kk - 1's products",
+                  "                usk::wgmma_wait<0>();")],
+}
 
 
-def build_variants(out: pathlib.Path, names: List[str]) -> Dict[str, ctypes.CDLL]:
-    """One library per variant (the fp32 forward's entry and its width-80 /
-    width-96 form), nvcc all at once."""
+def build_variants(out: pathlib.Path, names: List[str], source: str = MID_SOURCE,
+                   variants: Dict[str, List[Tuple[str, str]]] = VARIANTS
+                   ) -> Dict[str, ctypes.CDLL]:
+    """One library per variant (the fp32 forward's translation units, with
+    ``source`` changed as ``variants`` says), nvcc all at once."""
     out.mkdir(parents=True, exist_ok=True)
-    text = (_build.CSRC_DIR / MID_SOURCE).read_text()
+    text = (_build.CSRC_DIR / source).read_text()
     procs = {}
     for name in names:
         src = text
-        for old, new in VARIANTS.get(name, []):
+        for old, new in variants.get(name, []):
             if old not in src:
-                raise ValueError(f"variant {name}: its text is not in {MID_SOURCE}")
+                raise ValueError(f"variant {name}: its text is not in {source}")
             src = src.replace(old, new)
-        cu, lib = out / f"{name}_mid.cu", out / f"lib_{name}.so"
+        cu, lib = out / f"{name}_{source}", out / f"lib_{name}.so"
         cu.write_text(src)
+        units = [cu if f == source else _build.CSRC_DIR / f for f in F32_SOURCES]
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(_build.CSRC_DIR),
-               "-o", str(lib), str(_build.CSRC_DIR / "flash_attention_f32.cu"), str(cu)]
+               "-o", str(lib), *(str(u) for u in units)]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -159,10 +181,12 @@ def main(argv=None) -> Dict[str, float]:
     p.add_argument("--shape", choices=sorted(CASES), default="default")
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     p.add_argument("--variants", action="store_true",
-                   help="with --shape xlarge --dtype fp32: time the width-80 form's variants")
+                   help="with --dtype fp32: time the width-80 form's variants (--shape "
+                        "xlarge) or the width-128 form's (--shape xlsr2b)")
     args = p.parse_args(argv)
-    if args.variants and (args.shape, args.dtype) != ("xlarge", "fp32"):
-        p.error("--variants times the fp32 width-80 form: --shape xlarge --dtype fp32")
+    forms = {"xlarge": (MID_SOURCE, VARIANTS), "xlsr2b": (WIDE_SOURCE, WIDE_VARIANTS)}
+    if args.variants and (args.shape not in forms or args.dtype != "fp32"):
+        p.error("--variants times an fp32 form: --shape xlarge or xlsr2b, --dtype fp32")
     dt = DTYPES[args.dtype]
     f32 = dt == torch.float32
     kernel = "flash_fwd_f32" if f32 else "flash_fwd_kernel"
@@ -172,7 +196,10 @@ def main(argv=None) -> Dict[str, float]:
     g = torch.Generator().manual_seed(0)
     card = torch.cuda.get_device_name(dev).replace(" ", "_")
     res = {}
-    libs = build_variants(VARIANT_DIR, ["as_is", *VARIANTS]) if args.variants else {}
+    libs = {}
+    if args.variants:
+        source, table = forms[args.shape]
+        libs = build_variants(VARIANT_DIR, ["as_is", *table], source, table)
     for case, (B, T, H, hd, valid, rate, with_bias) in CASES[args.shape].items():
         q, k, v = (torch.randn(B, T, H, hd, generator=g).to(dev, dt) for _ in range(3))
         kw = {}
